@@ -1,0 +1,108 @@
+"""The port's serving slice as a whole, against the JAX package on the CPU.
+
+Port RefCOCOServer vs JAX RefCOCOServer on the same weights (the tiny
+ResNet-50 setup of tests/test_serve.py), and the port's demo entry point.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vlbert_tpu.engine.serve import RefCOCOServer as JaxRefCOCOServer
+from vlbert_tpu.models.task_modules import build_module as jax_build_module
+from vlbert_tpu.training.checkpoint import flatten_params
+from vlbert_tpu.utils.config import default_config
+from vlbert_tpu_torch.engine.serve import RefCOCOServer
+from vlbert_tpu_torch.models.task_modules import build_module
+from vlbert_tpu_torch.training.convert import state_dict_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class TinyTok:
+    cls_id, sep_id, mask_id = 2, 3, 4
+
+    def tokenize(self, text):
+        return text.split()
+
+    def convert_tokens_to_ids(self, toks):
+        return [sum(map(ord, t)) % 90 + 10 for t in toks]
+
+
+def _tiny_cfg():
+    cfg = default_config("refcoco")
+    cfg.MODULE = "ResNetVLBERT"
+    v = cfg.NETWORK.VLBERT
+    v.hidden_size = 32; v.visual_size = 32; v.num_hidden_layers = 2
+    v.num_attention_heads = 2; v.intermediate_size = 64; v.vocab_size = 100
+    v.max_position_embeddings = 64; v.visual_ln = True
+    v.visual_scale_text_init = 1.0; v.visual_scale_object_init = 1.0
+    cfg.NETWORK.IMAGE_FINAL_DIM = 32
+    cfg.NETWORK.IMAGE_FEAT_PRECOMPUTED = False    # full e2e backbone path
+    cfg.NETWORK.IMAGE_NUM_LAYERS = 50
+    cfg.NETWORK.IMAGE_STRIDE_IN_1x1 = True        # as the shipped config
+    cfg.NETWORK.IMAGE_C5_DILATED = True
+    return cfg
+
+
+@pytest.mark.filterwarnings("ignore:TPU.FUSED_ATTENTION")
+def test_refcoco_server_matches_jax(rng):
+    cfg = _tiny_cfg()
+    jm = jax_build_module(cfg, "refcoco", dtype=jnp.float32)
+    jsrv = JaxRefCOCOServer(jm, None, TinyTok(), transform=None,
+                            max_text=12, max_boxes=6)
+    img = rng.integers(0, 256, (40, 56, 3)).astype(np.uint8)
+    cand = np.asarray([[2, 2, 20, 20], [10, 8, 50, 38], [30, 0, 55, 39],
+                       [0, 20, 12, 39]], np.float32)
+    expr = "the red thing on the left"
+    batch = jsrv.preprocess(img, cand, expr)
+    jsrv.params = jm.init({"params": jax.random.PRNGKey(0)}, *batch,
+                          train=False)
+    want = jax.device_get(jsrv._infer(jsrv.params, *batch))
+    want_q = jsrv.query(img, cand, expr)
+
+    tm = build_module(cfg, "refcoco", dtype=torch.float32)
+    flat = flatten_params(jax.device_get(jsrv.params)["params"])
+    tm.load_state_dict(state_dict_from_jax(flat, tm))
+    srv = RefCOCOServer(tm, TinyTok(), transform=None, max_text=12,
+                        max_boxes=6)
+    for a, b in zip(srv.preprocess(img, cand, expr), batch):
+        np.testing.assert_array_equal(a, b)
+    got = srv.infer(srv.preprocess(img, cand, expr))
+    np.testing.assert_allclose(got["label_logits"],
+                               np.asarray(want["label_logits"]),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(got["pred_boxes"],
+                               np.asarray(want["pred_boxes"]), rtol=1e-6)
+
+    r = srv.query(img, cand, expr)
+    assert r["best_index"] == want_q["best_index"]
+    np.testing.assert_array_equal(r["box"], want_q["box"])
+    np.testing.assert_array_equal(r["box"], cand[r["best_index"]])
+    np.testing.assert_allclose(r["candidate_scores"],
+                               want_q["candidate_scores"], atol=1e-5)
+
+    lat = srv.measure_latency([(img, cand, f"thing {i}") for i in range(3)],
+                              warmup=1)
+    assert lat["n"] == 3 and lat["p50_ms"] <= lat["p99_ms"]
+    with pytest.raises(NotImplementedError, match="int8"):
+        RefCOCOServer(tm, TinyTok(), None, quantize="int8")
+
+
+def test_demo_refcoco_torch_tiny_cpu():
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "demo_refcoco_torch.py"),
+         "--tiny", "--device", "cpu"],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout)
+    assert out["backend"] == "cpu" and out["image_hw"] == [120, 160]
+    assert 0 <= out["best_candidate"] < 3
+    assert len(out["candidate_scores"]) == 3 and len(out["pred_box_xyxy"]) == 4

@@ -1,0 +1,133 @@
+"""Single-query RefCOCO+ serving path + latency probe (port of
+vlbert_tpu/engine/serve.py, RefCOCOServer).
+
+Runs the whole model from raw pixels on the device: the eval transform
+(``vlbert_tpu.data.transforms.build_transforms(cfg, "test")``) on the host,
+then ResNet C4 + ROIAlign + conv5 RoI head, [CLS] expr [SEP] text through
+VL-BERT, per-candidate grounding logits and the argmax box. The VQA server
+(precomputed features) and int8 weight serving are not ported yet
+(ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from vlbert_tpu.data.collate import assemble_expression_text, pad_to
+
+
+class RefCOCOServer:
+    """Single-image referring-expression grounding over static
+    (max_text, max_boxes) buckets.
+
+    ``model`` is a ``ResNetVLBERTForRefCOCO`` holding its weights; it is
+    put in eval mode. Inputs are moved to the model's device.
+    """
+
+    def __init__(self, model, tokenizer, transform, max_text=24,
+                 max_boxes=16, add_image_as_a_box=True, quantize=None):
+        if quantize == "int8":
+            raise NotImplementedError(
+                "int8 weight serving is not ported yet; see ROADMAP.md "
+                "queue 1 (int8 serving)")
+        if quantize is not None:
+            raise ValueError(f"unknown quantize mode: {quantize!r}")
+        self.model = model.eval()
+        self.tokenizer = tokenizer
+        self.transform = transform
+        self.max_text = max_text
+        self.max_boxes = max_boxes
+        self.add_image_as_a_box = add_image_as_a_box
+        self.device = next(model.parameters()).device
+
+    def preprocess(self, image, boxes, expression):
+        """image: uint8/float RGB [H0, W0, 3]; boxes: [N, 4] candidate boxes
+        in ORIGINAL image coords; expression: the referring phrase. Returns
+        host numpy arrays (image, boxes, box_mask, im_info, ids, text_mask),
+        each with a batch dim of 1."""
+        image = np.asarray(image)
+        h0, w0 = image.shape[:2]
+        boxes = np.asarray(boxes, np.float32).copy()
+        if self.add_image_as_a_box:
+            boxes = np.concatenate(
+                [np.asarray([[0, 0, w0 - 1, h0 - 1]], np.float32), boxes], 0)
+        s = {"image": image, "boxes": boxes, "masks": None,
+             "im_info": np.asarray([w0, h0, 1.0, 1.0], np.float32),
+             "flipped": False}
+        if self.transform is not None:
+            s = self.transform(s)
+        image, boxes, im_info = s["image"], s["boxes"], s["im_info"]
+        w, h = float(im_info[0]), float(im_info[1])
+        boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, w - 1)
+        boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, h - 1)
+
+        expr_ids = self.tokenizer.convert_tokens_to_ids(
+            self.tokenizer.tokenize(expression))
+        ids, tmask = assemble_expression_text(
+            expr_ids, self.max_text, self.tokenizer.cls_id,
+            self.tokenizer.sep_id)
+        n = min(len(boxes), self.max_boxes)
+        box_buf = pad_to(boxes, (self.max_boxes, 4), -2.0, np.float32)
+        box_mask = np.zeros(self.max_boxes, bool)
+        box_mask[:n] = True
+        return (np.ascontiguousarray(image)[None], box_buf[None],
+                box_mask[None], np.asarray(im_info, np.float32)[None],
+                ids[None], tmask[None])
+
+    def infer(self, batch):
+        """Run one preprocessed batch; returns host numpy
+        {"label_logits": [1, O], "pred_boxes": [1, 4]}."""
+        image, boxes, box_mask, im_info, ids, tmask = (
+            torch.from_numpy(np.asarray(a)).to(self.device)
+            for a in batch)
+        with torch.inference_mode():
+            out = self.model(image, boxes, box_mask, im_info, ids.long(),
+                             tmask)
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def query(self, image, boxes, expression):
+        """Returns a consistent triple over the CALLER's candidate list:
+        {"box": [4] the best candidate box in ORIGINAL coords,
+         "best_index": its index into the caller's list,
+         "candidate_scores": [N] sigmoid scores,
+         "image_box_score": score of the prepended whole-image box (or
+         None)}. Serving picks from the caller's candidates only, so "box"
+        always corresponds to "best_index"."""
+        out = self.infer(self.preprocess(image, boxes, expression))
+        logits = out["label_logits"][0]
+        off = 1 if self.add_image_as_a_box else 0
+        n = min(len(boxes), self.max_boxes - off)
+        cand = logits[off:off + n]
+        best = int(np.argmax(cand))
+        return {"box": np.asarray(boxes[best], np.float32),
+                "best_index": best,
+                "candidate_scores": 1.0 / (1.0 + np.exp(-cand)),
+                "image_box_score": float(1.0 / (1.0 + np.exp(-logits[0])))
+                if self.add_image_as_a_box else None}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def measure_latency(self, queries, warmup=3):
+        """p50/p90/p99 ms over distinct preprocessed queries; each timed
+        call runs the model and fetches its outputs to the host, between
+        two device synchronizations."""
+        batches = [self.preprocess(*q) for q in queries]
+        for b in batches[:warmup]:
+            self.infer(b)
+        lat = []
+        for b in batches:
+            self._sync()
+            t0 = time.perf_counter()
+            self.infer(b)
+            self._sync()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        lat = np.asarray(lat)
+        return {"p50_ms": float(np.percentile(lat, 50)),
+                "p90_ms": float(np.percentile(lat, 90)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "n": len(lat)}

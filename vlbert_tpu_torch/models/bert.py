@@ -1,0 +1,223 @@
+"""BERT encoder core (port of vlbert_tpu/models/bert.py), post-LN as in the
+reference's vendored pytorch_pretrained_bert.
+
+LayerNorm statistics and the attention softmax are always fp32; matmuls run
+in the compute dtype with fp32 parameters. Padding is hidden by the
+additive -10000 key bias. Module and parameter names are the reference's
+(``attention.self.query``, ``attention.output.LayerNorm``, ...), so
+checkpoint conversion is a mechanical rename.
+
+The attention core goes through ``ops.attention.fused_attention`` (kernel
+K2 on the card). Only the attention-probs (vis) path keeps the plain
+einsum/softmax pipeline, because its probs must reach the caller.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vlbert_tpu_torch.models.layers import Linear, cast
+from vlbert_tpu_torch.ops.attention import fused_attention
+
+ACT2FN = {
+    # exact erf gelu, NOT the tanh approximation
+    "gelu": F.gelu,
+    "relu": torch.relu,
+    "swish": F.silu,
+}
+
+
+class BertLayerNorm(nn.Module):
+    """TF-style LayerNorm, eps inside the sqrt, statistics in fp32; the
+    output has the input's dtype."""
+
+    def __init__(self, hidden_size, eps=1e-12, scale_init_value=1.0, *,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(
+            torch.full((hidden_size,), float(scale_init_value),
+                       device=device))
+        self.bias = nn.Parameter(torch.zeros(hidden_size, device=device))
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
+class BertSelfAttention(nn.Module):
+    """Multi-head self-attention. ``fused_qkv`` runs the three projections
+    as one [3H, H] GEMM over the concatenated query/key/value weights; q, k
+    and v are then strided views of its output, which kernel K2 reads
+    without a copy. The parameters are the same either way."""
+
+    def __init__(self, hidden_size, num_heads, dropout_rate=0.0,
+                 fused_qkv=False, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = hidden_size // num_heads
+        self.fused_qkv = fused_qkv
+        self.compute_dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        self.query = Linear(hidden_size, hidden_size, **kw)
+        self.key = Linear(hidden_size, hidden_size, **kw)
+        self.value = Linear(hidden_size, hidden_size, **kw)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, hidden, attention_bias, output_attention_probs=False):
+        B, L, Hd = hidden.shape
+        d = self.compute_dtype
+        shape = (B, L, self.num_heads, self.head_dim)
+        if self.fused_qkv:
+            w = torch.cat([self.query.weight, self.key.weight,
+                           self.value.weight])
+            b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
+            qkv = F.linear(cast(hidden, d), cast(w, d), cast(b, d))
+            q, k, v = qkv.view(B, L, 3, self.num_heads,
+                               self.head_dim).unbind(2)
+        else:
+            q = self.query(hidden).view(shape)
+            k = self.key(hidden).view(shape)
+            v = self.value(hidden).view(shape)
+
+        if output_attention_probs:
+            # vis path: the probs survive to the caller
+            s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                             k.to(torch.float32)) / math.sqrt(self.head_dim)
+            probs = torch.softmax(s + attention_bias.to(torch.float32), -1)
+            ctx = torch.einsum("bhqk,bkhd->bqhd",
+                               self.dropout(probs).to(d).to(torch.float32),
+                               v.to(torch.float32))
+            return ctx.reshape(B, L, Hd).to(d), probs
+        ctx = fused_attention(q, k, v, attention_bias)
+        return ctx.reshape(B, L, Hd).to(d)
+
+
+class BertSelfOutput(nn.Module):
+    def __init__(self, hidden_size, dropout_rate, *, dtype, device):
+        super().__init__()
+        self.dense = Linear(hidden_size, hidden_size, dtype=dtype,
+                            device=device)
+        self.LayerNorm = BertLayerNorm(hidden_size, device=device)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, h, residual):
+        return self.LayerNorm(self.dropout(self.dense(h)) + residual)
+
+
+class BertAttention(nn.Module):
+    """Self-attention + residual projection block."""
+
+    def __init__(self, hidden_size, num_heads, attention_dropout=0.0,
+                 hidden_dropout=0.0, fused_qkv=False, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.self = BertSelfAttention(hidden_size, num_heads,
+                                      attention_dropout, fused_qkv,
+                                      dtype=dtype, device=device)
+        self.output = BertSelfOutput(hidden_size, hidden_dropout,
+                                     dtype=dtype, device=device)
+
+    def forward(self, x, attention_bias, output_attention_probs=False):
+        attn = self.self(x, attention_bias, output_attention_probs)
+        if output_attention_probs:
+            attn, probs = attn
+            return self.output(attn, x), probs
+        return self.output(attn, x)
+
+
+class BertIntermediate(nn.Module):
+    def __init__(self, hidden_size, intermediate_size, hidden_act, *, dtype,
+                 device):
+        super().__init__()
+        self.dense = Linear(hidden_size, intermediate_size, dtype=dtype,
+                            device=device)
+        self.act = ACT2FN[hidden_act]
+
+    def forward(self, x):
+        return self.act(self.dense(x))
+
+
+class BertOutput(nn.Module):
+    def __init__(self, intermediate_size, hidden_size, dropout_rate, *,
+                 dtype, device):
+        super().__init__()
+        self.dense = Linear(intermediate_size, hidden_size, dtype=dtype,
+                            device=device)
+        self.LayerNorm = BertLayerNorm(hidden_size, device=device)
+        self.dropout = nn.Dropout(dropout_rate)
+
+    def forward(self, h, residual):
+        return self.LayerNorm(self.dropout(self.dense(h)) + residual)
+
+
+class BertLayer(nn.Module):
+    """One transformer block: attention -> FFN, both post-LN."""
+
+    def __init__(self, hidden_size, num_heads, intermediate_size, hidden_act,
+                 attention_dropout=0.0, hidden_dropout=0.0, fused_qkv=False,
+                 *, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.attention = BertAttention(hidden_size, num_heads,
+                                       attention_dropout, hidden_dropout,
+                                       fused_qkv, **kw)
+        self.intermediate = BertIntermediate(hidden_size, intermediate_size,
+                                             hidden_act, **kw)
+        self.output = BertOutput(intermediate_size, hidden_size,
+                                 hidden_dropout, **kw)
+
+    def forward(self, x, attention_bias, output_attention_probs=False):
+        attn_out = self.attention(x, attention_bias, output_attention_probs)
+        probs = None
+        if output_attention_probs:
+            attn_out, probs = attn_out
+        out = self.output(self.intermediate(attn_out), attn_out)
+        return (out, probs) if output_attention_probs else out
+
+
+class BertEncoder(nn.Module):
+    """Stack of BertLayers; per-layer outputs and attention probs are
+    returned only when requested."""
+
+    def __init__(self, num_layers, hidden_size, num_heads, intermediate_size,
+                 hidden_act, attention_dropout=0.0, hidden_dropout=0.0,
+                 fused_qkv=False, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.layer = nn.ModuleList([
+            BertLayer(hidden_size, num_heads, intermediate_size, hidden_act,
+                      attention_dropout, hidden_dropout, fused_qkv,
+                      dtype=dtype, device=device)
+            for _ in range(num_layers)])
+
+    def forward(self, x, attention_bias, output_all_encoded_layers=False,
+                output_attention_probs=False):
+        all_layers, all_probs = [], []
+        for layer in self.layer:
+            x = layer(x, attention_bias, output_attention_probs)
+            if output_attention_probs:
+                x, probs = x
+                all_probs.append(probs)
+            if output_all_encoded_layers:
+                all_layers.append(x)
+        out = all_layers if output_all_encoded_layers else x
+        return (out, all_probs) if output_attention_probs else out
+
+
+class BertPooler(nn.Module):
+    """Tanh projection of the [CLS] position."""
+
+    def __init__(self, hidden_size, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dense = Linear(hidden_size, hidden_size, dtype=dtype,
+                            device=device)
+
+    def forward(self, hidden):
+        return torch.tanh(self.dense(hidden[:, 0]))
