@@ -1,0 +1,154 @@
+"""Dropout of the port (vlbert_tpu_torch.ops.dropout, kernel K5's plain
+version and its plain Philox generator) against the JAX package on the CPU.
+
+The JAX package's 'bits16' dropout draws uint16 bits with jax.random; the
+same bits go to the port's explicit-bits mode. The Philox mode has no JAX
+counterpart (the TPU's hardware generator cannot be reproduced): it is
+held to the published Philox4x32-10 known-answer vectors and to its own
+contract (replay, keep rate, seed sensitivity).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vlbert_tpu.ops.dropout import dropout_apply as j_dropout_apply
+from vlbert_tpu_torch import ops
+from vlbert_tpu_torch.ops import dropout as tdrop
+
+T = torch.from_numpy
+
+
+def _bf16_np(x, dtype):
+    return x if dtype == "float32" else np.asarray(
+        jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.25, 1.0])
+def test_plain_dropout_matches_jax_bits16(rng, rate, dtype):
+    # tolerance 0: both sides do one multiply by the same scale rounded to
+    # x's dtype (bf16: 1/(1-0.1) is 1.109375) and round once
+    shape = (3, 5, 40)
+    x = rng.normal(size=shape).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    key = jax.random.PRNGKey(int(rate * 100))
+    bits = np.asarray(jax.random.bits(key, shape, jnp.uint16)).astype(
+        np.int32)
+    jd = getattr(jnp, dtype)
+    jout, vjp = jax.vjp(lambda a: j_dropout_apply(a, key, rate, "bits16"),
+                        jnp.asarray(x, jd))
+    (jgrad,) = vjp(jnp.asarray(g, jd))
+
+    td = getattr(torch, dtype)
+    xt = T(x).to(td).requires_grad_()
+    out = tdrop.dropout_apply(xt, rate, bits=T(bits))
+    # at rate 1 the output is a constant zero tensor: no graph, gradient 0
+    grad = (torch.autograd.grad(out, xt, T(g).to(td))[0] if out.requires_grad
+            else torch.zeros_like(xt))
+    assert out.dtype == td
+    np.testing.assert_array_equal(out.float().detach().numpy(),
+                                  np.asarray(jout.astype(jnp.float32)))
+    np.testing.assert_array_equal(grad.float().numpy(),
+                                  np.asarray(jgrad.astype(jnp.float32)))
+    if 0 < rate < 1:
+        kept = out.float().detach().numpy() != 0
+        scale = 1.109375 if (dtype == "bfloat16" and rate == 0.1) \
+            else float(np.asarray(jnp.asarray(1 / (1 - rate), jd)
+                                  .astype(jnp.float32)))
+        np.testing.assert_array_equal(
+            out.float().detach().numpy()[kept],
+            _bf16_np(_bf16_np(x, dtype)[kept] * scale, dtype))
+
+
+@pytest.mark.parametrize("ctr,key,want", [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_plain_philox_known_answers(ctr, key, want):
+    # Random123's kat_vectors for philox4x32_10
+    words = tdrop.philox4x32(*(torch.tensor([c]) for c in ctr),
+                             key[0] | (key[1] << 32))
+    assert tuple(int(w) for w in words) == want
+
+
+def test_philox_dropout_replays_its_mask_in_backward():
+    x = torch.ones(4, 33, 65, requires_grad=True)
+    out = tdrop.dropout_apply(x, 0.3, seed=12345)
+    (dx,) = torch.autograd.grad(out, x, torch.ones_like(out))
+    keep = tdrop.keep_mask(tdrop.flat_index_bits(x.shape, 12345), 0.3, False)
+    assert torch.equal(out != 0, keep) and torch.equal(dx != 0, keep)
+    np.testing.assert_allclose(out[keep].detach().numpy(), 1 / 0.7,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_philox_keep_fraction_and_seed_sensitivity(rate):
+    shape = (64, 128, 32)                      # 262144 draws
+    a = tdrop.keep_mask(tdrop.flat_index_bits(shape, 1), rate, False)
+    b = tdrop.keep_mask(tdrop.flat_index_bits(shape, 2), rate, False)
+    n = a.numel()
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    for m in (a, b):
+        assert abs(m.float().mean().item() - (1 - rate)) <= 5 * sigma
+    # two seeds disagree on about 2 rate (1 - rate) of the elements
+    diff = (a != b).float().mean().item()
+    assert abs(diff - 2 * rate * (1 - rate)) <= 10 * sigma
+
+
+def test_rate_one_gives_zeros_and_rate_zero_identity():
+    x = torch.randn(3, 7)
+    assert torch.equal(tdrop.dropout_apply(x, 1.0, seed=3),
+                       torch.zeros_like(x))
+    assert tdrop.dropout_apply(x, 0.0, seed=3) is x
+    # the threshold saturates below 2**32 at rate 1, as the JAX kernel's
+    assert tdrop.threshold(1.0, False) == 2 ** 32 - 1
+    assert tdrop.threshold(0.25, True) == 16384
+
+
+def test_dropout_module_needs_a_seed_and_sites_differ():
+    m = tdrop.Dropout(0.5).train()
+    x = torch.ones(8, 64)
+    with pytest.raises(RuntimeError, match="dropout_seeds"):
+        m(x)
+    with tdrop.dropout_seeds(9):
+        a, b = m(x), m(x)                      # sites 0 and 1
+    with tdrop.dropout_seeds(9):
+        a2 = m(x)
+    assert torch.equal(a, a2) and not torch.equal(a, b)
+    assert torch.equal(a, tdrop.plain_dropout(x, 0.5,
+                                              seed=tdrop.fold_in(9, 0)))
+    assert m.eval()(x) is x
+
+
+def test_kernel_wrapper_is_an_autograd_function_that_replays(monkeypatch):
+    """The CUDA route, with the launch swapped for the plain version on
+    graph-free tensors: the gradient must come from the wrapper's own
+    backward, which relaunches with the forward's seed."""
+    calls = []
+
+    def fake_launch(x, rate, seed, bits):
+        calls.append(seed)
+        with torch.no_grad():
+            return tdrop.plain_dropout(x, rate, seed=seed)
+
+    monkeypatch.setattr(ops, "device_kind", lambda t: "cuda")
+    monkeypatch.setattr(tdrop, "_dropout_launch", fake_launch)
+    monkeypatch.setattr(tdrop.hw_dropout, "launches", 0)
+    monkeypatch.setattr(tdrop.hw_dropout, "bwd_launches", 0)
+    x = torch.randn(5, 17, requires_grad=True)
+    g = torch.randn(5, 17)
+    out = tdrop.hw_dropout(x, 0.2, seed=77)
+    (dx,) = torch.autograd.grad(out, x, g)
+    want = tdrop.plain_dropout(x, 0.2, seed=77)
+    (want_dx,) = torch.autograd.grad(want, x, g)
+    assert calls == [77, 77]
+    assert (tdrop.hw_dropout.launches, tdrop.hw_dropout.bwd_launches) == (1, 1)
+    assert torch.equal(out, want.detach()) and torch.equal(dx, want_dx)

@@ -15,7 +15,9 @@ from vlbert_tpu.utils.config import default_config
 from vlbert_tpu_torch.kernels import build
 from vlbert_tpu_torch.models.layers import init_weights
 from vlbert_tpu_torch.models.task_modules import build_module
-from vlbert_tpu_torch.ops.attention import fused_attention
+from vlbert_tpu_torch.ops.attention import (fused_attention,
+                                            fused_attention_dropout)
+from vlbert_tpu_torch.ops.dropout import hw_dropout
 from vlbert_tpu_torch.ops.roi_align import roi_align
 from vlbert_tpu_torch.training.convert import state_dict_from_jax
 
@@ -84,17 +86,44 @@ def test_convert_round_trip(fused_qkv):
         state_dict_from_jax(flat, m)
 
 
-def test_nvcc_command_targets_sm90a_and_repo_sources():
+def test_nvcc_command_targets_sm90a_and_repo_sources(tmp_path):
     srcs = build.sources()
-    assert {s.name for s in srcs} >= {"roi_align.cu", "attention.cu"}
-    cmd = build.nvcc_command("nvcc", srcs, "/tmp/lib.so")
-    i = cmd.index("-gencode")
-    assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
-        assert flag in cmd
-    inputs = [c for c in cmd if c.endswith((".cu", ".cpp", ".c"))]
-    assert inputs and all(os.path.dirname(c) == os.path.join(PKG, "csrc")
-                          for c in inputs)
+    assert {s.name for s in srcs} >= {"roi_align.cu", "attention.cu",
+                                      "dropout.cu", "attention_dropout.cu"}
+    objs = [tmp_path / f"{s.stem}.o" for s in srcs]
+    for src, obj in zip(srcs, objs):
+        cmd = build.compile_command("nvcc", src, obj)
+        i = cmd.index("-gencode")
+        assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
+        for flag in ("-std=c++17", "-O3", "-fPIC", "-c"):
+            assert flag in cmd
+        inputs = [c for c in cmd if c.endswith((".cu", ".cpp", ".c"))]
+        assert inputs == [str(src)]
+        assert os.path.dirname(inputs[0]) == os.path.join(PKG, "csrc")
+    link = build.link_command("nvcc", objs, tmp_path / "lib.so")
+    assert "-shared" in link and link[-len(objs):] == list(map(str, objs))
+
+
+def test_every_source_and_header_is_in_the_digest():
+    srcs = build.sources()
+    full = build._digest(srcs)
+    for i in range(len(srcs)):
+        assert build._digest(srcs[:i] + srcs[i + 1:]) != full
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each extern "C" entry point in csrc has a SIGNATURES entry with as
+    many arguments (ctypes would otherwise pass them wrongly)."""
+    import re
+
+    found = {}
+    for src in build.sources():
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            found[m.group(1)] = len(m.group(2).split(","))
+    assert set(found) == set(build.SIGNATURES)
+    for name, n in found.items():
+        assert len(build.SIGNATURES[name]) == n, name
 
 
 def test_no_fallback_without_nvcc_and_cpu_counters(tmp_path, monkeypatch):
@@ -109,13 +138,17 @@ def test_no_fallback_without_nvcc_and_cpu_counters(tmp_path, monkeypatch):
     assert not any((tmp_path / "kernels").glob("*.so"))
 
     roi_align.launches = fused_attention.launches = 0
+    hw_dropout.launches = fused_attention_dropout.launches = 0
     f = torch.randn(1, 6, 7, 8)
     out = roi_align(f, torch.tensor([[[0.0, 0.0, 50.0, 40.0]]]),
                     torch.ones(1, 1, dtype=torch.bool))
     q = torch.randn(1, 5, 2, 64)
     fused_attention(q, q, q, torch.zeros(1, 1, 1, 5))
+    fused_attention_dropout(q, q, q, torch.zeros(1, 1, 1, 5), 0.1, seed=1)
+    hw_dropout(q, 0.1, seed=1)
     assert out.shape == (1, 1, 14, 14, 8)
-    assert (roi_align.launches, fused_attention.launches) == (0, 0)
+    assert (roi_align.launches, fused_attention.launches, hw_dropout.launches,
+            fused_attention_dropout.launches) == (0, 0, 0, 0)
     # a tensor on neither the CPU nor CUDA is refused, not moved
     with pytest.raises(ValueError, match="unsupported device"):
         roi_align(f.to("meta"), torch.zeros(1, 1, 4, device="meta"),

@@ -30,3 +30,39 @@ static __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
+
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+// 3", SC 2011): a counter-based generator, so any element's bits come from
+// (key, counter) alone and the backward pass replays the forward's mask
+// without storing it. Returns word 0 of the 4-word block. The plain PyTorch
+// twin is ops/dropout.py::philox_bits; the two agree bit for bit.
+static __device__ __forceinline__ unsigned philox_word0(
+    unsigned c0, unsigned c1, unsigned c2, unsigned c3,
+    unsigned long long seed) {
+  unsigned k0 = (unsigned)seed, k1 = (unsigned)(seed >> 32);
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const unsigned lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const unsigned lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
+}
+
+// Keep decision of one dropout element. Philox mode (bits == nullptr):
+// keep iff the uint32 word >= thresh (thresh = min(round(rate * 2^32),
+// 2^32 - 1)). Explicit-bits mode: bits[idx] holds uint16 bits
+// zero-extended to int32 and thresh = round(rate * 65536); keep iff
+// bits >= thresh, the JAX package's 'bits16' rule.
+static __device__ __forceinline__ bool dropout_keep(
+    const int* __restrict__ bits, long long idx, unsigned thresh,
+    unsigned c0, unsigned c1, unsigned c2, unsigned c3,
+    unsigned long long seed) {
+  if (bits != nullptr) return (unsigned)bits[idx] >= thresh;
+  return philox_word0(c0, c1, c2, c3, seed) >= thresh;
+}

@@ -1,6 +1,7 @@
 """Build the package's CUDA sources into one shared library and load it.
 
-``nvcc`` compiles every ``csrc/*.cu`` of this package for ``sm_90a`` into a
+``nvcc`` compiles every ``csrc/*.cu`` of this package for ``sm_90a``, one
+process per source, all started together, and links the objects into a
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use and lands in ``_build/`` beside the package (listed in
 ``.gitignore``); the library's file name carries a hash of the sources and
@@ -27,12 +28,15 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 DEFAULT_BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
+_Q = ctypes.c_ulonglong
+_STRIDES = (_L,) * 9         # q, k, v strides over (b, l, h)
 
 # C signatures of the entry points (pointers and the stream as void*)
 SIGNATURES = {
@@ -43,7 +47,18 @@ SIGNATURES = {
     # q, k, v, bias, out, is_bf16, B, L, H, D,
     # q strides (b, l, h), k strides, v strides, scale, stream
     "attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _P),
+                      *_STRIDES, _F, _P),
+    # x, out, n, is_bf16, bits (or NULL), thresh, scale, seed, stream
+    "dropout_fwd": (_P, _P, _L, _I, _P, _U, _F, _Q, _P),
+    # q, k, v, bias, out, is_bf16, B, L, H, D, strides, scale,
+    # bits (or NULL), thresh, drop_scale, seed, stream
+    "attention_dropout_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              *_STRIDES, _F, _P, _U, _F, _Q, _P),
+    # q, k, v, bias, g, dq, dk, dv, dbias_h, stats, is_bf16, B, L, H, D,
+    # strides, scale, bits (or NULL), thresh, drop_scale, seed, stream
+    "attention_dropout_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, *_STRIDES, _F, _P, _U, _F, _Q,
+                              _P),
 }
 
 
@@ -67,8 +82,13 @@ def find_nvcc():
         "compiled from csrc/ at first use and need the CUDA toolkit")
 
 
-def nvcc_command(nvcc, srcs, out):
-    return [str(nvcc), *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
+def compile_command(nvcc, src, obj):
+    """One source -> one object file."""
+    return [str(nvcc), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+
+
+def link_command(nvcc, objs, out):
+    return [str(nvcc), "-shared", "-o", str(out), *map(str, objs)]
 
 
 def _digest(srcs):
@@ -93,21 +113,32 @@ def build(build_dir=None):
         return lib
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name, then rename: a cut build leaves no
-    # half-written library behind under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
+    # compile every source at once, then link to a temporary name and
+    # rename: a cut build leaves no half-written library behind under the
+    # final name
+    tmp_dir = Path(tempfile.mkdtemp(dir=build_dir))
     try:
-        proc = subprocess.run(nvcc_command(nvcc, srcs, tmp),
+        objs = [tmp_dir / f"{s.stem}.o" for s in srcs]
+        procs = [subprocess.Popen(compile_command(nvcc, s, o),
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(s.name, p.returncode, log)
+                  for s, p, log in zip(srcs, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        tmp = tmp_dir / lib.name
+        proc = subprocess.run(link_command(nvcc, objs, tmp),
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
                 f"{proc.stderr}")
         os.replace(tmp, lib)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     return lib
 
 

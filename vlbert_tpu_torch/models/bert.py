@@ -7,9 +7,13 @@ additive -10000 key bias. Module and parameter names are the reference's
 (``attention.self.query``, ``attention.output.LayerNorm``, ...), so
 checkpoint conversion is a mechanical rename.
 
-The attention core goes through ``ops.attention.fused_attention`` (kernel
-K2 on the card). Only the attention-probs (vis) path keeps the plain
-einsum/softmax pipeline, because its probs must reach the caller.
+The attention core goes through ``ops.attention``: in training with a
+non-zero prob-dropout rate, ``fused_attention_dropout`` (kernels K3/K4 on
+the card); otherwise ``fused_attention`` (kernel K2). Only the
+attention-probs (vis) path keeps the plain einsum/softmax pipeline,
+because its probs must reach the caller. The hidden dropouts are
+``ops.dropout.Dropout`` (kernel K5 on the card); every dropout takes its
+seed from the step's ``dropout_seeds`` context.
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from vlbert_tpu_torch.models.layers import Linear, cast
-from vlbert_tpu_torch.ops.attention import fused_attention
+from vlbert_tpu_torch.ops.attention import (fused_attention,
+                                            fused_attention_dropout)
+from vlbert_tpu_torch.ops.dropout import Dropout, next_site_seed
 
 ACT2FN = {
     # exact erf gelu, NOT the tanh approximation
@@ -69,7 +75,8 @@ class BertSelfAttention(nn.Module):
         self.query = Linear(hidden_size, hidden_size, **kw)
         self.key = Linear(hidden_size, hidden_size, **kw)
         self.value = Linear(hidden_size, hidden_size, **kw)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = float(dropout_rate)
+        self.dropout = Dropout(dropout_rate)     # vis path only
 
     def forward(self, hidden, attention_bias, output_attention_probs=False):
         B, L, Hd = hidden.shape
@@ -96,7 +103,12 @@ class BertSelfAttention(nn.Module):
                                self.dropout(probs).to(d).to(torch.float32),
                                v.to(torch.float32))
             return ctx.reshape(B, L, Hd).to(d), probs
-        ctx = fused_attention(q, k, v, attention_bias)
+        if self.training and self.dropout_rate > 0.0:
+            ctx = fused_attention_dropout(q, k, v, attention_bias,
+                                          self.dropout_rate,
+                                          seed=next_site_seed())
+        else:
+            ctx = fused_attention(q, k, v, attention_bias)
         return ctx.reshape(B, L, Hd).to(d)
 
 
@@ -106,7 +118,7 @@ class BertSelfOutput(nn.Module):
         self.dense = Linear(hidden_size, hidden_size, dtype=dtype,
                             device=device)
         self.LayerNorm = BertLayerNorm(hidden_size, device=device)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, h, residual):
         return self.LayerNorm(self.dropout(self.dense(h)) + residual)
@@ -152,7 +164,7 @@ class BertOutput(nn.Module):
         self.dense = Linear(intermediate_size, hidden_size, dtype=dtype,
                             device=device)
         self.LayerNorm = BertLayerNorm(hidden_size, device=device)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, h, residual):
         return self.LayerNorm(self.dropout(self.dense(h)) + residual)

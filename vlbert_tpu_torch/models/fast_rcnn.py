@@ -24,6 +24,7 @@ from torch import nn
 from vlbert_tpu_torch.models.layers import Linear
 from vlbert_tpu_torch.models.resnet import ResNetC4Backbone, ResNetRoIHead
 from vlbert_tpu_torch.ops.coord_embed import coordinate_embeddings
+from vlbert_tpu_torch.ops.dropout import Dropout
 from vlbert_tpu_torch.ops.image_norm import normalize_uint8_image
 from vlbert_tpu_torch.ops.roi_align import roi_align
 
@@ -59,7 +60,7 @@ class FastRCNN(nn.Module):
                 num_layers, c5_dilated, stride_in_1x1, average_pool=True,
                 **kw)
         self.obj_downsample = nn.Sequential(
-            nn.Dropout(0.1),
+            Dropout(0.1),
             Linear(4 * 2 * 256 + visual_feat_dim, final_dim, **kw))
 
     def forward(self, images, boxes, box_mask, im_info, segms=None,

@@ -22,6 +22,7 @@ from torch import nn
 
 from vlbert_tpu_torch.models.bert import BertEncoder, BertLayerNorm, BertPooler
 from vlbert_tpu_torch.models.layers import Embedding, Linear
+from vlbert_tpu_torch.ops.dropout import Dropout
 
 NUM_SPECIAL_WORDS = 1000
 
@@ -77,7 +78,7 @@ class VisualLinguisticBert(nn.Module):
                                              **kw)
         self.token_type_embeddings = Embedding(c.type_vocab_size, H, **kw)
         self.embedding_LayerNorm = BertLayerNorm(H, device=device)
-        self.embedding_dropout = nn.Dropout(c.hidden_dropout_prob)
+        self.embedding_dropout = Dropout(c.hidden_dropout_prob)
 
         self.visual_1x1_text = self.visual_1x1_object = None
         if c.visual_size != H:

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from vlbert_tpu_torch import ops
+
 # Cap on the adaptive sampling grid, as in the JAX package. An explicit
 # sampling_ratio above it is rejected.
 MAX_GRID = 8
@@ -135,14 +137,20 @@ def roi_align(features, boxes, box_mask, *, pooled_h=14, pooled_w=14,
       [B, O, pooled_h, pooled_w, C] fp32
 
     A CPU tensor takes ``roi_align_plain``; a CUDA tensor launches the
-    kernel or raises.
+    kernel or raises. The kernel has no backward yet (ROADMAP.md queue 2,
+    K1b): asking it for a gradient raises instead of cutting the graph.
     """
-    if features.device.type == "cpu":
+    kind = ops.device_kind(features)
+    if kind == "cpu":
         return roi_align_plain(features, boxes, box_mask, pooled_h=pooled_h,
                                pooled_w=pooled_w, spatial_scale=spatial_scale,
                                sampling_ratio=sampling_ratio)
-    if features.device.type != "cuda":
+    if kind != "cuda":
         raise ValueError(f"roi_align: unsupported device {features.device}")
+    if torch.is_grad_enabled() and features.requires_grad:
+        raise NotImplementedError(
+            "roi_align on CUDA has no backward yet: the ROIAlign dF kernel "
+            "is ROADMAP.md queue 2, K1b")
     return _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
                            spatial_scale, sampling_ratio)
 

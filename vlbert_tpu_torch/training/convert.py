@@ -7,6 +7,13 @@ parameter name, ``map_reference_name(normalize_torch_name(name))`` gives the
 JAX path and the layout transform, which is inverted here. A fused
 ``...attention.self.qkv`` leaf (TPU.FUSED_QKV) is split back into query,
 key and value.
+
+One head needs a task-aware rename: the reference names its VQA ``mlm``
+classifier ``final_mlp.0`` (transform) and ``final_mlp.2`` (linear), which
+the JAX converter maps to RefCOCO's leaves (``final_mlp_transform.dense``,
+``final_mlp_fc``), while the JAX VQA module names them
+``final_mlp.transform_dense`` and ``final_mlp.dense_0``. For a port module
+whose ``final_mlp`` is an ``mlm`` Classifier the paths are renamed here.
 """
 
 from __future__ import annotations
@@ -17,6 +24,10 @@ import numpy as np
 import torch
 
 from vlbert_tpu.training.convert import map_reference_name, normalize_torch_name
+
+# JAX-converter path prefix -> the JAX VQA mlm classifier's path prefix
+_MLM_HEAD = (("final_mlp_transform.dense.", "final_mlp.transform_dense."),
+             ("final_mlp_fc.", "final_mlp.dense_0."))
 
 _QKV = re.compile(r"^(.*attention\.self\.)(query|key|value)\.(kernel|bias)$")
 
@@ -56,12 +67,20 @@ def state_dict_from_jax(flat, module):
     Raises on a port parameter with no source, on a shape mismatch and on
     any JAX leaf left unused.
     """
+    from vlbert_tpu_torch.models.task_modules import Classifier
+
+    head = getattr(module, "final_mlp", None)
+    renames = _MLM_HEAD if isinstance(head, Classifier) \
+        and head.kind == "mlm" else ()
     out, used, missing = {}, set(), []
     for name, ref in module.state_dict().items():
         mapped = map_reference_name(normalize_torch_name(name))
         arr = None
         if mapped is not None:
             path, transform = mapped
+            for old, new in renames:
+                if path.startswith(old):
+                    path = new + path[len(old):]
             arr = _lookup(flat, path, used)
         if arr is None:
             missing.append(name)
