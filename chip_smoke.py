@@ -21,11 +21,17 @@ its own line:
      kernels and with their plain versions;
   6. training-kernel parity at the VQA training shapes, fp32 and bf16:
      dropout (K5) forward and backward, attention with prob dropout
-     forward (K3) and backward (K4), and K2's backward, each against its
-     plain version in explicit-bits mode; in Philox mode the kernels' keep
-     masks are read back exactly and must equal the plain Philox's bit for
-     bit, the backward must replay the forward's mask, the keep fraction
-     must lie within 5 sigma of 1 - rate and two seeds must differ;
+     forward (K3) and backward (K4; bf16 on the tensor cores, fp32 on the
+     CUDA cores) at L = 128, 41 and 173, and K2's backward, each against
+     its plain version in explicit-bits and Philox mode; the kernels' keep
+     masks are read back exactly in both dtypes and must equal the plain
+     Philox's bit for bit, the backward must replay the forward's mask, the
+     keep fraction must lie within 5 sigma of 1 - rate and two seeds must
+     differ; a bf16 K4 repeated on the same inputs must give bit-identical
+     gradients. Then the yardsticks: one PyTorch library call per kernel
+     that computes the same function (scaled_dot_product_attention,
+     dropout), timed and never used by the port, and the SASS instructions
+     of one Philox evaluation, for each kernel's Philox floor;
   7. train: train_net (python -m vlbert_tpu_torch.engine.train) on a
      synthetic VQA set in the dataset's on-disk format, from
      cfgs/vqa/base_v5e_bf16.yaml at full width (VL-BERT 768 x 12 x 12,
@@ -40,10 +46,18 @@ its own line:
      weights; and a repeat of the kernel step that must give
      bit-identical parameters.
 
-Any failure raises. The last three lines are the kernels' JSON record, the
+Any failure raises. On every exit it stops the processes it started (the
+loader's forkserver, multiprocessing's resource tracker, any leftover
+child). The last three lines are the kernels' JSON record, the
 nvidia-smi line, and {"ok": true, "device": {...}}. Kernel launches made
 to compare a kernel with its plain version are not counted: each path's
-counts are set to 0 just before it runs.
+counts are set to 0 just before it runs. Each kernel's record carries its
+device time, its plain version's and its library call's (null for K1: no
+single PyTorch call computes ROIAlign, torchvision is not installed), and
+bound_ms: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the H100's peak for its dtype (bound_by says which);
+K3, K4 and K5 also carry philox_floor_ms, their Philox evaluations times
+the instructions of one over the card's integer issue rate.
 """
 
 import contextlib
@@ -91,6 +105,47 @@ VQA_CFG = os.path.join(REPO, "cfgs", "vqa", "base_v5e_bf16.yaml")
 STEP_RTOL = {"loss": 1e-4, "grad_norm": 1e-3, "leaf_grad": 1e-4,
              "param_per_lr": 0.1}
 LEAF_FLOOR = 1e-5
+
+
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense, at the full
+# 700 W power limit): the roofline that bound_ms is reckoned against. Each
+# input byte is counted read once and each output byte written once.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# int32 ALU lanes per SM and clock on Hopper: the integer issue rate that
+# a Philox evaluation's instructions are reckoned against
+INT_LANES_PER_SM = 64
+
+
+def roofline(bytes_moved, ops, dtype):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of ``dtype``."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound(B, L, H, D, dtype, backward=False):
+    """Roofline of attention over [B, L, H, D] q, k, v and a [B,1,1,L] fp32
+    bias. Forward: reads q, k, v, bias, writes out; 2 products of 2·L²·D
+    per (b, h). Backward: reads q, k, v, g, bias, writes dq, dk, dv and
+    dbias; 5 products (S again, dP, dV, dQ, dK)."""
+    es = 2 if dtype == "bfloat16" else 4
+    t = B * L * H * D * es
+    if backward:
+        return roofline(7 * t + 2 * B * L * 4, 10 * B * H * L * L * D, dtype)
+    return roofline(4 * t + B * L * 4, 4 * B * H * L * L * D, dtype)
+
+
+# Philox4x32-10 evaluations per call of each kernel that draws a mask, at
+# bf16 (the tensor-core kernels): K5 one per element; K3 one per four
+# (query, key) elements of each (b, h), over L padded to its 64-row tiles;
+# K4 three times K3's, its rows pass sweeping the keys twice and its keys
+# pass once
+PHILOX_PER_CALL = {"K5": lambda n: n,
+                   "K3": lambda B, H, L: B * H * (-(-L // 64) * 64) ** 2 // 4,
+                   "K4": lambda B, H, L: 3 * B * H * (-(-L // 64) * 64) ** 2
+                   // 4}
 
 
 class HashTokenizer:
@@ -296,11 +351,21 @@ def k5_parity(dev):
 def _train_qkv(g, dev, dtype, B=16, L=128):
     """q, k, v as strided views of one fused [B, L, 3*768] leaf, and a
     [B,1,1,L] bias leaf: 7 padded keys per row, and batch row 1 with every
-    key masked."""
+    key masked.
+
+    q and k lie on a 2**-6 grid in (-4, 4): every q.k then sums exactly in
+    fp32 (22 bits), in any order. On the all-masked row a score is about
+    -10000, where an fp32 step is 2**-10, and two fp32 sums in different
+    orders land on different steps, which moves that row's gradients by
+    about the fp32 tolerance itself (tests/test_torch_train_attention.py::
+    test_exact_score_inputs_make_fp32_sums_order_free). With exact sums
+    both sides round to the same score, and what is left to compare is the
+    kernels' arithmetic."""
     import torch
 
-    qkv = torch.randn(B, L, 3 * 768, generator=g, device=dev).to(dtype) \
-        .requires_grad_()
+    qkv = torch.randn(B, L, 3 * 768, generator=g, device=dev)
+    qk = torch.round(qkv[..., :2 * 768] * 64).clamp(-255, 255) / 64
+    qkv = torch.cat([qk, qkv[..., 2 * 768:]], -1).to(dtype).requires_grad_()
     q, k, v = qkv.view(B, L, 3, 12, 64).unbind(2)
     m = torch.ones(B, L, device=dev)
     m[:, -7:] = 0
@@ -310,29 +375,32 @@ def _train_qkv(g, dev, dtype, B=16, L=128):
     return qkv, (q, k, v), bias
 
 
-def _attention_masks(dev, seed, B=16, H=12, L=128, D=64):
+def _attention_masks(dev, seed, dtype, B=16, H=12, L=128, D=64):
     """K3's and K4's keep masks [B, H, L, L], read back exactly: with
     q = k = 0 and bias 0 every prob is 1/L; v (and for K4 the cotangent g)
-    encodes key (query) j as 2**(j % 16) in dim j // 16, so each output
-    (dv) element is drop_scale / L times a 16-bit word of the mask."""
+    encodes key (query) j as 2**(j % n) in dim j // n, so each output (dv)
+    element is drop_scale / L times an n-bit word of the mask. n is 16 in
+    fp32 and 4 in bf16, where a word of up to 15 survives the one bf16
+    rounding of the output (and of the bf16 P operand in K4)."""
     import torch
     from vlbert_tpu_torch.ops.attention import fused_attention_dropout
 
+    n = 16 if dtype == torch.float32 else 4
     j = torch.arange(L, device=dev)
     enc = torch.zeros(L, D, device=dev)
-    enc[j, j // 16] = (2.0 ** (j % 16)).float()
-    enc = enc[None, :, None, :].expand(B, L, H, D).contiguous()
-    z = torch.zeros(B, L, H, D, device=dev)
+    enc[j, j // n] = (2.0 ** (j % n)).float()
+    enc = enc[None, :, None, :].expand(B, L, H, D).contiguous().to(dtype)
+    z = torch.zeros(B, L, H, D, device=dev, dtype=dtype)
     v = enc.clone().requires_grad_()
     out = fused_attention_dropout(z, z, v, torch.zeros(B, 1, 1, L,
                                                        device=dev),
                                   DROP_RATE, seed=seed)
     (dv,) = torch.autograd.grad(out, v, enc)
     f = L * (1.0 - DROP_RATE)
-    shifts = torch.arange(16, device=dev)
+    shifts = torch.arange(n, device=dev)
 
     def unpack(words):            # [B, X, H, D] -> [B, H, X, L]
-        w = torch.round(words.double() * f).long()[..., :L // 16]
+        w = torch.round(words.double() * f).long()[..., :L // n]
         bits = (w.permute(0, 2, 1, 3)[..., None] >> shifts) & 1
         return bits.reshape(B, H, L, L).bool()
 
@@ -340,8 +408,11 @@ def _attention_masks(dev, seed, B=16, H=12, L=128, D=64):
 
 
 def k34_parity(dev):
-    """K3/K4 vs plain at B=16 H=12 L=128 D=64, explicit bits and Philox;
-    masks read back bit for bit; K2's backward; timings in bf16."""
+    """K3/K4 vs plain at B=16 H=12 L=128 D=64 and at B=4 with L = 41 and
+    173 (7 padded keys, one all-masked batch row), explicit bits and
+    Philox, fp32 (CUDA cores) and bf16 (tensor cores); masks read back bit
+    for bit in both dtypes; a bf16 backward repeated bit for bit; K2's
+    backward; timings in bf16."""
     import torch
     from vlbert_tpu_torch.ops.attention import (
         attention_bits, fused_attention, fused_attention_dropout,
@@ -350,46 +421,60 @@ def k34_parity(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     errs = {"K3": {}, "K4": {}, "K2_bwd": {}}
-    for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype)[6:]
-        qkv, (q, k, v), bias = _train_qkv(g, dev, dtype)
-        gy = torch.randn(q.shape, generator=g, device=dev).to(dtype)
-        bits = torch.randint(0, 65536, (16, 12, 128, 128), generator=g,
-                             device=dev, dtype=torch.int32)
-        for mode, kw in (("bits", dict(bits=bits)),
-                         ("philox", dict(seed=SEED + 12))):
-            a = fused_attention_dropout(q, k, v, bias, DROP_RATE, **kw)
+    for B, L in ((16, 128), (4, 41), (4, 173)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype)[6:]
+            qkv, (q, k, v), bias = _train_qkv(g, dev, dtype, B=B, L=L)
+            gy = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+            bits = torch.randint(0, 65536, (B, 12, L, L), generator=g,
+                                 device=dev, dtype=torch.int32)
+            for mode, kw in (("bits", dict(bits=bits)),
+                             ("philox", dict(seed=SEED + 12))):
+                a = fused_attention_dropout(q, k, v, bias, DROP_RATE, **kw)
+                ga = torch.autograd.grad(a, (qkv, bias), gy)
+                b = plain_attention_dropout(q, k, v, bias, DROP_RATE, **kw)
+                gb = torch.autograd.grad(b, (qkv, bias), gy)
+                e3 = _maxerr(a, b)
+                e4 = max(_rel_err(x, y) for x, y in zip(ga, gb))
+                key = f"L{L}/{dn}/{mode}"
+                if not (e3 <= K3_ATOL[dn] and e4 <= BWD_RTOL[dn]):
+                    raise AssertionError(
+                        f"K3/K4 {key}: out err {e3} (atol {K3_ATOL[dn]}), "
+                        f"grad rel err {e4} (rtol {BWD_RTOL[dn]})")
+                errs["K3"][key] = e3
+                errs["K4"][key] = e4
+            if L != 128:
+                continue
+            if dtype == torch.bfloat16:
+                a = fused_attention_dropout(q, k, v, bias, DROP_RATE,
+                                            seed=SEED + 13)
+                g1, g2 = (torch.autograd.grad(a, (qkv, bias), gy,
+                                              retain_graph=True)
+                          for _ in range(2))
+                if not all(map(torch.equal, g1, g2)):
+                    raise AssertionError("K4 bf16: two calls on the same "
+                                         "inputs gave different gradients")
+            a = fused_attention(q, k, v, bias)
             ga = torch.autograd.grad(a, (qkv, bias), gy)
-            b = plain_attention_dropout(q, k, v, bias, DROP_RATE, **kw)
-            gb = torch.autograd.grad(b, (qkv, bias), gy)
-            e3 = _maxerr(a, b)
-            e4 = max(_rel_err(x, y) for x, y in zip(ga, gb))
-            if not (e3 <= K3_ATOL[dn] and e4 <= BWD_RTOL[dn]):
-                raise AssertionError(f"K3/K4 {dn} {mode}: out err {e3} "
-                                     f"(atol {K3_ATOL[dn]}), grad rel err "
-                                     f"{e4} (rtol {BWD_RTOL[dn]})")
-            errs["K3"][f"{dn}/{mode}"] = e3
-            errs["K4"][f"{dn}/{mode}"] = e4
-        a = fused_attention(q, k, v, bias)
-        ga = torch.autograd.grad(a, (qkv, bias), gy)
-        gb = torch.autograd.grad(plain_attention(q, k, v, bias), (qkv, bias),
-                                 gy)
-        e2 = max(_rel_err(x, y) for x, y in zip(ga, gb))
-        if not e2 <= BWD_RTOL[dn]:
-            raise AssertionError(f"K2 backward {dn}: rel err {e2}")
-        errs["K2_bwd"][dn] = e2
+            gb = torch.autograd.grad(plain_attention(q, k, v, bias),
+                                     (qkv, bias), gy)
+            e2 = max(_rel_err(x, y) for x, y in zip(ga, gb))
+            if not e2 <= BWD_RTOL[dn]:
+                raise AssertionError(f"K2 backward {dn}: rel err {e2}")
+            errs["K2_bwd"][dn] = e2
 
     fwd_masks = []
-    for seed in (SEED + 31, SEED + 32):
-        fwd, bwd = _attention_masks(dev, seed)
-        want = keep_mask(attention_bits(16, 12, 128, seed, dev), DROP_RATE,
-                         False)
-        if not (torch.equal(fwd, want) and torch.equal(bwd, want)):
-            raise AssertionError(
-                f"K3/K4 seed {seed}: mismatched keep bits fwd "
-                f"{(fwd != want).sum().item()}, bwd "
-                f"{(bwd != want).sum().item()} of {want.numel()}")
-        fwd_masks.append(fwd)
+    for dtype in (torch.float32, torch.bfloat16):
+        for seed in (SEED + 31, SEED + 32):
+            fwd, bwd = _attention_masks(dev, seed, dtype)
+            want = keep_mask(attention_bits(16, 12, 128, seed, dev),
+                             DROP_RATE, False)
+            if not (torch.equal(fwd, want) and torch.equal(bwd, want)):
+                raise AssertionError(
+                    f"K3/K4 {dtype} seed {seed}: mismatched keep bits fwd "
+                    f"{(fwd != want).sum().item()}, bwd "
+                    f"{(bwd != want).sum().item()} of {want.numel()}")
+            fwd_masks.append(fwd)
     frac, n = fwd_masks[0].float().mean().item(), fwd_masks[0].numel()
     sigma = (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5
     if not abs(frac - (1 - DROP_RATE)) <= 5 * sigma:
@@ -413,7 +498,152 @@ def k34_parity(dev):
             plain_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED))
     k4 = tuple(cuda_ms(lambda o=o: torch.autograd.grad(
         o, leaves, gy, retain_graph=True)) for o in outs)
-    return errs, {"keep_fraction": frac, "sigma": sigma}, k3, k4
+    # K4's device time by kernel: its two passes and the sum over heads
+    k4_split = {name: us / 1e3 / 50 for name, us in device_us_by_name(
+        lambda: torch.autograd.grad(outs[0], leaves, gy, retain_graph=True),
+        50).items()}
+    return errs, {"keep_fraction": frac, "sigma": sigma}, k3, k4, k4_split
+
+
+def library_ms(fn, iters=50, warmup=5):
+    """(device ms per call, sorted kernel names) of a PyTorch library call
+    timed as a yardstick; the port never calls it."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    by_name = device_us_by_name(fn, iters)
+    return sum(by_name.values()) / 1e3 / iters, sorted(by_name)
+
+
+def _sdpa_args(q, k, v, bias):
+    """SDPA's [B, H, L, D] views of the port's [B, L, H, D] q, k, v, and the
+    bias as an additive mask in q's dtype."""
+    return (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            bias.to(q.dtype))
+
+
+def library_yardsticks(dev):
+    """One PyTorch call per kernel that computes the same function, at the
+    main path's shapes, bf16: scaled_dot_product_attention for K2 (B=1
+    L=41 and B=16 L=128), with dropout_p=rate for K3 (its masks are its
+    own; the work is the same), autograd through that call for K4, and
+    torch.nn.functional.dropout for K5. Also K2's own time at B=16 L=128.
+    Returns {name: (ms, kernel names)}."""
+    import torch
+    import torch.nn.functional as F
+    from vlbert_tpu_torch.ops.attention import fused_attention
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    out = {}
+    qkv = torch.randn(1, 41, 3 * 768, generator=g, device=dev) \
+        .to(torch.bfloat16)
+    q, k, v = (t.view(1, 41, 12, 64) for t in qkv.split(768, dim=-1))
+    m = torch.ones(1, 41, device=dev)
+    m[0, -5:] = 0
+    bias = ((1.0 - m) * -10000.0)[:, None, None, :].contiguous()
+    a = _sdpa_args(q, k, v, bias)
+    out["K2_L41"] = library_ms(
+        lambda: F.scaled_dot_product_attention(*a[:3], attn_mask=a[3]))
+    with torch.no_grad():
+        _, (q, k, v), bias = _train_qkv(g, dev, torch.bfloat16)
+        bias = bias.detach()
+        a = _sdpa_args(q, k, v, bias)
+        out["K2_L128"] = library_ms(
+            lambda: F.scaled_dot_product_attention(*a[:3], attn_mask=a[3]))
+        out["K2_L128_kernel"] = library_ms(
+            lambda: fused_attention(q, k, v, bias))
+        out["K3"] = library_ms(lambda: F.scaled_dot_product_attention(
+            *a[:3], attn_mask=a[3], dropout_p=DROP_RATE))
+    leaves = [t.detach().transpose(1, 2).contiguous().requires_grad_()
+              for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, attn_mask=a[3],
+                                       dropout_p=DROP_RATE)
+    gy = torch.randn(o.shape, generator=g, device=dev).to(torch.bfloat16)
+    out["K4"] = library_ms(lambda: torch.autograd.grad(o, leaves, gy,
+                                                       retain_graph=True))
+    x = torch.randn(16, 128, 768, generator=g, device=dev).to(torch.bfloat16)
+    out["K5"] = library_ms(lambda: F.dropout(x, DROP_RATE, training=True))
+    return out
+
+
+PHILOX_PROBE = r"""
+#include "common.cuh"
+extern "C" __global__ void probe_word0(const unsigned* c, unsigned* o,
+                                       unsigned long long seed) {
+  const int i = threadIdx.x;
+  o[i] = philox_word0(c[i], c[i + 32], c[i + 64], c[i + 96], seed);
+}
+extern "C" __global__ void probe_none(const unsigned* c, unsigned* o,
+                                      unsigned long long seed) {
+  const int i = threadIdx.x;
+  o[i] = c[i] ^ c[i + 32] ^ c[i + 64] ^ c[i + 96] ^ (unsigned)seed ^
+         (unsigned)(seed >> 32);
+}
+extern "C" __global__ void probe_words4(const unsigned* c, uint4* o,
+                                        unsigned long long seed) {
+  const int i = threadIdx.x;
+  o[i] = philox4(c[i], c[i + 32], c[i + 64], c[i + 96], seed);
+}
+extern "C" __global__ void probe_none4(const unsigned* c, uint4* o,
+                                       unsigned long long seed) {
+  const int i = threadIdx.x;
+  const unsigned s = (unsigned)seed ^ (unsigned)(seed >> 32);
+  o[i] = make_uint4(c[i] ^ s, c[i + 32] ^ s, c[i + 64] ^ s, c[i + 96] ^ s);
+}
+"""
+
+
+def philox_sass_instructions():
+    """SASS instructions of one Philox4x32-10 evaluation (csrc/common.cuh),
+    counted with cuobjdump: a probe kernel that evaluates it once per
+    thread, minus one that reads and writes the same words without it;
+    nvcc for sm_90a at -O3, as the kernels are built. Returns (word 0 only,
+    as K5 uses it; all four words, as K3/K4 use them; the raw counts)."""
+    import re
+
+    from vlbert_tpu_torch.kernels import build
+
+    nvcc = build.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    d = tempfile.mkdtemp(prefix="philox_probe_")
+    try:
+        src = os.path.join(d, "probe.cu")
+        with open(src, "w") as f:
+            f.write(PHILOX_PROBE)
+        cubin = os.path.join(d, "probe.cubin")
+        subprocess.run([nvcc, "-cubin", *build.NVCC_FLAGS[:2], "-O3",
+                        "-I", str(build.CSRC_DIR), "-o", cubin, src],
+                       check=True, capture_output=True, text=True)
+        sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                              capture_output=True, text=True).stdout
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)[@A-Z]",
+                               line):
+            counts[name] += 1
+    return (counts["probe_word0"] - counts["probe_none"],
+            counts["probe_words4"] - counts["probe_none4"], counts)
+
+
+def int_issue_per_s():
+    """int32 operations per second the card can issue: SMs x int lanes x
+    the maximum SM clock nvidia-smi reports."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT_LANES_PER_SM * mhz * 1e6, sms, mhz
 
 
 def make_queries(n=8):
@@ -879,19 +1109,35 @@ def main():
           f"device ms (call ms): kernel {k5_ms[0][0]:.4f} "
           f"({k5_ms[0][1]:.4f}), plain {k5_ms[1][0]:.4f} ({k5_ms[1][1]:.4f}) "
           f"({card})", flush=True)
-    k34_errs, k3_mask, k3_ms, k4_ms = k34_parity(dev)
-    print(f"[6 parity K3/K4 attention dropout] B=16 H=12 L=128 D=64, q/k/v "
-          f"views of one fused projection, 7 padded keys, one all-masked "
-          f"row: K3 max abs err {k34_errs['K3']} (atol {K3_ATOL}); K4 "
-          f"(dq, dk, dv, dbias) rel err {k34_errs['K4']} (rtol {BWD_RTOL}); "
-          f"K2 backward rel err {k34_errs['K2_bwd']}; K3 and K4 keep masks "
-          f"read back equal the plain Philox's bit for bit for two seeds, "
-          f"keep fraction {k3_mask['keep_fraction']:.6f} (sigma "
-          f"{k3_mask['sigma']:.1e}); bf16 device ms (call ms): K3 "
-          f"{k3_ms[0][0]:.4f} ({k3_ms[0][1]:.4f}) vs plain "
+    k34_errs, k3_mask, k3_ms, k4_ms, k4_split = k34_parity(dev)
+    print(f"[6 parity K3/K4 attention dropout] H=12 D=64, q/k/v views of "
+          f"one fused projection, 7 padded keys, one all-masked batch row, "
+          f"B=16 L=128 and B=4 L=41, 173; fp32 on the CUDA cores, bf16 on "
+          f"the tensor cores: K3 max abs err {k34_errs['K3']} (atol "
+          f"{K3_ATOL}); K4 (dq, dk, dv, dbias) rel err {k34_errs['K4']} "
+          f"(rtol {BWD_RTOL}); a bf16 K4 repeat is bit-identical; K2 "
+          f"backward rel err {k34_errs['K2_bwd']}; K3 and K4 keep masks "
+          f"read back in fp32 and bf16 equal the plain Philox's bit for bit "
+          f"for two seeds, keep fraction {k3_mask['keep_fraction']:.6f} "
+          f"(sigma {k3_mask['sigma']:.1e}); B=16 L=128 bf16 device ms (call "
+          f"ms): K3 {k3_ms[0][0]:.4f} ({k3_ms[0][1]:.4f}) vs plain "
           f"{k3_ms[1][0]:.4f} ({k3_ms[1][1]:.4f}); K4 {k4_ms[0][0]:.4f} "
           f"({k4_ms[0][1]:.4f}) vs plain autograd {k4_ms[1][0]:.4f} "
-          f"({k4_ms[1][1]:.4f}) ({card})", flush=True)
+          f"({k4_ms[1][1]:.4f}); K4 by kernel "
+          f"{ {k[:48]: round(v, 5) for k, v in k4_split.items()} } "
+          f"({card})", flush=True)
+
+    lib = library_yardsticks(dev)
+    philox_instr, philox4_instr, _ = philox_sass_instructions()
+    int_rate, n_sm, sm_mhz = int_issue_per_s()
+    print(f"[6 yardsticks] library calls, bf16, device ms (kernels): " +
+          "; ".join(f"{k} {v[0]:.4f} ({', '.join(n[:48] for n in v[1])})"
+                    for k, v in lib.items()) +
+          f"; Philox4x32-10: {philox_instr} SASS instructions per "
+          f"evaluation of word 0 (K5), {philox4_instr} of all four words "
+          f"(K3, K4), integer issue {int_rate / 1e12:.2f} T/s ({n_sm} SMs x "
+          f"{INT_LANES_PER_SM} lanes x {sm_mhz:.0f} MHz) ({card})",
+          flush=True)
 
     # --- 7: VQA fine-tuning at full width; 8: fp32 step agreement ---
     root = tempfile.mkdtemp(prefix="vqa_fixture_")
@@ -934,43 +1180,78 @@ def main():
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    def philox_floor_ms(evaluations, instructions):
+        return evaluations * instructions / int_rate * 1e3
+
+    B, L, H, D = 16, 128, 12, 64
+    n_drop = 16 * 128 * 768            # K5's timed [16,128,768] tensor
+    k1_bound = roofline(38 * 63 * 1024 * 2 + 16 * 4 * 4 + 16
+                        + 16 * 14 * 14 * 1024 * 4,
+                        8 * 16 * 14 * 14 * 1024, "bfloat16")
+    k1_note = "no single PyTorch call: torchvision is not installed"
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/roi_align.cu",
          "replaces": "vlbert_tpu/ops/roi_align.py:125",
          "launches": launches["roi_align"],
          "max_abs_err": max(k1_errs.values()), "ms": k1_ms[0],
-         "plain_ms": k1_plain_ms[0], "call_ms": k1_ms[1],
+         "plain_ms": k1_plain_ms[0], "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None,
+         "library_note": k1_note, "call_ms": k1_ms[1],
          "plain_call_ms": k1_plain_ms[1]},
         {"name": "attention_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention.cu",
          "replaces": "vlbert_tpu/ops/attention.py:127",
          "launches": launches["fused_attention"],
          "max_abs_err": max(k2_errs.values()), "ms": k2_ms[41][0][0],
-         "plain_ms": k2_ms[41][1][0], "call_ms": k2_ms[41][0][1],
-         "plain_call_ms": k2_ms[41][1][1]},
+         "plain_ms": k2_ms[41][1][0],
+         **dict(zip(("bound_ms", "bound_by"),
+                    attention_bound(1, 41, H, D, "bfloat16"))),
+         "library_ms": lib["K2_L41"][0], "library_kernels": lib["K2_L41"][1],
+         "call_ms": k2_ms[41][0][1], "plain_call_ms": k2_ms[41][1][1],
+         "at_B16_L128": {
+             "ms": lib["K2_L128_kernel"][0],
+             "bound_ms": attention_bound(B, L, H, D, "bfloat16")[0],
+             "library_ms": lib["K2_L128"][0],
+             "library_kernels": lib["K2_L128"][1]}},
         {"name": "dropout", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/dropout.cu",
          "replaces": "vlbert_tpu/ops/dropout.py:83",
          "launches": train_launches["K5_fwd"],
          "bwd_launches": train_launches["K5_bwd"],
          "max_abs_err": max(k5_errs.values()), "ms": k5_ms[0][0],
-         "plain_ms": k5_ms[1][0], "call_ms": k5_ms[0][1],
-         "plain_call_ms": k5_ms[1][1]},
+         "plain_ms": k5_ms[1][0],
+         **dict(zip(("bound_ms", "bound_by"),
+                    roofline(2 * n_drop * 2, n_drop, "bfloat16"))),
+         "philox_floor_ms": philox_floor_ms(PHILOX_PER_CALL["K5"](n_drop),
+                                            philox_instr),
+         "library_ms": lib["K5"][0], "library_kernels": lib["K5"][1],
+         "call_ms": k5_ms[0][1], "plain_call_ms": k5_ms[1][1]},
         {"name": "attention_dropout_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "vlbert_tpu/ops/attention.py:300",
          "launches": train_launches["K3"],
          "max_abs_err": max(k34_errs["K3"].values()), "ms": k3_ms[0][0],
-         "plain_ms": k3_ms[1][0], "call_ms": k3_ms[0][1],
-         "plain_call_ms": k3_ms[1][1]},
+         "plain_ms": k3_ms[1][0],
+         **dict(zip(("bound_ms", "bound_by"),
+                    attention_bound(B, L, H, D, "bfloat16"))),
+         "philox_floor_ms": philox_floor_ms(
+             PHILOX_PER_CALL["K3"](B, H, L), philox4_instr),
+         "library_ms": lib["K3"][0], "library_kernels": lib["K3"][1],
+         "call_ms": k3_ms[0][1], "plain_call_ms": k3_ms[1][1]},
         {"name": "attention_dropout_bwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "vlbert_tpu/ops/attention.py:326",
          "launches": train_launches["K4"],
          "max_abs_err": max(k34_errs["K4"].values()),
          "err_is_relative_to": "max(1, max |plain|)", "ms": k4_ms[0][0],
-         "plain_ms": k4_ms[1][0], "call_ms": k4_ms[0][1],
+         "plain_ms": k4_ms[1][0],
+         **dict(zip(("bound_ms", "bound_by"),
+                    attention_bound(B, L, H, D, "bfloat16", backward=True))),
+         "philox_floor_ms": philox_floor_ms(
+             PHILOX_PER_CALL["K4"](B, H, L), philox4_instr),
+         "library_ms": lib["K4"][0], "library_kernels": lib["K4"][1],
+         "per_kernel_ms": k4_split, "call_ms": k4_ms[0][1],
          "plain_call_ms": k4_ms[1][1]},
     ]
     print(json.dumps({"kernels": kernels}))
@@ -981,5 +1262,57 @@ def main():
     return 0
 
 
+def descendants(pid):
+    """Pids of every live process below ``pid``, from /proc."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:                 # ended while we looked
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if fields[0] != "Z":            # zombies have already ended
+            children.setdefault(int(fields[1]), []).append(int(entry))
+    found, todo = [], [pid]
+    while todo:
+        for c in children.get(todo.pop(), ()):
+            found.append(c)
+            todo.append(c)
+    return found
+
+
+def stop_child_processes():
+    """Stop every process this run started that still runs. The loader's
+    worker pools are shut down where they are used, but the forkserver
+    that forked their workers and multiprocessing's resource tracker stay
+    up until the interpreter exits; stop both and wait for them, then kill
+    and reap any other descendant. Returns the pids that had to be
+    killed."""
+    import multiprocessing.forkserver as forkserver
+    import multiprocessing.resource_tracker as resource_tracker
+    import signal
+
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    left = descendants(os.getpid())
+    for pid in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    for pid in left:
+        with contextlib.suppress(ChildProcessError):   # not our child
+            os.waitpid(pid, 0)
+    return left
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        killed = stop_child_processes()
+        if killed:
+            print(f"chip_smoke: killed leftover processes {killed}",
+                  file=sys.stderr)
+    sys.exit(rc)

@@ -1,8 +1,10 @@
 """Package-level checks of the PyTorch port (vlbert_tpu_torch) on the CPU:
-no jax import, the weight round trip, the nvcc command line, and no
-fallback when the kernels cannot be built."""
+no import of jax or of the JAX package, the weight round trip, the nvcc
+command line, and no fallback when the kernels cannot be built."""
 
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -36,17 +38,77 @@ def _port_modules():
 
 
 def test_port_imports_no_jax():
-    mods = _port_modules()
+    """Importing every port module, chip_smoke.py and the port's tools
+    loads neither jax nor the JAX package (``vlbert_tpu``)."""
+    mods = _port_modules() + ["chip_smoke"] + [
+        f"tools.{os.path.basename(p)[:-3]}" for p in _port_tools()]
     assert "vlbert_tpu_torch.ops.roi_align" in mods and len(mods) >= 15
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'vlbert_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+
+
+def _port_tools():
+    return sorted(glob.glob(os.path.join(REPO, "tools", "*_torch.py")))
+
+
+# an import of the JAX package, at any indentation (imports inside
+# functions too); vlbert_tpu_torch does not match
+JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from\s+vlbert_tpu(\.|\s)|import\s+vlbert_tpu(\.|\s|,|$))"
+    r"|import_module\(\s*[\"']vlbert_tpu[\"'.]", re.M)
+
+
+def test_port_files_import_nothing_of_the_jax_package():
+    """A static scan of the port's sources, chip_smoke.py and the port's
+    tools: it sees imports inside functions, which importing cannot."""
+    for bad in ("from vlbert_tpu.data.loader import DataLoader",
+                "    import vlbert_tpu.utils.config as c",
+                "from vlbert_tpu import ops", "import vlbert_tpu",
+                "importlib.import_module('vlbert_tpu.ops')"):
+        assert JAX_PACKAGE_IMPORT.search(bad), bad
+    for good in ("from vlbert_tpu_torch.data.loader import DataLoader",
+                 "import vlbert_tpu_torch.ops.dropout as dropout",
+                 "# replaces vlbert_tpu/ops/attention.py:300"):
+        assert not JAX_PACKAGE_IMPORT.search(good), good
+    files = (sorted(glob.glob(os.path.join(PKG, "**", "*.py"),
+                              recursive=True))
+             + [os.path.join(REPO, "chip_smoke.py")] + _port_tools())
+    assert len(files) >= 30 and len(_port_tools()) >= 2
+    offenders = []
+    for f in files:
+        with open(f, encoding="utf-8") as fh:
+            for i, line in enumerate(fh, 1):
+                if JAX_PACKAGE_IMPORT.search(line):
+                    offenders.append(f"{os.path.relpath(f, REPO)}:{i}: "
+                                     f"{line.strip()}")
+    assert not offenders, offenders
+
+
+def test_chip_smoke_stops_every_process_it_started():
+    """After a loader with worker processes has shut down, its forkserver
+    and the resource tracker still run; chip_smoke.py's exit stops both
+    and kills any other leftover child."""
+    code = ("import os, subprocess, numpy as np, chip_smoke\n"
+            "from vlbert_tpu_torch.data.loader import DataLoader\n"
+            "dl = DataLoader(list(range(8)), 4, np.asarray, shuffle=False, "
+            "num_workers=2)\n"
+            "assert next(iter(dl)).tolist() == [0, 1, 2, 3]\n"
+            "dl.shutdown()\n"
+            "assert len(chip_smoke.descendants(os.getpid())) >= 2\n"
+            "stray = subprocess.Popen(['sleep', '60'])\n"
+            "assert chip_smoke.stop_child_processes() == [stray.pid]\n"
+            "assert chip_smoke.descendants(os.getpid()) == []\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
 
 
@@ -89,7 +151,8 @@ def test_convert_round_trip(fused_qkv):
 def test_nvcc_command_targets_sm90a_and_repo_sources(tmp_path):
     srcs = build.sources()
     assert {s.name for s in srcs} >= {"roi_align.cu", "attention.cu",
-                                      "dropout.cu", "attention_dropout.cu"}
+                                      "dropout.cu", "attention_dropout.cu",
+                                      "attention_dropout_mma.cu"}
     objs = [tmp_path / f"{s.stem}.o" for s in srcs]
     for src, obj in zip(srcs, objs):
         cmd = build.compile_command("nvcc", src, obj)
@@ -104,11 +167,22 @@ def test_nvcc_command_targets_sm90a_and_repo_sources(tmp_path):
     assert "-shared" in link and link[-len(objs):] == list(map(str, objs))
 
 
-def test_every_source_and_header_is_in_the_digest():
+def test_every_source_and_header_is_in_the_digest(tmp_path, monkeypatch):
     srcs = build.sources()
     full = build._digest(srcs)
     for i in range(len(srcs)):
         assert build._digest(srcs[:i] + srcs[i + 1:]) != full
+    # each header counts too: a copy of csrc with one header changed
+    headers = sorted(p.name for p in build.CSRC_DIR.glob("*.cuh"))
+    assert {"common.cuh", "attention_dropout.cuh"} <= set(headers)
+    for name in headers:
+        copy = tmp_path / name.replace(".", "_")
+        copy.mkdir()
+        for p in build.CSRC_DIR.iterdir():
+            text = p.read_bytes() + (b"\n" if p.name == name else b"")
+            (copy / p.name).write_bytes(text)
+        monkeypatch.setattr(build, "CSRC_DIR", copy)
+        assert build._digest([copy / s.name for s in srcs]) != full, name
 
 
 def test_ctypes_signatures_match_the_c_entry_points():
@@ -122,6 +196,9 @@ def test_ctypes_signatures_match_the_c_entry_points():
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
             found[m.group(1)] = len(m.group(2).split(","))
     assert set(found) == set(build.SIGNATURES)
+    assert {"attention_dropout_fwd_f32", "attention_dropout_bwd_f32",
+            "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16"} \
+        <= set(found)
     for name, n in found.items():
         assert len(build.SIGNATURES[name]) == n, name
 

@@ -144,13 +144,87 @@ def test_kernel_attention_dropout_route_replays_the_seed(rng, monkeypatch):
 
 
 def test_attention_bits_follow_the_philox_counter():
-    bits = tattn.attention_bits(2, 3, 5, seed=11)
-    from vlbert_tpu_torch.ops.dropout import philox_bits
+    """Key k of query q in head (b, h) takes word k % 4 of one Philox
+    evaluation at counter (k // 4, q, b*H + h, 1): four neighbouring keys
+    share an evaluation, and L need not be a multiple of 4."""
+    from vlbert_tpu_torch.ops.dropout import philox4x32
 
-    b, h, q, k = 1, 2, 3, 4
-    want = philox_bits(*(torch.tensor([c]) for c in (k, q, b * 3 + h, 1)),
-                       11)
-    assert int(bits[b, h, q, k]) == int(want)
+    B, H, L, seed = 2, 3, 7, 11
+    bits = tattn.attention_bits(B, H, L, seed=seed)
+    assert bits.shape == (B, H, L, L)
+    for b, h, q, k in ((1, 2, 3, 4), (0, 0, 0, 0), (1, 1, 6, 6), (0, 2, 5, 3),
+                       (1, 0, 2, 5)):
+        words = philox4x32(*(torch.tensor([c]) for c in
+                             (k // 4, q, b * H + h, 1)), seed)
+        assert int(bits[b, h, q, k]) == int(words[k % 4]), (b, h, q, k)
+    # every element, against the counter layout written out per element
+    c0, q, bh = torch.meshgrid(torch.arange(L) // 4, torch.arange(L),
+                               torch.arange(B * H), indexing="ij")
+    one = torch.ones((), dtype=torch.int64)
+    words = torch.stack(philox4x32(c0, q, bh, one, seed), -1)
+    word = words.gather(-1, (torch.arange(L) % 4)[:, None, None, None]
+                        .expand(L, L, B * H, 1))[..., 0]
+    assert torch.equal(bits, word.permute(2, 1, 0).reshape(B, H, L, L))
+
+
+def _order_probe(grid, flip, B=4, L=41, H=12):
+    """plain_attention_dropout's output and gradients with 7 padded keys
+    and batch row 1 all masked; flip reverses the head dim of q and k,
+    which sums each q.k in another fp32 order."""
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn(B, L, 3 * H * 64, generator=g)
+    if grid:
+        qk = torch.round(qkv[..., :2 * H * 64] * 64).clamp(-255, 255) / 64
+        qkv = torch.cat([qk, qkv[..., 2 * H * 64:]], -1)
+    gy = torch.randn(B, L, H, 64, generator=g)
+    m = torch.ones(B, L)
+    m[:, -7:] = 0
+    m[1] = 0
+    bias = ((1.0 - m) * -10000.0)[:, None, None, :].requires_grad_()
+    x = qkv.requires_grad_()
+    q, k, v = x.view(B, L, 3, H, 64).unbind(2)
+    if flip:
+        q, k = q.flip(-1), k.flip(-1)
+    out = tattn.plain_attention_dropout(q, k, v, bias, 0.1, seed=12)
+    return [out, *torch.autograd.grad(out, (x, bias), gy)]
+
+
+def test_exact_score_inputs_make_fp32_sums_order_free():
+    """Why chip_smoke.py's K3/K4 parity puts q and k on a 2**-6 grid: on a
+    row whose keys all carry -10000 an fp32 score's step is 2**-10, so two
+    fp32 summation orders of q.k move that row's output and gradients by
+    ~1e-4, the fp32 tolerance itself; elsewhere by ~1e-6. On the grid every
+    q.k is exact in fp32 and the two orders agree bit for bit."""
+    for a, b in zip(_order_probe(False, False), _order_probe(False, True)):
+        masked = (a[1] - b[1]).abs().max().item()
+        live = max((a[i] - b[i]).abs().max().item() for i in (0, 2, 3))
+        assert masked > 2e-5 and masked > 10 * live, (masked, live)
+    for a, b in zip(_order_probe(True, False), _order_probe(True, True)):
+        assert torch.equal(a, b)
+
+
+def test_bf16_kernel_route_refuses_rows_off_16_byte_boundaries():
+    """The bf16 K3/K4 copy each row of q, k, v and g in 16-byte pieces: the
+    fused QKV projection's views pass, a view that starts 2 bytes in, or a
+    row stride that is not a multiple of 8 elements, is refused before any
+    launch."""
+    B, L, H = 2, 5, 2
+    qkv = torch.zeros(B, L, 3 * H * 64, dtype=torch.bfloat16)
+    q, k, v = qkv.view(B, L, 3, H, 64).unbind(2)
+    bias = torch.zeros(B, 1, 1, L)
+    tattn._check_dropout_args(q, k, v, bias, g=torch.zeros_like(q))
+    shifted = torch.zeros(B * L * H * 64 + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        tattn._check_dropout_args(shifted.view(B, L, H, 64), k, v, bias)
+    odd = torch.zeros(B, L, H * 64 + 4, dtype=torch.bfloat16)[..., :H * 64]
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        tattn._check_dropout_args(q, k, odd.view(B, L, H, 64), bias)
+    with pytest.raises(ValueError, match="g rows"):
+        tattn._check_dropout_args(q, k, v, bias,
+                                  g=shifted.view(B, L, H, 64))
+    # fp32 goes to the CUDA-core kernels, which read elements one by one
+    shifted32 = torch.zeros(B * L * H * 64 + 1)[1:].view(B, L, H, 64)
+    tattn._check_dropout_args(shifted32, k.float(), v.float(), bias)
 
 
 def _tiny_vlbert(attn_rate):

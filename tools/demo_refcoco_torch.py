@@ -53,11 +53,11 @@ def main():
 
     import torch
 
-    from vlbert_tpu.data.transforms import build_transforms
-    from vlbert_tpu.utils.config import load_config
+    from vlbert_tpu_torch.data.transforms import build_transforms
     from vlbert_tpu_torch.engine.serve import RefCOCOServer
     from vlbert_tpu_torch.models.layers import init_weights
     from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.utils.config import load_config
 
     device = torch.device(args.device)
     cfg = load_config("refcoco", args.cfg)

@@ -33,11 +33,11 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
-    from vlbert_tpu.data.transforms import build_transforms
-    from vlbert_tpu.utils.config import load_config
+    from vlbert_tpu_torch.data.transforms import build_transforms
     from vlbert_tpu_torch.engine.serve import RefCOCOServer
     from vlbert_tpu_torch.models.layers import init_weights
     from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.utils.config import load_config
 
     dev = torch.device(args.device)
     if dev.type != "cuda" or not torch.cuda.is_available():

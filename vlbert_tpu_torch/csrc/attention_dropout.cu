@@ -1,5 +1,9 @@
-// Attention with attention-prob dropout for Hopper: forward (kernel K3) and
-// its recompute backward (kernel K4).
+// Attention with attention-prob dropout for Hopper, fp32 inputs: forward
+// (kernel K3) and its recompute backward (kernel K4) on the CUDA cores. The
+// bf16 kernels, which the training path runs, are on the tensor cores in
+// attention_dropout_mma.cu; the wrapper chooses by dtype. These stay for
+// fp32 because TF32 tensor cores would break the fp32 agreement that the
+// parity checks hold them to.
 //
 //   P   = softmax(Q K^T / sqrt(D) + bias)           (fp32, per (b, h))
 //   Pd  = keep ? P * drop_scale : 0                 (fp32 scale)
@@ -9,22 +13,21 @@
 // _attn_drop_fwd_kernel) and _fad_bwd_impl (_attn_drop_bwd_kernel). The
 // TPU kernels hold one (b, h) pair's whole [L, L] tile in VMEM and draw the
 // mask from the TPU's hardware PRNG. Here the mask comes from Philox4x32-10
-// keyed by the wrapper's 64-bit seed with counter (key, query, b*H + h, 1)
-// (common.cuh), so the backward replays it from the seed; an explicit-bits
-// mode ([B,H,L,L] uint16 zero-extended to int32, the JAX 'bits16' rule)
-// serves parity tests. No [L, L] tile reaches device memory in either
-// direction, and nothing but (q, k, v, bias, seed) is saved for backward.
+// keyed by the wrapper's 64-bit seed, one evaluation per four neighbouring
+// keys (attention_dropout.cuh), so the backward replays it from the seed;
+// an explicit-bits mode ([B,H,L,L] uint16 zero-extended to int32, the JAX
+// 'bits16' rule) serves parity tests. No [L, L] tile reaches device memory
+// in either direction, and nothing but (q, k, v, bias, seed) is saved for
+// backward.
 //
 // Semantics kept from the reference: scores, softmax and every
 // accumulation in fp32; the -10000 additive masking is kept (masked keys
 // are not skipped, so an all-masked row stays uniform); rate == 1 gives
 // zeros (drop_scale 0).
 //
-// What bounds it on the H100: at the VQA training shape (B=16, H=12,
-// L=128, D=64) a call reads under 10 MB and does ~0.2 GFLOP (forward) /
-// ~0.6 GFLOP (backward) in fp32 CUDA cores, so it is bound by the serial
-// per-row loop and fp32 issue rate, not by bandwidth; the tensor cores are
-// not used yet (a later PR's work).
+// What bounds it on the H100: the serial per-row loops and the fp32 issue
+// rate, not bandwidth (a call reads under 20 MB). Each element evaluates
+// Philox once per pass, for the word of its own key.
 //
 // Design (simple first):
 //  * K3 forward: K2's kernel (one warp per query row, 32-key tiles of K and
@@ -45,7 +48,7 @@
 //      accumulates dv_j += Pd_j g_q, dk_j += ds_j q_q and the per-head
 //      dbias_j += ds_j. The wrapper sums dbias over heads.
 
-#include "common.cuh"
+#include "attention_dropout.cuh"
 
 namespace {
 
@@ -53,31 +56,17 @@ constexpr int kD = 64;     // head dim
 constexpr int kRows = 8;   // query rows per block in the row kernels
 constexpr int kKeys = 32;  // keys per shared-memory tile
 
-struct DropArgs {
-  const int* bits;         // [B,H,L,L] int32 or nullptr (Philox)
-  unsigned thresh;
-  float drop_scale;
-  unsigned long long seed;
-};
-
-__device__ __forceinline__ bool keep_at(const DropArgs& a, int bh, int L,
-                                        int row, int key) {
-  return dropout_keep(a.bits, ((long long)bh * L + row) * L + key, a.thresh,
-                      (unsigned)key, (unsigned)row, (unsigned)bh, 1u,
-                      a.seed);
-}
-
-template <typename T>
 __device__ __forceinline__ void load_tile(float (*ks)[kD + 1],
-                                          float (*vs)[kD + 1], const T* kb,
-                                          const T* vb, long long ksl,
-                                          long long vsl, int t0, int n) {
+                                          float (*vs)[kD + 1],
+                                          const float* kb, const float* vb,
+                                          long long ksl, long long vsl,
+                                          int t0, int n) {
   for (int i = threadIdx.x; i < kKeys * kD; i += blockDim.x) {
     const int j = i / kD, d = i % kD;
     float kv = 0.0f, vv = 0.0f;
     if (j < n) {
-      kv = to_f(kb[(long long)(t0 + j) * ksl + d]);
-      vv = to_f(vb[(long long)(t0 + j) * vsl + d]);
+      kv = kb[(long long)(t0 + j) * ksl + d];
+      vv = vb[(long long)(t0 + j) * vsl + d];
     }
     ks[j][d] = kv;
     vs[j][d] = vv;
@@ -86,9 +75,9 @@ __device__ __forceinline__ void load_tile(float (*ks)[kD + 1],
 
 // One query row's forward sweep (all lanes of a warp). Returns m and l and
 // the lane's two dims of sum_j keep_j exp(s_j - m) v_j (unnormalized).
-template <typename T>
 __device__ void row_forward(float (*ks)[kD + 1], float (*vs)[kD + 1],
-                            const float* qrow_s, const T* kb, const T* vb,
+                            const float* qrow_s, const float* kb,
+                            const float* vb,
                             long long ksl, long long vsl, const float* brow,
                             int L, int bh, int row, bool active, float scale,
                             const DropArgs& da, float& m, float& l,
@@ -114,7 +103,7 @@ __device__ void row_forward(float (*ks)[kD + 1], float (*vs)[kD + 1],
       const float pj = lane < n ? expf(s - m_new) : 0.0f;
       const float corr = expf(m - m_new);          // 0 on the first tile
       l = l * corr + warp_sum(pj);
-      const bool keep = lane < n && keep_at(da, bh, L, row, t0 + lane);
+      const bool keep = lane < n && attention_keep(da, bh, L, row, t0 + lane);
       const float pk = keep ? pj : 0.0f;
       acc0 *= corr;
       acc1 *= corr;
@@ -128,11 +117,12 @@ __device__ void row_forward(float (*ks)[kD + 1], float (*vs)[kD + 1],
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kRows * 32)
-    attn_drop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v,
-                         const float* __restrict__ bias, T* __restrict__ out,
+    attn_drop_fwd_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ bias,
+                         float* __restrict__ out,
                          int L, int H, long long qsb, long long qsl,
                          long long qsh, long long ksb, long long ksl,
                          long long ksh, long long vsb, long long vsl,
@@ -146,29 +136,28 @@ __global__ void __launch_bounds__(kRows * 32)
   const int row = blockIdx.x * kRows + warp;
   const bool active = row < L;
   if (active) {
-    const T* qrow = q + b * qsb + row * qsl + h * qsh;
-    qs[warp][lane] = to_f(qrow[lane]);
-    qs[warp][lane + 32] = to_f(qrow[lane + 32]);
+    const float* qrow = q + b * qsb + row * qsl + h * qsh;
+    qs[warp][lane] = qrow[lane];
+    qs[warp][lane + 32] = qrow[lane + 32];
   }
   float m, l, acc0, acc1;
   row_forward(ks, vs, qs[warp], k + b * ksb + h * ksh, v + b * vsb + h * vsh,
               ksl, vsl, bias + (long long)b * L, L, bh, row, active, scale,
               da, m, l, acc0, acc1);
   if (active) {
-    T* orow = out + (((long long)b * L + row) * H + h) * kD;
+    float* orow = out + (((long long)b * L + row) * H + h) * kD;
     const float f = da.drop_scale / l;
-    orow[lane] = from_f<T>(acc0 * f);
-    orow[lane + 32] = from_f<T>(acc1 * f);
+    orow[lane] = acc0 * f;
+    orow[lane + 32] = acc1 * f;
   }
 }
 
 // K4, rows pass: dq and the per-row statistics (m, l, rowsum).
-template <typename T>
 __global__ void __launch_bounds__(kRows * 32)
     attn_drop_bwd_rows_kernel(
-        const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, const float* __restrict__ bias,
-        const T* __restrict__ g, T* __restrict__ dq,
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ bias,
+        const float* __restrict__ g, float* __restrict__ dq,
         float* __restrict__ stats, int L, int H, long long qsb,
         long long qsl, long long qsh, long long ksb, long long ksl,
         long long ksh, long long vsb, long long vsl, long long vsh,
@@ -184,17 +173,17 @@ __global__ void __launch_bounds__(kRows * 32)
   const bool active = row < L;
   float g0 = 0.0f, g1 = 0.0f;
   if (active) {
-    const T* qrow = q + b * qsb + row * qsl + h * qsh;
-    const T* grow = g + (((long long)b * L + row) * H + h) * kD;
-    qs[warp][lane] = to_f(qrow[lane]);
-    qs[warp][lane + 32] = to_f(qrow[lane + 32]);
-    g0 = to_f(grow[lane]);
-    g1 = to_f(grow[lane + 32]);
+    const float* qrow = q + b * qsb + row * qsl + h * qsh;
+    const float* grow = g + (((long long)b * L + row) * H + h) * kD;
+    qs[warp][lane] = qrow[lane];
+    qs[warp][lane + 32] = qrow[lane + 32];
+    g0 = grow[lane];
+    g1 = grow[lane + 32];
     gs[warp][lane] = g0;
     gs[warp][lane + 32] = g1;
   }
-  const T* kb = k + b * ksb + h * ksh;
-  const T* vb = v + b * vsb + h * vsh;
+  const float* kb = k + b * ksb + h * ksh;
+  const float* vb = v + b * vsb + h * vsh;
   const float* brow = bias + (long long)b * L;
   float m, l, acc0, acc1;
   row_forward(ks, vs, qs[warp], kb, vb, ksl, vsl, brow, L, bh, row, active,
@@ -221,7 +210,7 @@ __global__ void __launch_bounds__(kRows * 32)
         }
         const float s = dot * scale + brow[t0 + lane];
         const float p = expf(s - m) / l;
-        const bool keep = keep_at(da, bh, L, row, t0 + lane);
+        const bool keep = attention_keep(da, bh, L, row, t0 + lane);
         const float dpm = keep ? dp * da.drop_scale : 0.0f;
         ds = p * (dpm - rowsum);
       }
@@ -233,9 +222,9 @@ __global__ void __launch_bounds__(kRows * 32)
     }
   }
   if (active) {
-    T* drow = dq + (((long long)b * L + row) * H + h) * kD;
-    drow[lane] = from_f<T>(dq0 * scale);
-    drow[lane + 32] = from_f<T>(dq1 * scale);
+    float* drow = dq + (((long long)b * L + row) * H + h) * kD;
+    drow[lane] = dq0 * scale;
+    drow[lane + 32] = dq1 * scale;
     float* st = stats + ((long long)bh * L + row) * 3;
     if (lane == 0) {
       st[0] = m;
@@ -248,13 +237,13 @@ __global__ void __launch_bounds__(kRows * 32)
 constexpr int kChunk = 32;  // query rows staged per step in the keys pass
 
 // K4, keys pass: dk, dv and the per-head dbias.
-template <typename T>
 __global__ void __launch_bounds__(2 * kKeys)
     attn_drop_bwd_keys_kernel(
-        const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, const float* __restrict__ bias,
-        const T* __restrict__ g, const float* __restrict__ stats,
-        T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dbias_h,
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ bias,
+        const float* __restrict__ g, const float* __restrict__ stats,
+        float* __restrict__ dk, float* __restrict__ dv,
+        float* __restrict__ dbias_h,
         int L, int H, long long qsb, long long qsl, long long qsh,
         long long ksb, long long ksl, long long ksh, long long vsb,
         long long vsl, long long vsh, float scale, DropArgs da) {
@@ -267,12 +256,13 @@ __global__ void __launch_bounds__(2 * kKeys)
   const int key = blockIdx.x * kKeys + (threadIdx.x >> 1);
   const bool active = key < L;
   float kr[kD / 2], vr[kD / 2], dkr[kD / 2], dvr[kD / 2];
-  const T* krow = k + b * ksb + (long long)(active ? key : 0) * ksl + h * ksh;
-  const T* vrow = v + b * vsb + (long long)(active ? key : 0) * vsl + h * vsh;
+  const long long kr0 = active ? key : 0;
+  const float* krow = k + b * ksb + kr0 * ksl + h * ksh;
+  const float* vrow = v + b * vsb + kr0 * vsl + h * vsh;
 #pragma unroll
   for (int i = 0; i < kD / 2; ++i) {
-    kr[i] = active ? to_f(krow[2 * i + half]) : 0.0f;
-    vr[i] = active ? to_f(vrow[2 * i + half]) : 0.0f;
+    kr[i] = active ? krow[2 * i + half] : 0.0f;
+    vr[i] = active ? vrow[2 * i + half] : 0.0f;
     dkr[i] = dvr[i] = 0.0f;
   }
   const float bk = active ? bias[(long long)b * L + key] : 0.0f;
@@ -285,8 +275,8 @@ __global__ void __launch_bounds__(2 * kKeys)
       const int r = i / kD, d = i % kD;
       float qv = 0.0f, gv = 0.0f;
       if (r < n) {
-        qv = to_f(q[b * qsb + (long long)(r0 + r) * qsl + h * qsh + d]);
-        gv = to_f(g[(((long long)b * L + r0 + r) * H + h) * kD + d]);
+        qv = q[b * qsb + (long long)(r0 + r) * qsl + h * qsh + d];
+        gv = g[(((long long)b * L + r0 + r) * H + h) * kD + d];
       }
       qs[r][d] = qv;
       gs[r][d] = gv;
@@ -307,7 +297,7 @@ __global__ void __launch_bounds__(2 * kKeys)
       if (active) {
         const float s = dot * scale + bk;
         const float p = expf(s - st[r][0]) / st[r][1];
-        const bool keep = keep_at(da, bh, L, r0 + r, key);
+        const bool keep = attention_keep(da, bh, L, r0 + r, key);
         const float pd = keep ? p * da.drop_scale : 0.0f;
         const float dpm = keep ? dp * da.drop_scale : 0.0f;
         const float ds = p * (dpm - st[r][2]);
@@ -324,8 +314,8 @@ __global__ void __launch_bounds__(2 * kKeys)
     const long long o = (((long long)b * L + key) * H + h) * kD;
 #pragma unroll
     for (int i = 0; i < kD / 2; ++i) {
-      dk[o + 2 * i + half] = from_f<T>(dkr[i] * scale);
-      dv[o + 2 * i + half] = from_f<T>(dvr[i]);
+      dk[o + 2 * i + half] = dkr[i] * scale;
+      dv[o + 2 * i + half] = dvr[i];
     }
     if (half == 0) dbias_h[(long long)bh * L + key] = dba;
   }
@@ -333,71 +323,50 @@ __global__ void __launch_bounds__(2 * kKeys)
 
 }  // namespace
 
-extern "C" int attention_dropout_fwd(
+extern "C" int attention_dropout_fwd_f32(
     const void* q, const void* k, const void* v, const void* bias, void* out,
-    int is_bf16, int B, int L, int H, int D, long long qsb, long long qsl,
-    long long qsh, long long ksb, long long ksl, long long ksh,
-    long long vsb, long long vsl, long long vsh, float scale,
-    const void* bits, unsigned thresh, float drop_scale,
-    unsigned long long seed, void* stream) {
+    int B, int L, int H, int D, long long qsb, long long qsl, long long qsh,
+    long long ksb, long long ksl, long long ksh, long long vsb,
+    long long vsl, long long vsh, float scale, const void* bits,
+    unsigned thresh, float drop_scale, unsigned long long seed,
+    void* stream) {
   if (D != kD) return (int)cudaErrorInvalidValue;
   if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
   const DropArgs da{(const int*)bits, thresh, drop_scale, seed};
   const dim3 grid((L + kRows - 1) / kRows, H, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    attn_drop_fwd_kernel<__nv_bfloat16><<<grid, kRows * 32, 0, s>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (const float*)bias, (__nv_bfloat16*)out, L,
-        H, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale, da);
-  else
-    attn_drop_fwd_kernel<float><<<grid, kRows * 32, 0, s>>>(
-        (const float*)q, (const float*)k, (const float*)v,
-        (const float*)bias, (float*)out, L, H, qsb, qsl, qsh, ksb, ksl, ksh,
-        vsb, vsl, vsh, scale, da);
+  attn_drop_fwd_kernel<<<grid, kRows * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
+      (float*)out, L, H, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale,
+      da);
   return (int)cudaGetLastError();
 }
 
 // g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*H*L*3] fp32 scratch;
 // dbias_h: [B, H, L] fp32 (summed over H by the caller).
-extern "C" int attention_dropout_bwd(
+extern "C" int attention_dropout_bwd_f32(
     const void* q, const void* k, const void* v, const void* bias,
     const void* g, void* dq, void* dk, void* dv, void* dbias_h, void* stats,
-    int is_bf16, int B, int L, int H, int D, long long qsb, long long qsl,
-    long long qsh, long long ksb, long long ksl, long long ksh,
-    long long vsb, long long vsl, long long vsh, float scale,
-    const void* bits, unsigned thresh, float drop_scale,
-    unsigned long long seed, void* stream) {
+    int B, int L, int H, int D, long long qsb, long long qsl, long long qsh,
+    long long ksb, long long ksl, long long ksh, long long vsb,
+    long long vsl, long long vsh, float scale, const void* bits,
+    unsigned thresh, float drop_scale, unsigned long long seed,
+    void* stream) {
   if (D != kD) return (int)cudaErrorInvalidValue;
   if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
   const DropArgs da{(const int*)bits, thresh, drop_scale, seed};
   const dim3 rows((L + kRows - 1) / kRows, H, B);
   const dim3 keys((L + kKeys - 1) / kKeys, H, B);
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    attn_drop_bwd_rows_kernel<T><<<rows, kRows * 32, 0, s>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-        (const T*)g, (T*)dq, (float*)stats, L, H, qsb, qsl, qsh, ksb, ksl,
-        ksh, vsb, vsl, vsh, scale, da);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-    attn_drop_bwd_keys_kernel<T><<<keys, 2 * kKeys, 0, s>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-        (const T*)g, (const float*)stats, (T*)dk, (T*)dv, (float*)dbias_h,
-        L, H, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale, da);
-  } else {
-    using T = float;
-    attn_drop_bwd_rows_kernel<T><<<rows, kRows * 32, 0, s>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-        (const T*)g, (T*)dq, (float*)stats, L, H, qsb, qsl, qsh, ksb, ksl,
-        ksh, vsb, vsl, vsh, scale, da);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-    attn_drop_bwd_keys_kernel<T><<<keys, 2 * kKeys, 0, s>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
-        (const T*)g, (const float*)stats, (T*)dk, (T*)dv, (float*)dbias_h,
-        L, H, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale, da);
-  }
+  attn_drop_bwd_rows_kernel<<<rows, kRows * 32, 0, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
+      (const float*)g, (float*)dq, (float*)stats, L, H, qsb, qsl, qsh, ksb,
+      ksl, ksh, vsb, vsl, vsh, scale, da);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  attn_drop_bwd_keys_kernel<<<keys, 2 * kKeys, 0, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
+      (const float*)g, (const float*)stats, (float*)dk, (float*)dv,
+      (float*)dbias_h, L, H, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh,
+      scale, da);
   return (int)cudaGetLastError();
 }

@@ -34,11 +34,11 @@ static __device__ __forceinline__ float warp_sum(float x) {
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
 // 3", SC 2011): a counter-based generator, so any element's bits come from
 // (key, counter) alone and the backward pass replays the forward's mask
-// without storing it. Returns word 0 of the 4-word block. The plain PyTorch
-// twin is ops/dropout.py::philox_bits; the two agree bit for bit.
-static __device__ __forceinline__ unsigned philox_word0(
-    unsigned c0, unsigned c1, unsigned c2, unsigned c3,
-    unsigned long long seed) {
+// without storing it. Returns the 4-word block. The plain PyTorch twin is
+// ops/dropout.py::philox4x32; the two agree bit for bit.
+static __device__ __forceinline__ uint4 philox4(unsigned c0, unsigned c1,
+                                               unsigned c2, unsigned c3,
+                                               unsigned long long seed) {
   unsigned k0 = (unsigned)seed, k1 = (unsigned)(seed >> 32);
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -51,7 +51,19 @@ static __device__ __forceinline__ unsigned philox_word0(
     k0 += 0x9E3779B9u;
     k1 += 0xBB67AE85u;
   }
-  return c0;
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// Word 0 of the block (ops/dropout.py::philox_bits): K5's bits.
+static __device__ __forceinline__ unsigned philox_word0(
+    unsigned c0, unsigned c1, unsigned c2, unsigned c3,
+    unsigned long long seed) {
+  return philox4(c0, c1, c2, c3, seed).x;
+}
+
+// Word i (0..3) of a block.
+static __device__ __forceinline__ unsigned philox_word(uint4 w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
 }
 
 // Keep decision of one dropout element. Philox mode (bits == nullptr):

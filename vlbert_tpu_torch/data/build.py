@@ -1,8 +1,8 @@
 """Dataloader factory (port side of vlbert_tpu/data/build.py, which imports
 jax): cfg -> (transform, dataset, collate, loader).
 
-The dataset, collate, loader, tokenizer and transforms are the JAX
-package's host code (numpy, no jax), reused unchanged. Rank and world size
+The dataset, collate, loader, tokenizer and transforms are the port's
+copies of the JAX package's host code (numpy, no jax). Rank and world size
 come from ``torch.distributed`` when it is initialised, else 0 and 1; each
 process loads its own shard. Ported so far: VQA; the other datasets are
 ROADMAP.md queue 1.
@@ -12,9 +12,9 @@ from __future__ import annotations
 
 import os
 
-from vlbert_tpu.data.datasets.vqa import VQADataset, make_vqa_collate
-from vlbert_tpu.data.loader import DataLoader
-from vlbert_tpu.data.tokenization import BertTokenizer
+from vlbert_tpu_torch.data.datasets.vqa import VQADataset, make_vqa_collate
+from vlbert_tpu_torch.data.loader import DataLoader
+from vlbert_tpu_torch.data.tokenization import BertTokenizer
 from vlbert_tpu_torch.data.transforms import build_transforms
 
 

@@ -2,8 +2,8 @@
 vlbert_tpu/engine/serve.py, RefCOCOServer).
 
 Runs the whole model from raw pixels on the device: the eval transform
-(``vlbert_tpu.data.transforms.build_transforms(cfg, "test")``) on the host,
-then ResNet C4 + ROIAlign + conv5 RoI head, [CLS] expr [SEP] text through
+(``vlbert_tpu_torch.data.transforms.build_transforms(cfg, "test")``) on the
+host, then ResNet C4 + ROIAlign + conv5 RoI head, [CLS] expr [SEP] text through
 VL-BERT, per-candidate grounding logits and the argmax box. The VQA server
 (precomputed features) and int8 weight serving are not ported yet
 (ROADMAP.md queue 1).
@@ -16,7 +16,7 @@ import time
 import numpy as np
 import torch
 
-from vlbert_tpu.data.collate import assemble_expression_text, pad_to
+from vlbert_tpu_torch.data.collate import assemble_expression_text, pad_to
 
 
 class RefCOCOServer:

@@ -21,8 +21,8 @@ import sys
 
 import torch
 
-from vlbert_tpu.data.tokenization import BertTokenizer
 from vlbert_tpu_torch.data.build import dist_rank_world, make_dataloader
+from vlbert_tpu_torch.data.tokenization import BertTokenizer
 from vlbert_tpu_torch.engine.val import make_validation_fn
 from vlbert_tpu_torch.models.layers import init_weights
 from vlbert_tpu_torch.models.task_modules import build_module

@@ -38,6 +38,16 @@ _U = ctypes.c_uint
 _Q = ctypes.c_ulonglong
 _STRIDES = (_L,) * 9         # q, k, v strides over (b, l, h)
 
+# attention with prob dropout takes the same arguments in fp32 (CUDA cores)
+# and bf16 (tensor cores): q, k, v, bias, out, B, L, H, D, strides, scale,
+# bits (or NULL), thresh, drop_scale, seed, stream
+_ATTN_DROP_FWD = (_P, _P, _P, _P, _P, _I, _I, _I, _I, *_STRIDES, _F, _P, _U,
+                  _F, _Q, _P)
+# q, k, v, bias, g, dq, dk, dv, dbias_h, stats, B, L, H, D, strides, scale,
+# bits (or NULL), thresh, drop_scale, seed, stream
+_ATTN_DROP_BWD = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                  *_STRIDES, _F, _P, _U, _F, _Q, _P)
+
 # C signatures of the entry points (pointers and the stream as void*)
 SIGNATURES = {
     # feat, feat_is_bf16, boxes, box_mask, out, B, H, W, C, O, P, Q,
@@ -50,15 +60,10 @@ SIGNATURES = {
                       *_STRIDES, _F, _P),
     # x, out, n, is_bf16, bits (or NULL), thresh, scale, seed, stream
     "dropout_fwd": (_P, _P, _L, _I, _P, _U, _F, _Q, _P),
-    # q, k, v, bias, out, is_bf16, B, L, H, D, strides, scale,
-    # bits (or NULL), thresh, drop_scale, seed, stream
-    "attention_dropout_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              *_STRIDES, _F, _P, _U, _F, _Q, _P),
-    # q, k, v, bias, g, dq, dk, dv, dbias_h, stats, is_bf16, B, L, H, D,
-    # strides, scale, bits (or NULL), thresh, drop_scale, seed, stream
-    "attention_dropout_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _I, _I, _I, *_STRIDES, _F, _P, _U, _F, _Q,
-                              _P),
+    "attention_dropout_fwd_f32": _ATTN_DROP_FWD,
+    "attention_dropout_bwd_f32": _ATTN_DROP_BWD,
+    "attention_dropout_fwd_bf16": _ATTN_DROP_FWD,
+    "attention_dropout_bwd_bf16": _ATTN_DROP_BWD,
 }
 
 

@@ -12,16 +12,18 @@ Inference / rate 0:
 Training (prob dropout, 0 < rate <= 1):
   * ``plain_attention_dropout``: the fp32 probs times the keep mask times
     1/(1 - rate) in fp32, then P V; its autograd is the plain backward.
-  * kernels K3 (forward) and K4 (recompute backward) in
-    ``csrc/attention_dropout.cu``, launched by ``fused_attention_dropout``
-    for CUDA tensors inside a ``torch.autograd.Function`` that saves only
-    (q, k, v, bias, seed or bits).
+  * kernels K3 (forward) and K4 (recompute backward), launched by
+    ``fused_attention_dropout`` for CUDA tensors inside a
+    ``torch.autograd.Function`` that saves only (q, k, v, bias, seed or
+    bits): on the tensor cores for bf16 (``csrc/attention_dropout_mma.cu``),
+    on the CUDA cores for fp32 (``csrc/attention_dropout.cu``).
 
-The mask's bits: Philox4x32-10 word 0 with counter (key, query, b*H + h, 1)
-and the call's 64-bit seed (``attention_bits``), drop iff bits <
-min(round(rate * 2^32), 2^32 - 1); or explicit [B, H, L, L] uint16 bits as
-an int tensor, drop iff bits < round(rate * 65536), the JAX package's
-'bits16' rule, for parity tests.
+The mask's bits (``attention_bits``): one Philox4x32-10 evaluation per four
+neighbouring keys, counter (key // 4, query, b*H + h, 1) and the call's
+64-bit seed, key k taking word k % 4; drop iff bits < min(round(rate *
+2^32), 2^32 - 1). Or explicit [B, H, L, L] uint16 bits as an int tensor,
+drop iff bits < round(rate * 65536), the JAX package's 'bits16' rule, for
+parity tests.
 
 Layout: q, k, v are [B, L, H, D]; the additive key bias is exactly
 [B, 1, 1, L] (-10000 on masked keys). Any other bias shape is rejected, as
@@ -35,11 +37,13 @@ import math
 import torch
 
 from vlbert_tpu_torch import ops
-from vlbert_tpu_torch.ops.dropout import keep_mask, philox_bits, threshold
+from vlbert_tpu_torch.ops.dropout import keep_mask, philox4x32, threshold
 
 # the kernels loop over L without a size limit; the bound is the model's
 # position table (max_position_embeddings 512)
 MAX_L = 512
+# bytes: the bf16 K3/K4 copy rows of q, k, v and g in 16-byte pieces
+_ALIGN = 16
 
 
 def _check_bias(q, bias):
@@ -82,14 +86,16 @@ def attention_bwd_plain(q, k, v, bias, g):
 
 
 def attention_bits(B, H, L, seed, device=None):
-    """K3/K4's bits for a [B, H, L, L] prob tensor: Philox word 0 at
-    counter (key, query, b*H + h, 1)."""
+    """K3/K4's bits for a [B, H, L, L] prob tensor: key k of query q in
+    head (b, h) takes word k % 4 of Philox4x32-10 at counter
+    (k // 4, q, b*H + h, 1)."""
     i64 = dict(dtype=torch.int64, device=device)
-    key = torch.arange(L, **i64)
+    group = torch.arange((L + 3) // 4, **i64)
     qry = torch.arange(L, **i64)[:, None]
     bh = torch.arange(B * H, **i64)[:, None, None]
     one = torch.ones((), **i64)
-    return philox_bits(key, qry, bh, one, seed).reshape(B, H, L, L)
+    words = torch.stack(philox4x32(group, qry, bh, one, seed), -1)
+    return words.reshape(B, H, L, -1)[..., :L]
 
 
 def plain_attention_dropout(q, k, v, bias, rate, seed=None, bits=None):
@@ -219,6 +225,23 @@ def _check_cuda_args(q, k, v, bias, name):
                          f"q's device")
 
 
+def _check_dropout_args(q, k, v, bias, **more):
+    """K3/K4's checks: those of every attention kernel, and for bf16, whose
+    kernels copy each row of q, k, v (and g) in 16-byte pieces, each view's
+    start and (b, l, h) strides on 16-byte boundaries."""
+    name = "fused_attention_dropout"
+    _check_cuda_args(q, k, v, bias, name)
+    if q.dtype != torch.bfloat16:
+        return
+    for n, t in dict(q=q, k=k, v=v, **more).items():
+        step = _ALIGN // t.element_size()
+        if t.data_ptr() % _ALIGN or any(s % step for s in t.stride()[:3]):
+            raise ValueError(f"{name}: the bf16 kernel needs {n} rows on "
+                             f"{_ALIGN}-byte boundaries, got data_ptr % "
+                             f"{_ALIGN} = {t.data_ptr() % _ALIGN}, strides "
+                             f"{t.stride()}")
+
+
 def _strides(q, k, v):
     return (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
 
@@ -256,44 +279,49 @@ def _attention_launch(q, k, v, bias):
     return out
 
 
+def _dropout_kernels(lib, q):
+    """K3 and K4's entry points for q's dtype: the tensor-core kernels for
+    bf16, the CUDA-core kernels for fp32."""
+    if q.dtype == torch.bfloat16:
+        return lib.attention_dropout_fwd_bf16, lib.attention_dropout_bwd_bf16
+    return lib.attention_dropout_fwd_f32, lib.attention_dropout_bwd_f32
+
+
 def _attention_dropout_launch(q, k, v, bias, rate, seed, bits):
     from vlbert_tpu_torch.kernels import build
 
-    _check_cuda_args(q, k, v, bias, "fused_attention_dropout")
+    _check_dropout_args(q, k, v, bias)
     B, L, H, D = q.shape
     ptr, _bits, thresh, drop_scale, seed = _drop_args(q, rate, seed, bits)
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
-    lib = build.load()
+    fwd, _ = _dropout_kernels(build.load(), q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.attention_dropout_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), B, L, H, D,
-        *_strides(q, k, v), 1.0 / math.sqrt(D), ptr, thresh, drop_scale,
-        seed, stream)
-    build.check(err, "attention_dropout_fwd")
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+              out.data_ptr(), B, L, H, D, *_strides(q, k, v),
+              1.0 / math.sqrt(D), ptr, thresh, drop_scale, seed, stream)
+    build.check(err, fwd.__name__)
     return out
 
 
 def _attention_dropout_bwd_launch(q, k, v, bias, g, rate, seed, bits):
     from vlbert_tpu_torch.kernels import build
 
-    _check_cuda_args(q, k, v, bias, "fused_attention_dropout")
+    g = g.to(q.dtype).contiguous()
+    _check_dropout_args(q, k, v, bias, g=g)
     B, L, H, D = q.shape
     ptr, _bits, thresh, drop_scale, seed = _drop_args(q, rate, seed, bits)
-    g = g.to(q.dtype).contiguous()
     kw = dict(dtype=q.dtype, device=q.device)
     dq, dk, dv = (torch.empty((B, L, H, D), **kw) for _ in range(3))
     f32 = dict(dtype=torch.float32, device=q.device)
     dbias_h = torch.empty((B, H, L), **f32)
     stats = torch.empty((B * H * L * 3,), **f32)
-    lib = build.load()
+    _, bwd = _dropout_kernels(build.load(), q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.attention_dropout_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dbias_h.data_ptr(), stats.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, L, H, D, *_strides(q, k, v),
-        1.0 / math.sqrt(D), ptr, thresh, drop_scale, seed, stream)
-    build.check(err, "attention_dropout_bwd")
+    err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+              g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              dbias_h.data_ptr(), stats.data_ptr(), B, L, H, D,
+              *_strides(q, k, v), 1.0 / math.sqrt(D), ptr, thresh,
+              drop_scale, seed, stream)
+    build.check(err, bwd.__name__)
     dbias = dbias_h.sum(1)[:, None, None, :].to(bias.dtype)
     return dq, dk.to(k.dtype), dv.to(v.dtype), dbias
