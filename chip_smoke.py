@@ -9,9 +9,10 @@ its own line:
 
   1. device: the card's name and power limit (nvidia-smi);
   2. build: compiles the kernels from vlbert_tpu_torch/csrc at first use;
-  3. kernel parity: ROIAlign (K1) and attention (K2) against their plain
-     PyTorch versions at the serve shapes, with device times (profiler)
-     and per-call CUDA-event times for both;
+  3. kernel parity: ROIAlign (K1) at the serve shape and attention (K2;
+     bf16 on the tensor cores, fp32 on the CUDA cores) at L = 1, 41, 63,
+     64, 65, 128 (B=16) and 173 against their plain PyTorch versions, with
+     device times (profiler) and per-call CUDA-event times for both;
   4. serve: ResNetVLBERTForRefCOCO from cfgs/refcoco/base_gt_boxes_4x16G.yaml
      at full width (ResNet-101, VL-BERT 768 x 12 layers x 12 heads, vocab
      30522), random weights from a fixed seed, bf16 compute, behind the
@@ -20,7 +21,8 @@ its own line:
   5. end-to-end agreement: the same weights in fp32, one query, with the
      kernels and with their plain versions;
   6. training-kernel parity at the VQA training shapes, fp32 and bf16:
-     dropout (K5) forward and backward, attention with prob dropout
+     dropout (K5) forward and backward, also at odd sizes and on views
+     that start off a 16-byte boundary, attention with prob dropout
      forward (K3) and backward (K4; bf16 on the tensor cores, fp32 on the
      CUDA cores) at L = 128, 41 and 173, and K2's backward, each against
      its plain version in explicit-bits and Philox mode; the kernels' keep
@@ -138,11 +140,11 @@ def attention_bound(B, L, H, D, dtype, backward=False):
 
 
 # Philox4x32-10 evaluations per call of each kernel that draws a mask, at
-# bf16 (the tensor-core kernels): K5 one per element; K3 one per four
-# (query, key) elements of each (b, h), over L padded to its 64-row tiles;
-# K4 three times K3's, its rows pass sweeping the keys twice and its keys
-# pass once
-PHILOX_PER_CALL = {"K5": lambda n: n,
+# bf16 (the tensor-core kernels): K5 one per four elements; K3 one per
+# four (query, key) elements of each (b, h), over L padded to its 64-row
+# tiles; K4 three times K3's, its rows pass sweeping the keys twice and its
+# keys pass once
+PHILOX_PER_CALL = {"K5": lambda n: -(-n // 4),
                    "K3": lambda B, H, L: B * H * (-(-L // 64) * 64) ** 2 // 4,
                    "K4": lambda B, H, L: 3 * B * H * (-(-L // 64) * 64) ** 2
                    // 4}
@@ -254,22 +256,31 @@ def k1_parity(dev):
     return errs, ms, plain_ms
 
 
+K2_LENGTHS = (1, 41, 63, 64, 65, 128, 173)
+K2_TIMED = (41, 128, 173)
+
+
 def k2_parity(dev):
-    """Attention kernel vs plain at the serve shapes: B=1, H=12, D=64,
-    L = 41 (24 text + 16 boxes + END) and 173 (the largest shipped bucket),
-    5 keys masked; q, k, v are strided views of one fused projection."""
+    """Attention kernel vs plain, bf16 (tensor cores) and fp32 (CUDA
+    cores), H=12, D=64: L = 41 is the serve shape (24 text + 16 boxes +
+    END), 128 at B=16 the VQA validation shape, 173 the largest shipped
+    bucket, and 1, 63, 64, 65 the ragged edges of one 64-row tile; B=1
+    but at L=128. 5 keys masked (at L=1 the only key, a fully masked
+    row); q, k, v are strided views of one fused projection. Device times
+    in bf16 at the lengths of K2_TIMED."""
     import torch
     from vlbert_tpu_torch.ops.attention import fused_attention, plain_attention
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     errs, timing = {}, {}
-    for L in (41, 173):
+    for L in K2_LENGTHS:
+        B = 16 if L == 128 else 1
         for dtype in (torch.float32, torch.bfloat16):
-            qkv = torch.randn(1, L, 3 * 768, generator=g, device=dev)
-            q, k, v = (t.view(1, L, 12, 64) for t in qkv.to(dtype).split(
+            qkv = torch.randn(B, L, 3 * 768, generator=g, device=dev)
+            q, k, v = (t.view(B, L, 12, 64) for t in qkv.to(dtype).split(
                 768, dim=-1))
-            m = torch.ones(1, L, device=dev)
-            m[0, -5:] = 0
+            m = torch.ones(B, L, device=dev)
+            m[:, -5:] = 0
             bias = ((1.0 - m) * -10000.0)[:, None, None, :].contiguous()
             a = fused_attention(q, k, v, bias)
             b = plain_attention(q, k, v, bias)
@@ -277,10 +288,10 @@ def k2_parity(dev):
             err = (a.float() - b.float()).abs().max().item()
             tol = K2_ATOL[str(dtype)[6:]]
             if not err <= tol:
-                raise AssertionError(f"K2 L={L} {dtype}: max abs err {err} "
-                                     f"> {tol}")
+                raise AssertionError(f"K2 B={B} L={L} {dtype}: max abs err "
+                                     f"{err} > {tol}")
             errs[f"L{L}/{str(dtype)[6:]}"] = err
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and L in K2_TIMED:
                 timing[L] = (cuda_ms(lambda: fused_attention(q, k, v, bias)),
                              cuda_ms(lambda: plain_attention(q, k, v, bias)))
     return errs, timing
@@ -295,22 +306,40 @@ def _rel_err(a, b):
     return _maxerr(a, b) / max(1.0, b.float().abs().max().item())
 
 
+# K5's parity cases: (shape, elements skipped before the view starts). The
+# training shapes; an odd size; views that start 1, 2 or 3 elements past a
+# 16-byte boundary (2, 4 or 6 bytes in bf16, 4, 8 or 12 in fp32), whose
+# 16-byte chunks begin at every phase of K5's groups of four; and a view
+# no longer than its head in bf16 (the 7 elements before its first 16-byte
+# boundary).
+K5_CASES = (((16, 128, 768), 0), ((16, 95, 4096), 0), ((16, 768), 0),
+            ((5, 41, 77), 0), ((5, 41, 77), 1), ((5, 41, 77), 2),
+            ((5, 41, 77), 3), ((16, 128, 768), 1), ((7,), 1))
+
+
 def k5_parity(dev):
-    """Dropout kernel vs plain at the training shapes, both modes, forward
-    and backward; Philox masks bit for bit; timing at [16,128,768] bf16."""
+    """Dropout kernel vs plain over K5_CASES, fp32 and bf16, both modes,
+    forward and backward (the cotangent and the explicit bits start as far
+    off a 16-byte boundary as x); Philox masks bit for bit; timing at
+    [16,128,768] bf16."""
     import torch
     from vlbert_tpu_torch.ops.dropout import (flat_index_bits, hw_dropout,
                                               keep_mask, plain_dropout)
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     errs = {}
-    for shape in ((16, 128, 768), (16, 95, 4096), (16, 768)):
+    for shape, skip in K5_CASES:
+        n = math.prod(shape)
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, generator=g, device=dev).to(dtype) \
+            def view(t):
+                return t.to(dtype)[skip:].view(shape)
+
+            x = view(torch.randn(n + skip, generator=g, device=dev)) \
                 .requires_grad_()
-            gy = torch.randn(shape, generator=g, device=dev).to(dtype)
-            bits = torch.randint(0, 65536, shape, generator=g, device=dev,
-                                 dtype=torch.int32)
+            gy = view(torch.randn(n + skip, generator=g, device=dev))
+            bits = torch.randint(0, 65536, (n + skip,), generator=g,
+                                 device=dev, dtype=torch.int32)[skip:] \
+                .view(shape)
             for mode, kw in (("bits", dict(bits=bits)),
                              ("philox", dict(seed=SEED + 11))):
                 a = hw_dropout(x, DROP_RATE, **kw)
@@ -318,7 +347,8 @@ def k5_parity(dev):
                 b = plain_dropout(x, DROP_RATE, **kw)
                 (db,) = torch.autograd.grad(b, x, gy)
                 err = max(_maxerr(a, b), _maxerr(da, db))
-                key = f"{'x'.join(map(str, shape))}/{str(dtype)[6:]}/{mode}"
+                key = (f"{'x'.join(map(str, shape))}+{skip}/"
+                       f"{str(dtype)[6:]}/{mode}")
                 if not err <= K5_ATOL:
                     raise AssertionError(f"K5 {key}: max abs err {err} > "
                                          f"{K5_ATOL}")
@@ -529,11 +559,10 @@ def library_yardsticks(dev):
     main path's shapes, bf16: scaled_dot_product_attention for K2 (B=1
     L=41 and B=16 L=128), with dropout_p=rate for K3 (its masks are its
     own; the work is the same), autograd through that call for K4, and
-    torch.nn.functional.dropout for K5. Also K2's own time at B=16 L=128.
-    Returns {name: (ms, kernel names)}."""
+    torch.nn.functional.dropout for K5. Returns {name: (ms, kernel
+    names)}."""
     import torch
     import torch.nn.functional as F
-    from vlbert_tpu_torch.ops.attention import fused_attention
 
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     out = {}
@@ -552,8 +581,6 @@ def library_yardsticks(dev):
         a = _sdpa_args(q, k, v, bias)
         out["K2_L128"] = library_ms(
             lambda: F.scaled_dot_product_attention(*a[:3], attn_mask=a[3]))
-        out["K2_L128_kernel"] = library_ms(
-            lambda: fused_attention(q, k, v, bias))
         out["K3"] = library_ms(lambda: F.scaled_dot_product_attention(
             *a[:3], attn_mask=a[3], dropout_p=DROP_RATE))
     leaves = [t.detach().transpose(1, 2).contiguous().requires_grad_()
@@ -570,17 +597,6 @@ def library_yardsticks(dev):
 
 PHILOX_PROBE = r"""
 #include "common.cuh"
-extern "C" __global__ void probe_word0(const unsigned* c, unsigned* o,
-                                       unsigned long long seed) {
-  const int i = threadIdx.x;
-  o[i] = philox_word0(c[i], c[i + 32], c[i + 64], c[i + 96], seed);
-}
-extern "C" __global__ void probe_none(const unsigned* c, unsigned* o,
-                                      unsigned long long seed) {
-  const int i = threadIdx.x;
-  o[i] = c[i] ^ c[i + 32] ^ c[i + 64] ^ c[i + 96] ^ (unsigned)seed ^
-         (unsigned)(seed >> 32);
-}
 extern "C" __global__ void probe_words4(const unsigned* c, uint4* o,
                                         unsigned long long seed) {
   const int i = threadIdx.x;
@@ -596,11 +612,11 @@ extern "C" __global__ void probe_none4(const unsigned* c, uint4* o,
 
 
 def philox_sass_instructions():
-    """SASS instructions of one Philox4x32-10 evaluation (csrc/common.cuh),
-    counted with cuobjdump: a probe kernel that evaluates it once per
-    thread, minus one that reads and writes the same words without it;
-    nvcc for sm_90a at -O3, as the kernels are built. Returns (word 0 only,
-    as K5 uses it; all four words, as K3/K4 use them; the raw counts)."""
+    """SASS instructions of one Philox4x32-10 evaluation of all four words
+    (csrc/common.cuh), as K3, K4 and K5 use it, counted with cuobjdump: a
+    probe kernel that evaluates it once per thread, minus one that reads
+    and writes the same words without it; nvcc for sm_90a at -O3, as the
+    kernels are built. Returns (the count, the raw counts)."""
     import re
 
     from vlbert_tpu_torch.kernels import build
@@ -629,8 +645,7 @@ def philox_sass_instructions():
         elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)[@A-Z]",
                                line):
             counts[name] += 1
-    return (counts["probe_word0"] - counts["probe_none"],
-            counts["probe_words4"] - counts["probe_none4"], counts)
+    return counts["probe_words4"] - counts["probe_none4"], counts
 
 
 def int_issue_per_s():
@@ -1017,9 +1032,10 @@ def main():
           flush=True)
     k2_errs, k2_ms = k2_parity(dev)
     print(f"[3 parity K2 attention] max abs err {k2_errs} (atol "
-          f"{K2_ATOL}); bf16 B=1 H=12 D=64, device ms (call ms): " +
-          ", ".join(f"L={L} kernel {a[0]:.4f} ({a[1]:.4f}), plain "
-                    f"{b[0]:.4f} ({b[1]:.4f})"
+          f"{K2_ATOL}); bf16 on the tensor cores, H=12 D=64, device ms (call "
+          f"ms): " +
+          ", ".join(f"B={16 if L == 128 else 1} L={L} kernel {a[0]:.4f} "
+                    f"({a[1]:.4f}), plain {b[0]:.4f} ({b[1]:.4f})"
                     for L, (a, b) in k2_ms.items()) + f" ({card})",
           flush=True)
 
@@ -1100,10 +1116,10 @@ def main():
     # --- 6: training kernels at the VQA training shapes ---
     k5_errs, k5_mask, k5_ms = k5_parity(dev)
     print(f"[6 parity K5 dropout] max abs err {max(k5_errs.values())} over "
-          f"{len(k5_errs)} cases (shapes [16,128,768], [16,95,4096], "
-          f"[16,768]; fp32, bf16; bits and Philox; forward and backward; "
-          f"atol {K5_ATOL}); Philox keep masks equal the plain Philox's bit "
-          f"for bit, backward replays them, keep fraction "
+          f"{len(k5_errs)} cases ((shape, elements skipped before the "
+          f"view) {list(K5_CASES)}; fp32, bf16; bits and Philox; forward "
+          f"and backward; atol {K5_ATOL}); Philox keep masks equal the "
+          f"plain Philox's bit for bit, backward replays them, keep fraction "
           f"{k5_mask['keep_fraction']:.6f} (1 - rate {1 - DROP_RATE}, sigma "
           f"{k5_mask['sigma']:.1e}), two seeds differ; bf16 [16,128,768] "
           f"device ms (call ms): kernel {k5_ms[0][0]:.4f} "
@@ -1128,14 +1144,14 @@ def main():
           f"({card})", flush=True)
 
     lib = library_yardsticks(dev)
-    philox_instr, philox4_instr, _ = philox_sass_instructions()
+    philox4_instr, _ = philox_sass_instructions()
     int_rate, n_sm, sm_mhz = int_issue_per_s()
     print(f"[6 yardsticks] library calls, bf16, device ms (kernels): " +
           "; ".join(f"{k} {v[0]:.4f} ({', '.join(n[:48] for n in v[1])})"
                     for k, v in lib.items()) +
-          f"; Philox4x32-10: {philox_instr} SASS instructions per "
-          f"evaluation of word 0 (K5), {philox4_instr} of all four words "
-          f"(K3, K4), integer issue {int_rate / 1e12:.2f} T/s ({n_sm} SMs x "
+          f"; Philox4x32-10: {philox4_instr} SASS instructions per "
+          f"evaluation of all four words (K3, K4, K5), integer issue "
+          f"{int_rate / 1e12:.2f} T/s ({n_sm} SMs x "
           f"{INT_LANES_PER_SM} lanes x {sm_mhz:.0f} MHz) ({card})",
           flush=True)
 
@@ -1200,7 +1216,8 @@ def main():
          "library_note": k1_note, "call_ms": k1_ms[1],
          "plain_call_ms": k1_plain_ms[1]},
         {"name": "attention_fwd", "route": "cuda",
-         "source": "vlbert_tpu_torch/csrc/attention.cu",
+         "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
+         "fp32_source": "vlbert_tpu_torch/csrc/attention.cu",
          "replaces": "vlbert_tpu/ops/attention.py:127",
          "launches": launches["fused_attention"],
          "max_abs_err": max(k2_errs.values()), "ms": k2_ms[41][0][0],
@@ -1210,10 +1227,13 @@ def main():
          "library_ms": lib["K2_L41"][0], "library_kernels": lib["K2_L41"][1],
          "call_ms": k2_ms[41][0][1], "plain_call_ms": k2_ms[41][1][1],
          "at_B16_L128": {
-             "ms": lib["K2_L128_kernel"][0],
-             "bound_ms": attention_bound(B, L, H, D, "bfloat16")[0],
+             "ms": k2_ms[128][0][0], "plain_ms": k2_ms[128][1][0],
+             **dict(zip(("bound_ms", "bound_by"),
+                        attention_bound(B, L, H, D, "bfloat16"))),
              "library_ms": lib["K2_L128"][0],
-             "library_kernels": lib["K2_L128"][1]}},
+             "library_kernels": lib["K2_L128"][1],
+             "call_ms": k2_ms[128][0][1],
+             "plain_call_ms": k2_ms[128][1][1]}},
         {"name": "dropout", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/dropout.cu",
          "replaces": "vlbert_tpu/ops/dropout.py:83",
@@ -1224,11 +1244,12 @@ def main():
          **dict(zip(("bound_ms", "bound_by"),
                     roofline(2 * n_drop * 2, n_drop, "bfloat16"))),
          "philox_floor_ms": philox_floor_ms(PHILOX_PER_CALL["K5"](n_drop),
-                                            philox_instr),
+                                            philox4_instr),
          "library_ms": lib["K5"][0], "library_kernels": lib["K5"][1],
          "call_ms": k5_ms[0][1], "plain_call_ms": k5_ms[1][1]},
         {"name": "attention_dropout_fwd", "route": "cuda",
-         "source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
+         "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
+         "fp32_source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "vlbert_tpu/ops/attention.py:300",
          "launches": train_launches["K3"],
          "max_abs_err": max(k34_errs["K3"].values()), "ms": k3_ms[0][0],
@@ -1240,7 +1261,8 @@ def main():
          "library_ms": lib["K3"][0], "library_kernels": lib["K3"][1],
          "call_ms": k3_ms[0][1], "plain_call_ms": k3_ms[1][1]},
         {"name": "attention_dropout_bwd", "route": "cuda",
-         "source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
+         "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
+         "fp32_source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "vlbert_tpu/ops/attention.py:326",
          "launches": train_launches["K4"],
          "max_abs_err": max(k34_errs["K4"].values()),

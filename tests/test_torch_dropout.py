@@ -103,6 +103,46 @@ def test_philox_keep_fraction_and_seed_sensitivity(rate):
     assert abs(diff - 2 * rate * (1 - rate)) <= 10 * sigma
 
 
+def test_flat_index_bits_take_word_i_mod_4_of_group_i_div_4():
+    """K5's layout: one Philox evaluation per four consecutive elements;
+    flat element i takes word i % 4 of the evaluation at counter
+    (g & 0xffffffff, g >> 32, 0, 0), g = i // 4. n = 21 is not a multiple
+    of 4, so the last evaluation feeds only one element."""
+    seed = 2 ** 63 + 17
+    bits = tdrop.flat_index_bits((3, 7), seed)
+    assert bits.shape == (3, 7)
+    for i, b in enumerate(bits.reshape(-1).tolist()):
+        words = tdrop.philox4x32(*(torch.tensor([c]) for c in
+                                   (i // 4, 0, 0, 0)), seed)
+        assert b == int(words[i % 4]), i
+    # flat indices above 2**32, on the counter arithmetic alone: element
+    # 2**32 + 9 is word 1 of group 2**30 + 2, counter (2**30 + 2, 0, 0, 0);
+    # element 2**34 + 22 is word 2 of group 2**32 + 5, counter (5, 1, 0, 0)
+    for i, ctr in ((2 ** 32 + 9, (2 ** 30 + 2, 0, 0, 0)),
+                   (2 ** 34 + 22, (5, 1, 0, 0))):
+        got = tdrop.philox_bits(torch.tensor([i // 4]), seed)[0, i % 4]
+        words = tdrop.philox4x32(*(torch.tensor([c]) for c in ctr), seed)
+        assert int(got) == int(words[i % 4]), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("skip", range(8))
+def test_k5_buffers_meet_16_byte_boundaries_at_the_same_element(dtype,
+                                                                skip):
+    """K5 moves x, out and the explicit int32 bits 16 bytes at a time from
+    x's first 16-byte boundary: whatever x's storage offset, the wrapper's
+    out and bits buffers meet a boundary at that same flat element."""
+    n = 37
+    x = torch.zeros(n + skip, dtype=dtype)[skip:]
+    head = (-x.data_ptr() % 16) // x.element_size()
+    assert (x.data_ptr() + head * x.element_size()) % 16 == 0
+    for want in (dtype, torch.int32):
+        buf = tdrop._aligned_like(x, want)
+        assert buf.shape == x.shape and buf.dtype == want
+        assert buf.is_contiguous()
+        assert (buf.data_ptr() + head * buf.element_size()) % 16 == 0
+
+
 def test_rate_one_gives_zeros_and_rate_zero_identity():
     x = torch.randn(3, 7)
     assert torch.equal(tdrop.dropout_apply(x, 1.0, seed=3),

@@ -196,7 +196,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
             found[m.group(1)] = len(m.group(2).split(","))
     assert set(found) == set(build.SIGNATURES)
-    assert {"attention_dropout_fwd_f32", "attention_dropout_bwd_f32",
+    assert {"attention_fwd_f32", "attention_fwd_bf16",
+            "attention_dropout_fwd_f32", "attention_dropout_bwd_f32",
             "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16"} \
         <= set(found)
     for name, n in found.items():

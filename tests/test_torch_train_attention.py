@@ -227,6 +227,63 @@ def test_bf16_kernel_route_refuses_rows_off_16_byte_boundaries():
     tattn._check_dropout_args(shifted32, k.float(), v.float(), bias)
 
 
+def test_bf16_attention_route_refuses_rows_off_16_byte_boundaries(
+        monkeypatch):
+    """K2's bf16 route is the tensor-core kernel beside K3, which copies
+    rows of q, k, v in 16-byte pieces: the serve path's fused-QKV views (row
+    stride 3*H*64) and unfused views pass; a view 2 bytes in, or a row
+    stride that is not a multiple of 8 elements, is refused on the CUDA
+    route before any launch."""
+    B, L, H = 2, 5, 2
+    qkv = torch.zeros(B, L, 3 * H * 64, dtype=torch.bfloat16)
+    q, k, v = qkv.view(B, L, 3, H, 64).unbind(2)
+    bias = torch.zeros(B, 1, 1, L)
+    tattn._check_cuda_args(q, k, v, bias, "fused_attention")
+    unfused = [torch.zeros(B, L, H * 64, dtype=torch.bfloat16).view(
+        B, L, H, 64) for _ in range(3)]
+    tattn._check_cuda_args(*unfused, bias, "fused_attention")
+
+    def no_launch(*a):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(ops, "device_kind", lambda t: "cuda")
+    monkeypatch.setattr(tattn.fused_attention, "launches", 0)
+    import vlbert_tpu_torch.kernels.build as build
+    monkeypatch.setattr(build, "load", no_launch)
+    shifted = torch.zeros(B * L * H * 64 + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError,
+                       match="fused_attention: the bf16 kernel needs q rows"):
+        tattn.fused_attention(shifted.view(B, L, H, 64), k, v, bias)
+    odd = torch.zeros(B, L, H * 64 + 4, dtype=torch.bfloat16)[..., :H * 64]
+    with pytest.raises(ValueError,
+                       match="fused_attention: the bf16 kernel needs v rows"):
+        tattn.fused_attention(q, k, odd.view(B, L, H, 64), bias)
+    assert tattn.fused_attention.launches == 0
+    # fp32 goes to the CUDA-core kernel, which reads elements one by one
+    shifted32 = torch.zeros(B * L * H * 64 + 1)[1:].view(B, L, H, 64)
+    tattn._check_cuda_args(shifted32, k.float(), v.float(), bias,
+                           "fused_attention")
+
+
+def test_attention_kernels_are_chosen_by_dtype():
+    """bf16 launches the tensor-core kernels (K2 and K3/K4 in one source),
+    fp32 the CUDA-core kernels."""
+    import types
+
+    lib = types.SimpleNamespace(**{n: n for n in (
+        "attention_fwd_bf16", "attention_fwd_f32",
+        "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16",
+        "attention_dropout_fwd_f32", "attention_dropout_bwd_f32")})
+    q16 = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16)
+    q32 = q16.float()
+    assert tattn._attention_kernel(lib, q16) == "attention_fwd_bf16"
+    assert tattn._attention_kernel(lib, q32) == "attention_fwd_f32"
+    assert tattn._dropout_kernels(lib, q16) == (
+        "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16")
+    assert tattn._dropout_kernels(lib, q32) == (
+        "attention_dropout_fwd_f32", "attention_dropout_bwd_f32")
+
+
 def _tiny_vlbert(attn_rate):
     cfg = VLBertConfig(vocab_size=1050, hidden_size=32, visual_size=32,
                        num_hidden_layers=2, num_attention_heads=2,

@@ -81,7 +81,8 @@ def main():
     print(prof.key_averages().table(sort_by="device_time_total",
                                     row_limit=args.rows,
                                     max_name_column_width=60))
-    for name in ("roi_align_fwd_kernel", "attention_fwd_kernel"):
+    # K1, and K2 in bf16 (the tensor-core kernel it shares with K3)
+    for name in ("roi_align_fwd_kernel", "attn_fwd_mma<false>"):
         ts = [e.device_time for e in events if name in e.name]
         print(f"{name}: {len(ts)} launches, mean device "
               f"{sum(ts) / max(len(ts), 1):.2f} us")

@@ -1,14 +1,17 @@
-// Attention with attention-prob dropout on Hopper's tensor cores, bf16:
-// forward (kernel K3) and its deterministic recompute backward (kernel K4).
+// Attention on Hopper's tensor cores, bf16: the forward without dropout
+// (kernel K2), and with attention-prob dropout the forward (kernel K3) and
+// its deterministic recompute backward (kernel K4).
 //
 //   P   = softmax(Q K^T / sqrt(D) + bias)           (fp32, per (b, h))
-//   Pd  = keep ? P * drop_scale : 0                 (fp32 scale)
+//   Pd  = keep ? P * drop_scale : 0                 (fp32 scale; K2: Pd = P)
 //   out = Pd V
 //
-// Replaces: vlbert_tpu/ops/attention.py, _fad_fwd_impl (Pallas kernel
-// _attn_drop_fwd_kernel) and _fad_bwd_impl (_attn_drop_bwd_kernel). The
-// fp32 instantiation stays on the CUDA cores (attention_dropout.cu); the
-// wrapper chooses by dtype.
+// Replaces: vlbert_tpu/ops/attention.py, _fused_attention_fwd_impl (Pallas
+// kernel _attn_kernel), _fad_fwd_impl (_attn_drop_fwd_kernel) and
+// _fad_bwd_impl (_attn_drop_bwd_kernel). The fp32 instantiations stay on
+// the CUDA cores (attention.cu, attention_dropout.cu); the wrappers choose
+// by dtype. K2 is K3's kernel with the mask compiled out: one body, a
+// compile-time kDrop, so K3's code is the same with or without K2.
 //
 // Semantics, the same as the fp32 kernels': scores, softmax, row sums and
 // every accumulator in fp32; the -10000 additive bias is kept (masked keys
@@ -17,13 +20,20 @@
 // -10000; rate == 1 gives zeros (drop_scale 0). The operands of the
 // products are bf16: q, k, v and g as given, P * keep rounded to bf16 for
 // P V (the rounding of p.astype(q.dtype) in the JAX package's XLA path),
-// dS and Pd rounded to bf16 for dQ, dK and dV. The mask is
+// dS and Pd rounded to bf16 for dQ, dK and dV. K2 rounds P to bf16 for P V
+// too, one MMA per product: the TPU kernel multiplies fp32 P by fp32 V, but
+// the rounding moves the output by at most 2^-9 of max |v| (about 8e-3 at
+// |v| <= 4), under chip_smoke.py's bf16 tolerance of 2e-2 and the same as
+// K3's; a bf16 high and low split of P (two MMAs) would buy digits the
+// bf16 output then rounds away. The mask is
 // attention_dropout.cuh's: one Philox4x32-10 evaluation feeds four
 // neighbouring keys, or explicit bits for parity tests.
 //
 // What bounds it on the H100: at the VQA training shape (B=16, H=12,
 // L=128, D=64, bf16) the forward moves 12.6 MB (3.8 us at 3.35 TB/s) and
-// does 0.8 GFLOP (0.8 us on the tensor cores); the backward moves 22.1 MB
+// does 0.8 GFLOP (0.8 us on the tensor cores); K2, the same work without
+// the mask, also serves one query at B=1, L=41, where its 12 blocks (one a
+// head, a quarter of each idle) are all latency. The backward moves 22.1 MB
 // (6.6 us) and does 2.0 GFLOP (2.0 us). Both are bytes-bound on paper;
 // what holds them above that is latency: each (b, h) has only two 64-row
 // tiles, so a block runs two short steps of its pipeline. Philox costs
@@ -45,10 +55,11 @@
 //    Grids are (L / 64, H, B): 384 blocks of 128 threads at the VQA shape,
 //    one wave at three blocks per SM (the backward kernels are held to 168
 //    registers for it).
-//  * K3: one block per (64 query rows, h, b). The Q tile goes into
+//  * K3 and K2: one block per (64 query rows, h, b). The Q tile goes into
 //    registers once; each key tile gives S = Q K^T, scale and bias, the
 //    running max and row sum (all keys, kept or not), then P * keep in bf16
-//    times V into the fp32 accumulator. out = drop_scale * acc / l.
+//    times V into the fp32 accumulator. out = drop_scale * acc / l (K2:
+//    no keep, drop_scale 1).
 //  * K4, two launches, deterministic (no atomics, every sum in a fixed
 //    order), so a training step is bit-reproducible:
 //    - rows pass, one block per 64 query rows: a forward sweep as K3's
@@ -353,7 +364,9 @@ __device__ __forceinline__ void next_kv(KV& s, int j, int nt,
 // One warp's 16 query rows (qa = its lane's first row) against every key:
 // m, the running max in the log2 domain; l, this lane's share of the row
 // sum (the quad sums it); acc = sum_j keep_j 2^(x_j - m) v_j in C layout,
-// unnormalized. Tile 0's copies must have been issued and committed.
+// unnormalized (kDrop false: every keep_j is 1 and da is not read). Tile
+// 0's copies must have been issued and committed.
+template <bool kDrop>
 __device__ __forceinline__ void forward_sweep(
     KV& s, const unsigned (&qf)[4][4], const Slice& sl, int L, int bh,
     int qa, float scale_log2, const DropArgs& da, float (&m)[2],
@@ -397,7 +410,7 @@ __device__ __forceinline__ void forward_sweep(
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const unsigned keep =
-          keep_rows_q(da, bh, L, qa, j * kT + 8 * n + 2 * t);
+          kDrop ? keep_rows_q(da, bh, L, qa, j * kT + 8 * n + 2 * t) : 0xfu;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(sc[n][e] - m[e >> 1]);
@@ -419,12 +432,14 @@ __device__ __forceinline__ Slice slice_of(const bf16* k, const bf16* v,
                st.ksl, st.vsl, bias + (long long)b * L};
 }
 
-// K3: one block per (64 query rows, h, b).
+// K3 (kDrop) and K2 (no mask; da.drop_scale 1): one block per (64 query
+// rows, h, b).
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
-    attn_drop_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const float* __restrict__ bias, bf16* __restrict__ out,
-                      int L, int H, Strides st, float scale, DropArgs da) {
+    attn_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const float* __restrict__ bias,
+                 bf16* __restrict__ out, int L, int H, Strides st,
+                 float scale, DropArgs da) {
   __shared__ __align__(16) Tile qs;
   __shared__ __align__(16) KV kv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -439,7 +454,8 @@ __global__ void __launch_bounds__(kThreads)
   load_a(qf, qs, 16 * warp);
   const int qa = q0 + 16 * warp + (lane >> 2);
   float m[2], l[2], acc[8][4];
-  forward_sweep(kv, qf, sl, L, b * H + h, qa, scale * kLog2e, da, m, l, acc);
+  forward_sweep<kDrop>(kv, qf, sl, L, b * H + h, qa, scale * kLog2e, da, m,
+                       l, acc);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float f = da.drop_scale / quad_sum(l[r]);
@@ -487,7 +503,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
   const int qa = q0 + 16 * warp + (lane >> 2);
   const float scale_log2 = scale * kLog2e;
   float m[2], l[2], acc[8][4];
-  forward_sweep(kv, qf, sl, L, bh, qa, scale_log2, da, m, l, acc);
+  forward_sweep<true>(kv, qf, sl, L, bh, qa, scale_log2, da, m, l, acc);
   // D = g . out, from g's A fragments: they hold the C layout's elements
   // (n-tile n is word 2 (n % 2) + r of k-step n / 2)
   float inv_l[2], dd[2] = {0.0f, 0.0f};
@@ -683,7 +699,33 @@ bool aligned16(const void* q, const void* k, const void* v,
   return p % 16 == 0 && s % 8 == 0;
 }
 
+// K2 and K3: one block per (64 query rows, h, b)
+template <bool kDrop>
+int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
+               void* out, int B, int L, int H, int D, const Strides& st,
+               float scale, const DropArgs& da, void* stream) {
+  if (D != kD || !aligned16(q, k, v, st)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
+  const dim3 grid((L + kT - 1) / kT, H, B);
+  attn_fwd_mma<kDrop><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
+      (bf16*)out, L, H, st, scale, da);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int attention_fwd_bf16(const void* q, const void* k,
+                                  const void* v, const void* bias, void* out,
+                                  int B, int L, int H, int D, long long qsb,
+                                  long long qsl, long long qsh, long long ksb,
+                                  long long ksl, long long ksh, long long vsb,
+                                  long long vsl, long long vsh, float scale,
+                                  void* stream) {
+  const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
+  return launch_fwd<false>(q, k, v, bias, out, B, L, H, D, st, scale,
+                           DropArgs{nullptr, 0u, 1.0f, 0ull}, stream);
+}
 
 extern "C" int attention_dropout_fwd_bf16(
     const void* q, const void* k, const void* v, const void* bias, void* out,
@@ -693,14 +735,9 @@ extern "C" int attention_dropout_fwd_bf16(
     unsigned thresh, float drop_scale, unsigned long long seed,
     void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
-  if (D != kD || !aligned16(q, k, v, st)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
-  const DropArgs da{(const int*)bits, thresh, drop_scale, seed};
-  const dim3 grid((L + kT - 1) / kT, H, B);
-  attn_drop_fwd_mma<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-      (bf16*)out, L, H, st, scale, da);
-  return (int)cudaGetLastError();
+  return launch_fwd<true>(q, k, v, bias, out, B, L, H, D, st, scale,
+                          DropArgs{(const int*)bits, thresh, drop_scale, seed},
+                          stream);
 }
 
 // g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*H*L*3] fp32 scratch;

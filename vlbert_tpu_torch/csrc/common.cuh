@@ -54,27 +54,7 @@ static __device__ __forceinline__ uint4 philox4(unsigned c0, unsigned c1,
   return make_uint4(c0, c1, c2, c3);
 }
 
-// Word 0 of the block (ops/dropout.py::philox_bits): K5's bits.
-static __device__ __forceinline__ unsigned philox_word0(
-    unsigned c0, unsigned c1, unsigned c2, unsigned c3,
-    unsigned long long seed) {
-  return philox4(c0, c1, c2, c3, seed).x;
-}
-
 // Word i (0..3) of a block.
 static __device__ __forceinline__ unsigned philox_word(uint4 w, int i) {
   return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
-}
-
-// Keep decision of one dropout element. Philox mode (bits == nullptr):
-// keep iff the uint32 word >= thresh (thresh = min(round(rate * 2^32),
-// 2^32 - 1)). Explicit-bits mode: bits[idx] holds uint16 bits
-// zero-extended to int32 and thresh = round(rate * 65536); keep iff
-// bits >= thresh, the JAX package's 'bits16' rule.
-static __device__ __forceinline__ bool dropout_keep(
-    const int* __restrict__ bits, long long idx, unsigned thresh,
-    unsigned c0, unsigned c1, unsigned c2, unsigned c3,
-    unsigned long long seed) {
-  if (bits != nullptr) return (unsigned)bits[idx] >= thresh;
-  return philox_word0(c0, c1, c2, c3, seed) >= thresh;
 }

@@ -38,6 +38,8 @@ _U = ctypes.c_uint
 _Q = ctypes.c_ulonglong
 _STRIDES = (_L,) * 9         # q, k, v strides over (b, l, h)
 
+_ATTN_FWD = (_P, _P, _P, _P, _P, _I, _I, _I, _I, *_STRIDES, _F, _P)
+
 # attention with prob dropout takes the same arguments in fp32 (CUDA cores)
 # and bf16 (tensor cores): q, k, v, bias, out, B, L, H, D, strides, scale,
 # bits (or NULL), thresh, drop_scale, seed, stream
@@ -54,10 +56,11 @@ SIGNATURES = {
     # spatial_scale, sampling_ratio, max_grid, stream
     "roi_align_fwd": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _F, _I, _I, _P),
-    # q, k, v, bias, out, is_bf16, B, L, H, D,
-    # q strides (b, l, h), k strides, v strides, scale, stream
-    "attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      *_STRIDES, _F, _P),
+    # attention without dropout in fp32 (CUDA cores) and bf16 (tensor
+    # cores): q, k, v, bias, out, B, L, H, D, q strides (b, l, h), k
+    # strides, v strides, scale, stream
+    "attention_fwd_f32": _ATTN_FWD,
+    "attention_fwd_bf16": _ATTN_FWD,
     # x, out, n, is_bf16, bits (or NULL), thresh, scale, seed, stream
     "dropout_fwd": (_P, _P, _L, _I, _P, _U, _F, _Q, _P),
     "attention_dropout_fwd_f32": _ATTN_DROP_FWD,

@@ -4,10 +4,12 @@ attention-prob dropout (port of vlbert_tpu/ops/attention.py).
 Inference / rate 0:
   * ``plain_attention``: plain PyTorch, scores and softmax in fp32 (the
     counterpart of the JAX package's ``_xla_attention``), the oracle.
-  * kernel K2 (``csrc/attention.cu``), launched by ``fused_attention`` for
-    CUDA tensors inside a ``torch.autograd.Function`` whose backward is
-    ``attention_bwd_plain``, the JAX package's recompute ``_bwd`` in plain
-    PyTorch (JAX runs it in XLA, not in Pallas).
+  * kernel K2, launched by ``fused_attention`` for CUDA tensors inside a
+    ``torch.autograd.Function`` whose backward is ``attention_bwd_plain``,
+    the JAX package's recompute ``_bwd`` in plain PyTorch (JAX runs it in
+    XLA, not in Pallas): on the tensor cores for bf16, K3's kernel with the
+    mask compiled out (``csrc/attention_dropout_mma.cu``), on the CUDA
+    cores for fp32 (``csrc/attention.cu``).
 
 Training (prob dropout, 0 < rate <= 1):
   * ``plain_attention_dropout``: the fp32 probs times the keep mask times
@@ -42,7 +44,7 @@ from vlbert_tpu_torch.ops.dropout import keep_mask, philox4x32, threshold
 # the kernels loop over L without a size limit; the bound is the model's
 # position table (max_position_embeddings 512)
 MAX_L = 512
-# bytes: the bf16 K3/K4 copy rows of q, k, v and g in 16-byte pieces
+# bytes: the bf16 K2/K3/K4 copy rows of q, k, v and g in 16-byte pieces
 _ALIGN = 16
 
 
@@ -198,7 +200,10 @@ class _FusedAttentionDropout(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
-def _check_cuda_args(q, k, v, bias, name):
+def _check_cuda_args(q, k, v, bias, name, **more):
+    """The checks of every attention kernel, and for bf16, whose tensor-core
+    kernels copy each row of q, k, v (and ``more``: g) in 16-byte pieces,
+    each view's start and (b, l, h) strides on 16-byte boundaries."""
     B, L, H, D = q.shape
     if D != 64:
         raise ValueError(f"{name} kernel needs head dim 64, got {D}")
@@ -223,14 +228,6 @@ def _check_cuda_args(q, k, v, bias, name):
             or bias.device != q.device):
         raise ValueError(f"{name} kernel needs a contiguous fp32 bias on "
                          f"q's device")
-
-
-def _check_dropout_args(q, k, v, bias, **more):
-    """K3/K4's checks: those of every attention kernel, and for bf16, whose
-    kernels copy each row of q, k, v (and g) in 16-byte pieces, each view's
-    start and (b, l, h) strides on 16-byte boundaries."""
-    name = "fused_attention_dropout"
-    _check_cuda_args(q, k, v, bias, name)
     if q.dtype != torch.bfloat16:
         return
     for n, t in dict(q=q, k=k, v=v, **more).items():
@@ -240,6 +237,11 @@ def _check_dropout_args(q, k, v, bias, **more):
                              f"{_ALIGN}-byte boundaries, got data_ptr % "
                              f"{_ALIGN} = {t.data_ptr() % _ALIGN}, strides "
                              f"{t.stride()}")
+
+
+def _check_dropout_args(q, k, v, bias, **more):
+    """K3/K4's checks."""
+    _check_cuda_args(q, k, v, bias, "fused_attention_dropout", **more)
 
 
 def _strides(q, k, v):
@@ -263,19 +265,26 @@ def _drop_args(q, rate, seed, bits):
             0 if seed is None else int(seed))
 
 
+def _attention_kernel(lib, q):
+    """K2's entry point for q's dtype: the tensor-core kernel for bf16, the
+    CUDA-core kernel for fp32."""
+    if q.dtype == torch.bfloat16:
+        return lib.attention_fwd_bf16
+    return lib.attention_fwd_f32
+
+
 def _attention_launch(q, k, v, bias):
     from vlbert_tpu_torch.kernels import build
 
     _check_cuda_args(q, k, v, bias, "fused_attention")
     B, L, H, D = q.shape
     out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
-    lib = build.load()
+    fwd = _attention_kernel(build.load(), q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), B, L, H, D,
-        *_strides(q, k, v), 1.0 / math.sqrt(D), stream)
-    build.check(err, "attention_fwd")
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+              out.data_ptr(), B, L, H, D, *_strides(q, k, v),
+              1.0 / math.sqrt(D), stream)
+    build.check(err, fwd.__name__)
     return out
 
 

@@ -6,8 +6,10 @@ by ``1 / (1 - rate)`` rounded to the input's dtype (in bf16, 1/(1-0.1) is
 integer threshold:
 
   * Philox mode (the training path): 32-bit words of Philox4x32-10 keyed by
-    a 64-bit seed, counter = (flat index low, flat index high, 0, 0); drop
-    iff word < min(round(rate * 2^32), 2^32 - 1).
+    a 64-bit seed, one evaluation per four consecutive elements: flat index
+    i takes word i % 4 of the evaluation at counter (g & 0xffffffff,
+    g >> 32, 0, 0), g = i // 4 (``philox_bits``); drop iff word <
+    min(round(rate * 2^32), 2^32 - 1).
   * explicit-bits mode (parity with the JAX package): uint16 bits given as
     int32, drop iff bits < round(rate * 65536), the JAX 'bits16' rule.
 
@@ -37,6 +39,8 @@ from vlbert_tpu_torch import ops
 
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
+# bytes: K5 moves x, out and the explicit bits in 16-byte pieces
+_ALIGN = 16
 # Philox4x32 multipliers and Weyl key increments (Salmon et al., SC 2011)
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -66,19 +70,22 @@ def philox4x32(c0, c1, c2, c3, seed):
     return c0, c1, c2, c3
 
 
-def philox_bits(c0, c1, c2, c3, seed):
-    """Word 0 of Philox4x32-10: the bits every kernel of the port draws."""
-    return philox4x32(c0, c1, c2, c3, seed)[0]
+def philox_bits(g, seed):
+    """K5's bits of flat elements 4g .. 4g + 3 for each group index in the
+    int64 tensor ``g``: the four words of Philox4x32-10 at counter
+    (g & 0xffffffff, g >> 32, 0, 0), as a [..., 4] tensor."""
+    zero = torch.zeros((), dtype=torch.int64, device=g.device)
+    return torch.stack(philox4x32(g & _MASK32, g >> 32, zero, zero, seed), -1)
 
 
 def flat_index_bits(shape, seed, device=None):
-    """K5's bits for a tensor of ``shape``: counter = flat element index."""
+    """K5's bits for a tensor of ``shape``: flat element i takes word i % 4
+    of group i // 4 (``philox_bits``)."""
     n = 1
     for s in shape:
         n *= int(s)
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    zero = torch.zeros((), dtype=torch.int64, device=device)
-    return philox_bits(i & _MASK32, i >> 32, zero, zero, seed).reshape(shape)
+    g = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    return philox_bits(g, seed).reshape(-1)[:n].reshape(shape)
 
 
 def threshold(rate, explicit_bits):
@@ -188,6 +195,22 @@ class _HwDropout(torch.autograd.Function):
         return dx, None, None, None
 
 
+def _aligned_like(x, dtype):
+    """An empty tensor of x's shape and ``dtype`` whose element h starts on
+    a 16-byte boundary, h being the first element of the contiguous ``x``
+    that does: K5 reads x and the bits and writes out 16 bytes at a time
+    from the same flat index, whatever x's storage offset."""
+    n = x.numel()
+    head = (-x.data_ptr() % _ALIGN) // x.element_size()
+    out = torch.empty(n, dtype=dtype, device=x.device)
+    es = out.element_size()
+    if (out.data_ptr() + head * es) % _ALIGN:
+        buf = torch.empty(n + _ALIGN // es, dtype=dtype, device=x.device)
+        skip = (-(buf.data_ptr() + head * es) % _ALIGN) // es
+        out = buf[skip:skip + n]
+    return out.view(x.shape)
+
+
 def _dropout_launch(x, rate, seed, bits):
     from vlbert_tpu_torch.kernels import build
 
@@ -202,9 +225,9 @@ def _dropout_launch(x, rate, seed, bits):
             raise ValueError(f"dropout bits must be {tuple(x.shape)} on "
                              f"{x.device}, got {tuple(bits.shape)} on "
                              f"{bits.device}")
-        bits = bits.to(torch.int32).contiguous()
+        bits = _aligned_like(x, torch.int32).copy_(bits)
         bits_ptr = bits.data_ptr()
-    out = torch.empty_like(x)
+    out = _aligned_like(x, x.dtype)
     lib = build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.dropout_fwd(x.data_ptr(), out.data_ptr(), x.numel(),
