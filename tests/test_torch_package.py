@@ -187,21 +187,33 @@ def test_every_source_and_header_is_in_the_digest(tmp_path, monkeypatch):
 
 def test_ctypes_signatures_match_the_c_entry_points():
     """Each extern "C" entry point in csrc has a SIGNATURES entry with as
-    many arguments (ctypes would otherwise pass them wrongly)."""
+    many arguments, each of the ctypes type of its C type (ctypes would
+    otherwise pass them wrongly)."""
+    import ctypes
     import re
+
+    def ctype(param):
+        decl = " ".join(param.split()[:-1]) if "*" not in param else "*"
+        return {"*": ctypes.c_void_p, "int": ctypes.c_int,
+                "float": ctypes.c_float, "long long": ctypes.c_longlong,
+                "unsigned": ctypes.c_uint,
+                "unsigned long long": ctypes.c_ulonglong}[decl]
 
     found = {}
     for src in build.sources():
         text = src.read_text()
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
-            found[m.group(1)] = len(m.group(2).split(","))
+            found[m.group(1)] = [ctype(p) for p in m.group(2).split(",")]
     assert set(found) == set(build.SIGNATURES)
-    assert {"attention_fwd_f32", "attention_fwd_bf16",
+    assert {"roi_align_fwd", "attention_fwd_f32", "attention_fwd_bf16",
             "attention_dropout_fwd_f32", "attention_dropout_bwd_f32",
             "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16"} \
         <= set(found)
-    for name, n in found.items():
-        assert len(build.SIGNATURES[name]) == n, name
+    for name, types_ in found.items():
+        assert list(build.SIGNATURES[name]) == types_, name
+    # feat, feat_is_bf16, boxes, box_mask, out, out_is_bf16, ...
+    assert found["roi_align_fwd"][4:6] == [ctypes.c_void_p, ctypes.c_int]
+    assert len(found["roi_align_fwd"]) == 17
 
 
 def test_no_fallback_without_nvcc_and_cpu_counters(tmp_path, monkeypatch):

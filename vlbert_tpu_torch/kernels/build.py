@@ -52,9 +52,9 @@ _ATTN_DROP_BWD = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
 
 # C signatures of the entry points (pointers and the stream as void*)
 SIGNATURES = {
-    # feat, feat_is_bf16, boxes, box_mask, out, B, H, W, C, O, P, Q,
-    # spatial_scale, sampling_ratio, max_grid, stream
-    "roi_align_fwd": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    # feat, feat_is_bf16, boxes, box_mask, out, out_is_bf16, B, H, W, C,
+    # O, P, Q, spatial_scale, sampling_ratio, max_grid, stream
+    "roi_align_fwd": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _F, _I, _I, _P),
     # attention without dropout in fp32 (CUDA cores) and bf16 (tensor
     # cores): q, k, v, bias, out, B, L, H, D, q strides (b, l, h), k

@@ -4,8 +4,8 @@ Two modes, selected by ``image_feat_precomputed``:
   (a) precomputed: each box row is [x1, y1, x2, y2, feat_0..feat_{F-1}];
       the feature is sliced off.
   (b) end-to-end: ResNet stem + stages 1-3 -> stride-16 body4 map, ROIAlign
-      to 14x14 (fp32, cast to the compute dtype), conv5 RoI head, mean pool
-      in fp32 -> 2048-d.
+      to 14x14 (fp32 sums, stored in the compute dtype), conv5 RoI head,
+      mean pool in fp32 -> 2048-d.
 Then for both: 2x4x256 sin/cos coordinate embeddings, concatenated before
 the features, and ``obj_downsample`` (Dropout(0.1) + Linear) + ReLU. Masked
 box slots are zeroed at the end.
@@ -90,10 +90,13 @@ class FastRCNN(nn.Module):
             boxes = boxes[:, :, :4]
         else:
             body4 = self.backbone(images)
+            # the JAX package casts ROIAlign's fp32 output to the compute
+            # dtype; here the kernel stores it so, in the same pass
             rois = roi_align(body4, boxes, box_mask, pooled_h=14,
                              pooled_w=14, spatial_scale=1.0 / 16,
-                             sampling_ratio=self.roi_sampling_ratio)
-            rois = rois.to(d).reshape(B * O, 14, 14, rois.shape[-1])
+                             sampling_ratio=self.roi_sampling_ratio,
+                             out_dtype=d)
+            rois = rois.reshape(B * O, 14, 14, rois.shape[-1])
             post_roialign = self.roi_head_feature_extractor(rois) \
                 .reshape(B, O, -1)                  # fp32 mean pool
 

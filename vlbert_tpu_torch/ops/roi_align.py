@@ -14,6 +14,10 @@ Two versions of one function:
   * kernel K1 (``csrc/roi_align.cu``), launched by ``roi_align`` for CUDA
     tensors.
 
+Both take ``out_dtype`` (fp32, the JAX kernel's contract, or bf16): the
+fp32 result rounded once to it, so a caller that computes in bf16 gets its
+input in one pass, with no cast after it.
+
 Layout: features are NHWC; boxes are [B, O, 4] padded per image with a
 validity mask [B, O]; padded slots produce zeros.
 """
@@ -27,8 +31,11 @@ from vlbert_tpu_torch import ops
 # Cap on the adaptive sampling grid, as in the JAX package. An explicit
 # sampling_ratio above it is rejected.
 MAX_GRID = 8
-# the kernel keeps one row of x taps per bin in shared memory
-MAX_POOLED = 32
+# the output types the kernel stores; the accumulation is fp32 in both
+OUT_DTYPES = (torch.float32, torch.bfloat16)
+# the kernel moves 16 bytes of channels a thread: C must be a multiple of
+# this many elements, and the map must start on a 16-byte boundary
+VECTOR_ELEMENTS = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def _interp_weights(start, roi_size, grid_n, pooled_size, fm_size):
@@ -107,12 +114,19 @@ def roi_align_weights(boxes, fm_h, fm_w, pooled_h, pooled_w,
     return ry, cx
 
 
+def _check_out_dtype(out_dtype):
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"roi_align: out_dtype must be torch.float32 or "
+                        f"torch.bfloat16, got {out_dtype}")
+
+
 def roi_align_plain(features, boxes, box_mask, *, pooled_h=14, pooled_w=14,
-                    spatial_scale=1.0 / 16, sampling_ratio=0):
-    """Plain PyTorch ROIAlign: two separable einsums in fp32.
+                    spatial_scale=1.0 / 16, sampling_ratio=0,
+                    out_dtype=torch.float32):
+    """Plain PyTorch ROIAlign: two separable einsums in fp32, then one cast.
 
     features [B, H, W, C] (any float), boxes [B, O, 4], box_mask [B, O]
-    -> [B, O, pooled_h, pooled_w, C] fp32.
+    -> [B, O, pooled_h, pooled_w, C] in ``out_dtype``.
     """
     _, H, W, _ = features.shape
     f32 = features.to(torch.float32)
@@ -122,29 +136,35 @@ def roi_align_plain(features, boxes, box_mask, *, pooled_h=14, pooled_w=14,
     ry = ry * mask                                          # zero padded rois
     cx = cx * mask
     tmp = torch.einsum("boph,bhwc->bopwc", ry, f32)         # rows
-    return torch.einsum("boqw,bopwc->bopqc", cx, tmp)       # cols
+    out = torch.einsum("boqw,bopwc->bopqc", cx, tmp)        # cols
+    return out.to(out_dtype)
 
 
 def roi_align(features, boxes, box_mask, *, pooled_h=14, pooled_w=14,
-              spatial_scale=1.0 / 16, sampling_ratio=0):
+              spatial_scale=1.0 / 16, sampling_ratio=0,
+              out_dtype=torch.float32):
     """Batched ROIAlign; launches kernel K1 for CUDA tensors.
 
     Args:
       features: [B, H, W, C] NHWC feature map, fp32 or bf16 (compute fp32)
       boxes:    [B, O, 4] (x1, y1, x2, y2) image coords, padded
       box_mask: [B, O] validity (padded slots produce zeros)
+      out_dtype: torch.float32 (the JAX package's contract) or
+        torch.bfloat16: the fp32 sums rounded once, in the kernel's store
     Returns:
-      [B, O, pooled_h, pooled_w, C] fp32
+      [B, O, pooled_h, pooled_w, C] in ``out_dtype``
 
     A CPU tensor takes ``roi_align_plain``; a CUDA tensor launches the
     kernel or raises. The kernel has no backward yet (ROADMAP.md queue 2,
     K1b): asking it for a gradient raises instead of cutting the graph.
     """
+    _check_out_dtype(out_dtype)
     kind = ops.device_kind(features)
     if kind == "cpu":
         return roi_align_plain(features, boxes, box_mask, pooled_h=pooled_h,
                                pooled_w=pooled_w, spatial_scale=spatial_scale,
-                               sampling_ratio=sampling_ratio)
+                               sampling_ratio=sampling_ratio,
+                               out_dtype=out_dtype)
     if kind != "cuda":
         raise ValueError(f"roi_align: unsupported device {features.device}")
     if torch.is_grad_enabled() and features.requires_grad:
@@ -152,11 +172,11 @@ def roi_align(features, boxes, box_mask, *, pooled_h=14, pooled_w=14,
             "roi_align on CUDA has no backward yet: the ROIAlign dF kernel "
             "is ROADMAP.md queue 2, K1b")
     return _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
-                           spatial_scale, sampling_ratio)
+                           spatial_scale, sampling_ratio, out_dtype)
 
 
 def _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
-                    spatial_scale, sampling_ratio):
+                    spatial_scale, sampling_ratio, out_dtype):
     from vlbert_tpu_torch.kernels import build
 
     _check_sampling_ratio(sampling_ratio)
@@ -176,25 +196,33 @@ def _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
                         f"{features.dtype}")
     if not features.is_contiguous():
         raise ValueError("roi_align kernel needs NHWC-contiguous features")
-    if pooled_h > MAX_POOLED or pooled_w > MAX_POOLED:
-        raise ValueError(f"roi_align kernel supports pooled sizes up to "
-                         f"{MAX_POOLED}, got {pooled_h}x{pooled_w}")
+    vec = VECTOR_ELEMENTS[features.dtype]
+    if C % vec:
+        raise ValueError(f"roi_align kernel moves 16 bytes of channels a "
+                         f"thread: C={C} is not a multiple of {vec} "
+                         f"({features.dtype})")
+    if features.data_ptr() % 16:
+        raise ValueError("roi_align kernel needs features that start on a "
+                         "16-byte boundary")
     dev = features.device
     for name, t in (("boxes", boxes), ("box_mask", box_mask)):
         if t.device != dev:
             raise ValueError(f"roi_align: {name} on {t.device}, features on "
                              f"{dev}")
     boxes = boxes.to(torch.float32).contiguous()
-    mask = box_mask.to(torch.uint8).contiguous()
-    out = torch.empty((B, O, pooled_h, pooled_w, C), dtype=torch.float32,
+    # a bool is one byte, 0 or 1: read it in place (a conversion would be a
+    # launch of its own on every call)
+    mask = (box_mask.view(torch.uint8) if box_mask.dtype == torch.bool
+            else box_mask.to(torch.uint8)).contiguous()
+    out = torch.empty((B, O, pooled_h, pooled_w, C), dtype=out_dtype,
                       device=dev)
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.roi_align_fwd(
         features.data_ptr(), int(features.dtype == torch.bfloat16),
         boxes.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        B, H, W, C, O, pooled_h, pooled_w, float(spatial_scale),
-        int(sampling_ratio), MAX_GRID, stream)
+        int(out_dtype == torch.bfloat16), B, H, W, C, O, pooled_h, pooled_w,
+        float(spatial_scale), int(sampling_ratio), MAX_GRID, stream)
     build.check(err, "roi_align_fwd")
     roi_align.launches += 1
     return out
