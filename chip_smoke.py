@@ -11,9 +11,11 @@ its own line:
   2. build: compiles the kernels from vlbert_tpu_torch/csrc at first use;
   3. kernel parity: ROIAlign (K1; fp32 and bf16 maps, fp32 and bf16
      output, sampling ratio 1, 0 and 2) at the serve shape, at B=2 with 37
-     slots, on the portrait map of a 640x480 query and at an odd C, and
-     attention (K2; bf16 on the tensor cores, fp32 on the CUDA cores) at
-     L = 1, 41, 63, 64, 65, 128 (B=16) and 173 against their plain PyTorch
+     slots, at the RefCOCO+ test driver's B=4 with 108 slots, on the
+     portrait map of a 640x480 query and at an odd C, and attention (K2;
+     bf16 on the tensor cores, fp32 on the CUDA cores) at L = 1, 41, 63,
+     64, 65, 128 (B=16 and test_net_vqa's B=64) and 173 (B=1 and
+     test_net_refcoco's B=4) against their plain PyTorch
      versions, with device times (profiler) and per-call CUDA-event times
      for both; K1 also timed by kernel name with its kernels per call, and
      the three ops the main path ran before K1 stored the compute dtype
@@ -45,23 +47,48 @@ its own line:
      3129 answers, batch 16, L = 32 + 95 + 1 = 128, bf16), random weights
      from seed 0, with the printed overrides; the loss must fall, every
      step must launch K3 12, K4 12, K5 27 (forward) and 26 (backward)
-     times, and validation must run K2; then a profiler window over a few
-     steps;
+     times, and validation must run K2; train_net's checkpoint of each
+     epoch is recorded, not written, so that no write overlaps the timed
+     steps; then a profiler window over a few steps, and the same run
+     with the writes made (the background writer) for what they cost;
   8. fp32 train-step agreement: one step from the same weights and seed
      with the kernels and with the plain versions (plain Philox, so the
      same masks): loss, gradient norm, every gradient leaf and the updated
      weights; and a repeat of the kernel step that must give
-     bit-identical parameters.
+     bit-identical parameters;
+  9. train -> checkpoint -> resume: train_net from the same config on
+     phase 7's set, warm-started through NETWORK.PARTIAL_PRETRAIN from a
+     reference-layout pretrain checkpoint the script writes (``module.``
+     prefix, the MLM transform where the classifier's goes, no answer
+     head) with the shipped prefix changes: every parameter but the answer
+     head must come from the file unchanged; 2 epochs of 4 steps with a
+     checkpoint each, then AUTO_RESUME to epoch 3 must begin at epoch 2
+     with the optimizer count 8 and run exactly 4 more steps; save and
+     load seconds and the file size at base width;
+  10. VQA server: phase 9's -best.model in VQAServer (bucket 64 text + 108
+     boxes, L = 173), bf16, 8 distinct questions, each launching K2 12
+     times and no other kernel; latency p50 / p90; then fp32 logits with
+     the kernels and with the plain versions on one query;
+  11. test drivers: test_net_vqa on a 64-question test split from phase
+     9's checkpoint (K2 12 launches a batch), and ``python -m
+     vlbert_tpu_torch.engine.test --task refcoco`` (its ``main``) from
+     cfgs/refcoco/base_gt_boxes_4x16G.yaml on 16 synthetic referring
+     expressions over phase 4's landscape images, from a script-written
+     reference-layout ``.model`` (``module.`` and ``vlbert._module.``):
+     batch 4, so K1 4 and K2 48 launches; pred-box rows, IoU@0.5 accuracy,
+     samples/s of each test driver's inference loop; fp32 kernels and plain
+     versions must predict identical boxes on one batch.
 
-Any failure raises. On every exit it stops the processes it started (the
-loader's forkserver, multiprocessing's resource tracker, any leftover
-child). The last three lines are the kernels' JSON record, the
+Any failure raises. Every file the phases write lives under one temporary
+directory, removed on exit. On every exit it stops the processes it
+started (the loader's forkserver, multiprocessing's resource tracker, any
+leftover child). The last three lines are the kernels' JSON record, the
 nvidia-smi line, and {"ok": true, "device": {...}}. Kernel launches made
 to compare a kernel with its plain version are not counted: each path's
 counts are set to 0 just before it runs. Each kernel's record carries its
-device time, its plain version's and its library call's (null for K1: no
-single PyTorch call computes ROIAlign, torchvision is not installed), and
-bound_ms: the larger of the bytes it must move over 3.35 TB/s and its
+device time, its plain version's and its library call's (for K1
+``F.grid_sample`` over the 14x14 bin centres, which computes ROIAlign at
+sampling ratio 1 for boxes inside the map), and bound_ms: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the H100's peak for its dtype (bound_by says which; K1's
 for its main-path route, bf16 in and out, with the fp32-out route beside
 it);
@@ -281,6 +308,7 @@ def k1_cases(dev):
     """(name, fp32 map, boxes, bool mask, sampling ratios) of K1's parity:
     the serve shape; B=2 with 37 slots, the edge boxes and random ones,
     different in each image, padded slots at other places in each; the
+    RefCOCO+ test driver's B=4 with 108 slots, 108, 97, 66 and 40 live; the
     portrait canvas a 480x640 query is padded to (1000 tall, 600 wide: map
     [1,63,38,1024]) with the serve boxes transposed; and an odd C (1032:
     129 bf16 or 258 fp32 chunks a pixel, more than a block's threads)."""
@@ -306,6 +334,21 @@ def k1_cases(dev):
     yield ("B2_O37", torch.randn(2, 38, 63, 1024, generator=g, device=dev),
            torch.from_numpy(b2).to(dev), torch.from_numpy(m2).to(dev),
            (1, 0, 2))
+    # the RefCOCO+ test driver's batch: B=4, 108 slots, the live boxes first
+    # as its collate packs them, slots past 64 live in three images
+    O, live = 108, (108, 97, 66, 40)
+    b4 = np.zeros((4, O, 4), np.float32)
+    m4 = np.zeros((4, O), bool)
+    for b in range(4):
+        xy = rng.uniform([-60, -60], [1040, 640], (O, 2))
+        wh = rng.uniform(0.2, 1.0, (O, 1)) * rng.choice(
+            [2.0, 30.0, 300.0, 1100.0], (O, 1)) * rng.uniform(0.5, 1.5, (O, 2))
+        b4[b] = np.concatenate([xy, xy + wh], 1)
+        m4[b, :live[b]] = True
+    b4[3, :K1_SERVE_LIVE] = K1_SERVE_BOXES[:K1_SERVE_LIVE]
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    yield ("B4_O108", torch.randn(4, 38, 63, 1024, generator=g, device=dev),
+           torch.from_numpy(b4).to(dev), torch.from_numpy(m4).to(dev), (1,))
     portrait = boxes[..., [1, 0, 3, 2]].contiguous()
     yield ("portrait", feat.transpose(1, 2).contiguous(), portrait, mask,
            (1, 0))
@@ -377,25 +420,30 @@ def k1_bound(B, H, W, C, O, in_bytes, out_bytes, P=14, Q=14, taps=4):
                     2 * taps * B * O * P * Q * C, "float32")
 
 
-K2_LENGTHS = (1, 41, 63, 64, 65, 128, 173)
-K2_TIMED = (41, 128, 173)
+# (B, L): the edges of one 64-row tile, the serve shape, the VQA
+# validation shape, test_net_vqa's (B=64 L=128), the VQA server's and
+# test_net_refcoco's (B=4 L=173)
+K2_CASES = ((1, 1), (1, 41), (1, 63), (1, 64), (1, 65), (16, 128), (64, 128),
+            (1, 173), (4, 173))
+K2_TIMED = ((1, 41), (16, 128), (1, 173))
 
 
 def k2_parity(dev):
     """Attention kernel vs plain, bf16 (tensor cores) and fp32 (CUDA
-    cores), H=12, D=64: L = 41 is the serve shape (24 text + 16 boxes +
-    END), 128 at B=16 the VQA validation shape, 173 the largest shipped
-    bucket, and 1, 63, 64, 65 the ragged edges of one 64-row tile; B=1
-    but at L=128. 5 keys masked (at L=1 the only key, a fully masked
-    row); q, k, v are strided views of one fused projection. Device times
-    in bf16 at the lengths of K2_TIMED."""
+    cores), H=12, D=64, at the (B, L) of K2_CASES: L = 41 is the serve
+    shape (24 text + 16 boxes + END), 128 the VQA validation (B=16) and
+    test_net_vqa (B=64) shape, 173 the VQA server's (B=1) and
+    test_net_refcoco's (B=4) bucket, and 1, 63, 64, 65 the ragged edges
+    of one 64-row tile. 5 keys masked (at L=1 the only key, a fully
+    masked row); q, k, v are strided views of one fused projection.
+    Device times in bf16 at the cases of K2_TIMED, keyed by L, and of the
+    fp32 route (CUDA cores) at B=16 L=128 under the key "128_fp32"."""
     import torch
     from vlbert_tpu_torch.ops.attention import fused_attention, plain_attention
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     errs, timing = {}, {}
-    for L in K2_LENGTHS:
-        B = 16 if L == 128 else 1
+    for B, L in K2_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             qkv = torch.randn(B, L, 3 * 768, generator=g, device=dev)
             q, k, v = (t.view(B, L, 12, 64) for t in qkv.to(dtype).split(
@@ -411,10 +459,11 @@ def k2_parity(dev):
             if not err <= tol:
                 raise AssertionError(f"K2 B={B} L={L} {dtype}: max abs err "
                                      f"{err} > {tol}")
-            errs[f"L{L}/{str(dtype)[6:]}"] = err
-            if dtype == torch.bfloat16 and L in K2_TIMED:
-                timing[L] = (cuda_ms(lambda: fused_attention(q, k, v, bias)),
-                             cuda_ms(lambda: plain_attention(q, k, v, bias)))
+            errs[f"B{B}_L{L}/{str(dtype)[6:]}"] = err
+            key = L if dtype == torch.bfloat16 else f"{L}_fp32"
+            if (B, L) in K2_TIMED and (dtype == torch.bfloat16 or L == 128):
+                timing[key] = (cuda_ms(lambda: fused_attention(q, k, v, bias)),
+                               cuda_ms(lambda: plain_attention(q, k, v, bias)))
     return errs, timing
 
 
@@ -675,27 +724,90 @@ def _sdpa_args(q, k, v, bias):
             bias.to(q.dtype))
 
 
+def k1_grid(boxes, H, W, P=14, spatial_scale=1.0 / 16):
+    """grid_sample's grid [B, O*P, P, 2] (x, y in align_corners=True
+    units) of ROIAlign's bin centres at sampling ratio 1: each box scaled
+    by 1/16 with no rounding, at least 1x1, bin p's centre at
+    y1 + (p + 0.5) h / P. With padding_mode="border" a sample is clamped to
+    [0, H-1], which is ROIAlign's rule for samples inside [-1, H]; outside
+    it ROIAlign gives 0. Also returns a [B, O] mask of the boxes whose
+    samples all lie inside."""
+    import torch
+
+    b = boxes.to(torch.float32) * spatial_scale
+    c = torch.arange(P, device=boxes.device, dtype=torch.float32) + 0.5
+    ys = b[..., 1, None] + c * (b[..., 3] - b[..., 1]).clamp(min=1)[..., None] / P
+    xs = b[..., 0, None] + c * (b[..., 2] - b[..., 0]).clamp(min=1)[..., None] / P
+    inside = ((ys >= -1) & (ys <= H)).all(-1) & ((xs >= -1) & (xs <= W)).all(-1)
+    gy = (2 * ys / (H - 1) - 1)[..., :, None].expand(*ys.shape, P)
+    gx = (2 * xs / (W - 1) - 1)[..., None, :].expand(*xs.shape[:-1], P, P)
+    B, O = boxes.shape[:2]
+    return torch.stack([gx, gy], -1).reshape(B, O * P, P, 2), inside
+
+
+def k1_library(dev):
+    """K1's yardstick: one F.grid_sample(mode="bilinear",
+    padding_mode="border", align_corners=True) over the 14x14 bin centres
+    of the serve shape's 16 slots (output [1, C, 16*14, 14], the padded
+    slots' mask multiply left out), on the bf16 body4 as an NCHW view of
+    its NHWC memory. Returns (ms, kernel names, dtype timed, fp32 max abs
+    err against the plain ROIAlign on the boxes inside the map, how many
+    of the live boxes that is)."""
+    import torch
+    import torch.nn.functional as F
+    from vlbert_tpu_torch.ops.roi_align import roi_align_plain
+
+    feat, boxes, mask = k1_serve_inputs(dev)
+    _, H, W, C = feat.shape
+    grid, inside = k1_grid(boxes, H, W)
+    kw = dict(mode="bilinear", padding_mode="border", align_corners=True)
+    got = F.grid_sample(feat.permute(0, 3, 1, 2), grid, **kw)
+    got = got.reshape(1, C, -1, 14, 14).permute(0, 2, 3, 4, 1)
+    want = roi_align_plain(feat, boxes, mask, sampling_ratio=1)
+    sel = inside & mask
+    err = _maxerr(got[sel], want[sel])
+    dtype = "bfloat16"
+    try:
+        fb, gb = feat.to(torch.bfloat16).permute(0, 3, 1, 2), \
+            grid.to(torch.bfloat16)
+        F.grid_sample(fb, gb, **kw)
+    except RuntimeError:
+        dtype = "float32"
+        fb, gb = feat.permute(0, 3, 1, 2), grid
+    ms, names = library_ms(lambda: F.grid_sample(fb, gb, **kw))
+    return ms, names, dtype, err, int(sel.sum())
+
+
 def library_yardsticks(dev):
     """One PyTorch call per kernel that computes the same function, at the
     main path's shapes, bf16: scaled_dot_product_attention for K2 (B=1
-    L=41 and B=16 L=128), with dropout_p=rate for K3 (its masks are its
-    own; the work is the same), autograd through that call for K4, and
-    torch.nn.functional.dropout for K5. Returns {name: (ms, kernel
-    names)}."""
+    L=41, B=1 L=173, B=16 L=128, and B=16 L=128 in fp32 beside the fp32
+    K2), with dropout_p=rate for K3 (its masks are its own; the work is
+    the same), autograd through that call for K4,
+    torch.nn.functional.dropout for K5 and grid_sample for K1
+    (``k1_library``). Returns {name: (ms, kernel names)}."""
     import torch
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     out = {}
-    qkv = torch.randn(1, 41, 3 * 768, generator=g, device=dev) \
-        .to(torch.bfloat16)
-    q, k, v = (t.view(1, 41, 12, 64) for t in qkv.split(768, dim=-1))
-    m = torch.ones(1, 41, device=dev)
-    m[0, -5:] = 0
-    bias = ((1.0 - m) * -10000.0)[:, None, None, :].contiguous()
-    a = _sdpa_args(q, k, v, bias)
-    out["K2_L41"] = library_ms(
-        lambda: F.scaled_dot_product_attention(*a[:3], attn_mask=a[3]))
+    for L in (41, 173):
+        qkv = torch.randn(1, L, 3 * 768, generator=g, device=dev) \
+            .to(torch.bfloat16)
+        q, k, v = (t.view(1, L, 12, 64) for t in qkv.split(768, dim=-1))
+        m = torch.ones(1, L, device=dev)
+        m[0, -5:] = 0
+        bias = ((1.0 - m) * -10000.0)[:, None, None, :].contiguous()
+        a = _sdpa_args(q, k, v, bias)
+        out[f"K2_L{L}"] = library_ms(
+            lambda a=a: F.scaled_dot_product_attention(*a[:3],
+                                                       attn_mask=a[3]))
+    with torch.no_grad():
+        _, (q, k, v), bias = _train_qkv(g, dev, torch.float32)
+        a32 = _sdpa_args(q, k, v, bias.detach())
+        out["K2_L128_fp32"] = library_ms(
+            lambda: F.scaled_dot_product_attention(*a32[:3],
+                                                   attn_mask=a32[3]))
     with torch.no_grad():
         _, (q, k, v), bias = _train_qkv(g, dev, torch.bfloat16)
         bias = bias.detach()
@@ -923,13 +1035,18 @@ def vqa_train_config(root):
         "TRAIN.WARMUP": False,
         "TRAIN.LR": 6.25e-6,
     }
+    return apply_overrides(cfg, overrides), overrides
+
+
+def apply_overrides(cfg, overrides):
+    """Set each dotted config path of ``overrides`` in place."""
     for path, value in overrides.items():
         node = cfg
         *parents, leaf = path.split(".")
         for p in parents:
             node = node[p]
         node[leaf] = value
-    return cfg, overrides
+    return cfg
 
 
 @contextlib.contextmanager
@@ -957,8 +1074,9 @@ def _launch_counts():
     from vlbert_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_dropout)
     from vlbert_tpu_torch.ops.dropout import hw_dropout
+    from vlbert_tpu_torch.ops.roi_align import roi_align
 
-    return {"K2": fused_attention.launches,
+    return {"K1": roi_align.launches, "K2": fused_attention.launches,
             "K3": fused_attention_dropout.launches,
             "K4": fused_attention_dropout.bwd_launches,
             "K5_fwd": hw_dropout.launches,
@@ -969,10 +1087,53 @@ def _zero_counts():
     from vlbert_tpu_torch.ops.attention import (fused_attention,
                                                 fused_attention_dropout)
     from vlbert_tpu_torch.ops.dropout import hw_dropout
+    from vlbert_tpu_torch.ops.roi_align import roi_align
 
-    fused_attention.launches = 0
+    roi_align.launches = fused_attention.launches = 0
     fused_attention_dropout.launches = fused_attention_dropout.bwd_launches = 0
     hw_dropout.launches = hw_dropout.bwd_launches = 0
+
+
+def train_launches(steps, val_batches):
+    """Launches of ``steps`` VQA train steps and ``val_batches`` validation
+    batches at full width: K3 and K4 once a layer and step, K5 27 times
+    forward and 26 backward, K2 once a layer and batch, no K1."""
+    return {"K1": 0, "K2": 12 * val_batches, "K3": 12 * steps,
+            "K4": 12 * steps, "K5_fwd": 27 * steps, "K5_bwd": 26 * steps}
+
+
+@contextlib.contextmanager
+def checkpoint_writes_recorded():
+    """train_net's checkpoint writes replaced by a record of each one asked
+    for, (epoch, is_best): the steps phase 7 times then overlap no write
+    (phase 9 makes and times the writes). Yields the record."""
+    from vlbert_tpu_torch.training import checkpoint as ckpt
+
+    saved, calls = ckpt.save_checkpoint, []
+
+    def record(prefix, epoch, model, optimizer, extra=None, async_write=False,
+               mirror_best_to=None):
+        calls.append((epoch, mirror_best_to is not None))
+        return f"{prefix}-{epoch:04d}.model"
+
+    ckpt.save_checkpoint = record
+    try:
+        yield calls
+    finally:
+        ckpt.save_checkpoint = saved
+
+
+def step_p50(step_ms):
+    """Median step ms over steps 3.. (the first two build caches)."""
+    ms = sorted(step_ms[2:])
+    return ms[len(ms) // 2]
+
+
+def epoch_medians(step_ms, steps_per_epoch=4):
+    """The median step ms of each epoch."""
+    return [round(sorted(step_ms[i:i + steps_per_epoch])[
+        steps_per_epoch // 2], 2)
+        for i in range(0, len(step_ms), steps_per_epoch)]
 
 
 def train_phase(cfg, device="cuda"):
@@ -990,8 +1151,7 @@ def train_phase(cfg, device="cuda"):
     launches = _launch_counts()
     steps = len(history["loss"])
     n_val = -(-32 // cfg.VAL.BATCH_IMAGES) * len(history["val"])
-    want = {"K2": 12 * n_val, "K3": 12 * steps, "K4": 12 * steps,
-            "K5_fwd": 27 * steps, "K5_bwd": 26 * steps}
+    want = train_launches(steps, n_val)
     if launches != want or n_val == 0:
         raise AssertionError(f"train launches {launches}, expected {want}")
     loss = history["loss"]
@@ -1088,8 +1248,7 @@ def step_agreement(cfg, dev):
         raise AssertionError("fp32 step: a repeat from the same weights and "
                              "seed gave different parameters")
     # the kernel step ran the kernels, the plain step none of them
-    if c1 != {"K2": 0, "K3": 12, "K4": 12, "K5_fwd": 27, "K5_bwd": 26} \
-            or any(c2.values()):
+    if c1 != train_launches(1, 0) or any(c2.values()):
         raise AssertionError(f"fp32 step launches: kernels {c1}, plain {c2}")
     p2 = dict(twin.named_parameters())
     dparam = max((p - p2[k]).abs().max().item()
@@ -1105,6 +1264,353 @@ def step_agreement(cfg, dev):
     return {"loss": (l1, l2), "grad_norm": (n1, n2), "checks": checks,
             "launches": (c1, c2), "n_leaves": len(g2),
             "worst_leaf": worst_leaf, "max_param_diff": dparam, "lr": lr}
+
+
+# the answer head of a pretrain checkpoint: the VQA classifier's transform
+# (final_mlp.0) comes from the MLM head's, its last layer from nowhere
+PRETRAIN_HEAD = "vlbert.mlm_head.predictions.transform."
+
+
+def write_pretrain_checkpoint(cfg, path):
+    """A VL-BERT pretrain checkpoint in the reference's layout for the VQA
+    model of ``cfg``, from random seed-SEED weights: every name under the
+    DDP ``module.`` prefix, the classifier's transform under the MLM head's
+    name, no answer head. Returns its state_dict (on the CPU)."""
+    import torch
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+
+    model = build_module(cfg, "vqa", dtype=torch.float32, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    sd = {}
+    for k, t in model.state_dict().items():
+        if k.startswith("final_mlp.0."):
+            k = PRETRAIN_HEAD + k[len("final_mlp.0."):]
+        elif k.startswith("final_mlp."):
+            continue
+        sd["module." + k] = t.detach().cpu()
+    torch.save({"state_dict": sd}, path)
+    return sd
+
+
+def resume_phase(root, cfg7_overrides):
+    """Phase 9: train_net warm-started from a reference-layout pretrain
+    checkpoint, 2 epochs of 4 steps with a checkpoint each, then an
+    AUTO_RESUME to epoch 3; then save and load times of its state. Returns
+    (config, results)."""
+    import types
+
+    import torch
+    import vlbert_tpu_torch.engine.train as t_train
+    from vlbert_tpu_torch.training import checkpoint as ckpt
+    from vlbert_tpu_torch.training.optim import Optimizer
+    from vlbert_tpu_torch.utils.config import load_config
+
+    pretrain = os.path.join(root, "pretrain.model")
+    overrides = {**cfg7_overrides,
+                 "NETWORK.PARTIAL_PRETRAIN": pretrain,
+                 "OUTPUT_PATH": os.path.join(root, "out9"),
+                 # train_net's init differs from the file's seed-0 weights
+                 "RNG_SEED": SEED + 1,
+                 "TRAIN.END_EPOCH": 2, "CHECKPOINT_FREQUENT": 1,
+                 "TPU.ASYNC_CHECKPOINT": True, "TRAIN.AUTO_RESUME": True}
+    cfg = apply_overrides(load_config("vqa", VQA_CFG), overrides)
+    file_sd = write_pretrain_checkpoint(cfg, pretrain)
+    res = {"overrides": {k: v for k, v in overrides.items()
+                         if k not in cfg7_overrides
+                         or cfg7_overrides[k] != v},
+           "pretrain_mb": os.path.getsize(pretrain) / 2 ** 20}
+
+    orig = t_train.apply_partial_pretrain
+
+    def checked(model, config):
+        t0 = time.perf_counter()
+        report = orig(model, config)
+        res["partial_pretrain_s"] = time.perf_counter() - t0
+        sd = model.state_dict()
+        want = {k for k in sd if not k.startswith("final_mlp.2.")}
+        src = {k[len("module."):].replace(PRETRAIN_HEAD, "final_mlp.0."): t
+               for k, t in file_sd.items()}
+        res["from_file"] = len(report[0])
+        res["warm_start_ok"] = (set(report[0]) == want and all(
+            torch.equal(sd[k].cpu(), src[k]) for k in want))
+        return report
+
+    args = types.SimpleNamespace(model_dir=cfg.OUTPUT_PATH, device="cuda")
+    t_train.apply_partial_pretrain = checked
+    try:
+        _zero_counts()
+        _, h1 = t_train.train_net(args, cfg, "vqa")
+        res["run1_launches"] = _launch_counts()
+    finally:
+        t_train.apply_partial_pretrain = orig
+    res["run1"] = h1
+    cfg.TRAIN.END_EPOCH = 3
+    _zero_counts()
+    t0 = time.perf_counter()
+    model, h2 = t_train.train_net(args, cfg, "vqa")
+    res["run2_s"] = time.perf_counter() - t0
+    res["run2_launches"] = _launch_counts()
+    res["run2"] = h2
+    out = os.path.join(cfg.OUTPUT_PATH, "vqa_train")
+    prefix = os.path.join(out, cfg.MODEL_PREFIX)
+    res["files"] = sorted(os.listdir(out))
+    res["best"] = f"{prefix}-best.model"
+
+    # the save / load cost of this state, on the trained model
+    opt = Optimizer(cfg, model, 4)
+    tprefix = os.path.join(root, "timing")
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(tprefix, 0, model, opt)
+    res["save_s"] = time.perf_counter() - t0
+    res["file_mb"] = os.path.getsize(path) / 2 ** 20
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(tprefix, 1, model, opt, async_write=True)
+    res["save_blocking_s"] = time.perf_counter() - t0
+    ckpt.wait_for_pending_save()
+    res["save_async_total_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.load_checkpoint(path, model, opt)
+    torch.cuda.synchronize()
+    res["load_s"] = time.perf_counter() - t0
+    for e in (0, 1):
+        os.remove(f"{tprefix}-{e:04d}.model")
+    return cfg, res
+
+
+def vqa_queries(n=8, feat_dim=2048):
+    """n distinct synthetic VQA questions over 10-100 precomputed boxes
+    each: (question, boxes, features, width, height)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 9)
+    queries = []
+    for i in range(n):
+        w, h = int(rng.integers(400, 641)), int(rng.integers(300, 481))
+        nb = int(rng.integers(10, 101))
+        xy = rng.uniform(0, [w * 0.7, h * 0.7], (nb, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(8, [w * 0.3, h * 0.3],
+                                                     (nb, 2))], 1)
+        feats = np.maximum(rng.normal(size=(nb, feat_dim)), 0)
+        question = " ".join(FIXTURE_WORDS[j % 26] for j in
+                            range(i, i + 4 + i)) + " ?"
+        queries.append((question, boxes.astype(np.float32),
+                        feats.astype(np.float32), w, h))
+    return queries
+
+
+def vqa_serve_phase(cfg, best):
+    """Phase 10: the -best checkpoint behind VQAServer (bucket 64 + 108,
+    bf16): launches a query, latency, and fp32 kernels vs plain versions
+    on one query. Returns results."""
+    import numpy as np
+    import torch
+    from vlbert_tpu_torch.data.tokenization import BertTokenizer
+    from vlbert_tpu_torch.engine.serve import VQAServer
+    from vlbert_tpu_torch.engine.test import _load_params
+    from vlbert_tpu_torch.models.task_modules import build_module
+
+    tok = BertTokenizer.from_pretrained(cfg.NETWORK.BERT_MODEL_NAME)
+    with open(cfg.DATASET.ANSWER_VOCAB_FILE) as f:
+        answers = [line.strip() for line in f if line.strip()]
+    servers = []
+    for dtype in (torch.bfloat16, torch.float32):
+        model = build_module(cfg, "vqa", dtype=dtype, device="cuda")
+        loaded = _load_params(model, best)
+        if len(loaded) != len(model.state_dict()):
+            raise AssertionError(f"VQAServer: {len(loaded)} of "
+                                 f"{len(model.state_dict())} tensors loaded")
+        servers.append(VQAServer(
+            model, tok, answers,
+            feat_dim=cfg.DATASET.get("PRECOMPUTED_FEAT_DIM", 2048)))
+    srv, srv32 = servers
+    queries = vqa_queries(feat_dim=srv.feat_dim)
+    srv.query(*queries[0])                                   # warm-up
+    torch.cuda.synchronize()
+    res = {"answers": [], "per_query": []}
+    for q in queries:
+        _zero_counts()
+        res["answers"].append(srv.query(*q))
+        res["per_query"].append(_launch_counts())
+    res["lat"] = srv.measure_latency(queries * 3, warmup=3)
+    batch = srv32.preprocess(*queries[3])
+    a = srv32.infer(batch)["label_logits"][0]
+    with plain_versions():
+        b = srv32.infer(batch)["label_logits"][0]
+    res["fp32_err"] = float(np.abs(a - b).max())
+    res["fp32_argmax"] = (int(a.argmax()), int(b.argmax()))
+    res["fp32_finite"] = bool(np.isfinite(a).all())
+    res["L"] = srv.max_text + srv.max_boxes + 1
+    return res
+
+
+def _timed_loop(config, task, ckpt_path, mode):
+    """(samples, seconds) of the test driver's inference loop over its loader,
+    warm (a first pass compiles nothing but fills the caches)."""
+    import torch
+    from vlbert_tpu_torch.engine import test as t_test
+
+    model, loader, n_label = t_test.setup_inference(config, task, ckpt_path,
+                                                    mode, "cuda")
+    try:
+        t_test.infer_loader(model, loader, n_label, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_test.infer_loader(model, loader, n_label, "cuda")
+        torch.cuda.synchronize()
+        return len(loader.dataset), time.perf_counter() - t0
+    finally:
+        loader.shutdown()
+
+
+def vqa_test_phase(cfg9, best, root):
+    """Phase 11a: test_net_vqa on a 64-question test split (the training
+    set's images under new question ids, no answers) from phase 9's
+    checkpoint. Returns results."""
+    from vlbert_tpu_torch.engine import test as t_test
+
+    data_dir = cfg9.DATASET.DATASET_PATH
+    with open(os.path.join(data_dir, "train.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    with open(os.path.join(data_dir, "test.jsonl"), "w") as f:
+        for r in rows:
+            r = {k: v for k, v in r.items() if k != "answers"}
+            r["question_id"] += 1000
+            f.write(json.dumps(r) + "\n")
+    cfg = cfg9
+    cfg.DATASET.TEST_ANNOTATION_FILE = "test.jsonl"
+    out_dir = os.path.join(root, "results")
+    _zero_counts()
+    t0 = time.perf_counter()
+    answers = t_test.test_net(cfg, "vqa", best, out_dir, "smoke", "test",
+                              "cuda")
+    res = {"wall_s": time.perf_counter() - t0, "launches": _launch_counts(),
+           "batches": -(-len(rows) // cfg.TEST.BATCH_IMAGES)}
+    with open(t_test.result_file(out_dir, "smoke", "vqa", "test")) as f:
+        res["rows"] = json.load(f)
+    res["ok"] = (res["rows"] == answers and [a["question_id"] for a in
+                                            answers]
+                 == [r["question_id"] + 1000 for r in rows])
+    res["n"], res["loop_s"] = _timed_loop(cfg, "vqa", best, "test")
+    return res
+
+
+REFCOCO_EXPRS = ("the man on the left", "red car parked near the tree",
+                 "woman holding an umbrella", "the smaller dog")
+
+
+def write_refcoco_fixture(root, n_per_image=4):
+    """Synthetic RefCOCO+ rows in the dataset's jsonl form {image_fn,
+    width, height, boxes, gt_box, sentence}: the landscape images of
+    ``make_queries`` (a test batch shares one canvas orientation), each
+    with its candidate boxes and ``n_per_image`` sentences. Returns
+    (data_dir, rows)."""
+    from PIL import Image
+
+    d = os.path.join(root, "refcoco")
+    os.makedirs(os.path.join(d, "img"), exist_ok=True)
+    rows = []
+    for i, (img, boxes, _) in enumerate(make_queries()):
+        if img.shape[0] > img.shape[1]:
+            continue
+        fn = f"img/{i}.png"
+        Image.fromarray(img).save(os.path.join(d, fn))
+        for j in range(n_per_image):
+            rows.append({"image_id": i, "image_fn": fn,
+                         "width": int(img.shape[1]),
+                         "height": int(img.shape[0]),
+                         "boxes": boxes.tolist(),
+                         "gt_box": boxes[j % len(boxes)].tolist(),
+                         "sentence": REFCOCO_EXPRS[j]})
+    with open(os.path.join(d, "ann.jsonl"), "w") as f:
+        f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+    return d, rows
+
+
+def _reference_layout(sd):
+    """Port names -> a reference RefCOCO+ task checkpoint's: the DDP
+    ``module.`` prefix and VL-BERT under ``vlbert._module.``."""
+    return {"module." + ("vlbert._module." + k[len("vlbert."):]
+                         if k.startswith("vlbert.") else k): t.cpu()
+            for k, t in sd.items()}
+
+
+def refcoco_test_phase(root, vocab_dir):
+    """Phase 11b: ``python -m vlbert_tpu_torch.engine.test --task
+    refcoco`` (its main) from the shipped RefCOCO+ config on the synthetic
+    rows, from a reference-layout .model of phase 4's weights; then the
+    inference loop's samples/s, and fp32 kernels vs plain versions on one
+    batch. Returns results."""
+    import numpy as np
+    import torch
+    import yaml
+    from vlbert_tpu_torch.data.datasets.refcoco import bbox_iou
+    from vlbert_tpu_torch.engine import test as t_test
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.training.loop import to_device
+    from vlbert_tpu_torch.utils.config import load_config
+
+    data_dir, rows = write_refcoco_fixture(root)
+    with open(CFG) as f:
+        raw = yaml.safe_load(f)
+    raw["DATASET"].update(DATASET_PATH=data_dir, ROOT_PATH=root,
+                          VAL_ANNOTATION_FILE="ann.jsonl",
+                          TEST_ANNOTATION_FILE="ann.jsonl")
+    raw["NETWORK"]["BERT_MODEL_NAME"] = vocab_dir
+    # as phase 4: the config's 0.0 visual scales would blind random weights
+    raw["NETWORK"]["VLBERT"].update(visual_scale_text_init=1.0,
+                                    visual_scale_object_init=1.0)
+    cfg_path = os.path.join(root, "refcoco_smoke.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    cfg = load_config("refcoco", cfg_path)
+    model = build_module(cfg, "refcoco", dtype=torch.bfloat16, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    ckpt_path = os.path.join(root, "vl-bert_base_refcoco_ref.model")
+    torch.save({"state_dict": _reference_layout(model.state_dict())},
+               ckpt_path)
+    loaded = len(t_test._load_params(model, ckpt_path))
+    res_loaded = loaded == len(model.state_dict())
+    del model
+    out_dir = os.path.join(root, "results")
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc = t_test.main(["--task", "refcoco", "--cfg", cfg_path, "--ckpt",
+                      ckpt_path, "--split", "val", "--result-path", out_dir,
+                      "--result-name", "smoke"])
+    res = {"rc": rc, "wall_s": time.perf_counter() - t0,
+           "launches": _launch_counts(), "loaded_all": res_loaded,
+           "batch": cfg.TEST.BATCH_IMAGES, "slots": cfg.TPU.MAX_BOXES,
+           "L": cfg.TPU.MAX_TEXT_LEN + cfg.TPU.MAX_BOXES + 1}
+    with open(t_test.result_file(out_dir, "smoke", "refcoco", "val")) as f:
+        preds = json.load(f)
+    boxes = np.asarray([p["pred_box"] for p in preds], np.float32)
+    res["n_rows"] = len(preds)
+    res["finite"] = bool(boxes.shape == (len(rows), 4)
+                         and np.isfinite(boxes).all())
+    res["acc"] = float(np.mean([
+        bbox_iou(b[None], np.asarray(r["gt_box"], np.float32))[0] > 0.5
+        for b, r in zip(boxes, rows)]))
+    res["n"], res["loop_s"] = _timed_loop(cfg, "refcoco", ckpt_path, "val")
+    # fp32: kernels vs plain versions on one batch
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    model, loader, n_label = t_test.setup_inference(cfg, "refcoco",
+                                                    ckpt_path, "val", "cuda")
+    try:
+        batch = to_device(next(iter(loader))[:-n_label], "cuda")
+    finally:
+        loader.shutdown()
+    with torch.inference_mode():
+        a = model(*batch)
+        with plain_versions():
+            b = model(*batch)
+    res["fp32_boxes_equal"] = bool(torch.equal(a["pred_boxes"],
+                                               b["pred_boxes"]))
+    live = batch[2]
+    res["fp32_logit_err"] = _maxerr(a["label_logits"][live],
+                                    b["label_logits"][live])
+    return res
 
 
 def main():
@@ -1166,7 +1672,8 @@ def main():
           f"ms): " +
           ", ".join(f"B={16 if L == 128 else 1} L={L} kernel {a[0]:.4f} "
                     f"({a[1]:.4f}), plain {b[0]:.4f} ({b[1]:.4f})"
-                    for L, (a, b) in k2_ms.items()) + f" ({card})",
+                    for L, (a, b) in k2_ms.items() if isinstance(L, int))
+          + f" ({card})",
           flush=True)
 
     # --- serve: full width, bf16 ---
@@ -1274,6 +1781,7 @@ def main():
           f"({card})", flush=True)
 
     lib = library_yardsticks(dev)
+    k1_lib = k1_library(dev)
     philox4_instr, _ = philox_sass_instructions()
     int_rate, n_sm, sm_mhz = int_issue_per_s()
     print(f"[6 yardsticks] library calls, bf16, device ms (kernels): " +
@@ -1282,8 +1790,14 @@ def main():
           f"; Philox4x32-10: {philox4_instr} SASS instructions per "
           f"evaluation of all four words (K3, K4, K5), integer issue "
           f"{int_rate / 1e12:.2f} T/s ({n_sm} SMs x "
-          f"{INT_LANES_PER_SM} lanes x {sm_mhz:.0f} MHz) ({card})",
-          flush=True)
+          f"{INT_LANES_PER_SM} lanes x {sm_mhz:.0f} MHz); K1 as one "
+          f"F.grid_sample over the bin centres ({k1_lib[2]}, serve shape, "
+          f"mask multiply left out) {k1_lib[0]:.4f} ms "
+          f"({', '.join(n[:48] for n in k1_lib[1])}), fp32 max abs err "
+          f"{k1_lib[3]:.2e} against the plain ROIAlign on the {k1_lib[4]} "
+          f"live boxes inside the map; fp32 K2 (attention.cu) B=16 L=128 "
+          f"{k2_ms['128_fp32'][0][0]:.4f} ms, plain "
+          f"{k2_ms['128_fp32'][1][0]:.4f} ({card})", flush=True)
 
     # --- 7: VQA fine-tuning at full width; 8: fp32 step agreement ---
     root = tempfile.mkdtemp(prefix="vqa_fixture_")
@@ -1291,10 +1805,13 @@ def main():
         cfg7, overrides = vqa_train_config(root)
         print(f"[7 train] {VQA_CFG} with overrides "
               f"{json.dumps(overrides)}", flush=True)
-        model7, hist, train_launches = train_phase(cfg7)
+        with checkpoint_writes_recorded() as saves7:
+            model7, hist, launches7 = train_phase(cfg7)
+        if [e for e, _ in saves7] != list(range(8)):
+            raise AssertionError(f"train_net asked for checkpoints (epoch, "
+                                 f"best) {saves7}, expected every epoch")
         steps = len(hist["loss"])
-        step_ms = sorted(hist["step_ms"][2:])
-        p50 = step_ms[len(step_ms) // 2]
+        p50 = step_p50(hist["step_ms"])
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         wall_ms, busy_ms, top = profile_steps(model7, cfg7)
         print(f"[7 train] {steps} steps of batch 16, loss "
@@ -1302,7 +1819,7 @@ def main():
               f"{sum(hist['loss'][:4]) / 4:.2f}, last 4 "
               f"{sum(hist['loss'][-4:]) / 4:.2f}); val SoftAcc "
               f"{[round(v['SoftAcc'], 4) for v in hist['val']]}; launches "
-              f"{train_launches} = per step K3 12, K4 12, K5 27 fwd / 26 "
+              f"{launches7} = per step K3 12, K4 12, K5 27 fwd / 26 "
               f"bwd, K2 12 per val batch; step p50 {p50:.2f} ms (CUDA "
               f"events, steps 3..{steps}), {16e3 / p50:.1f} samples/s; peak "
               f"device memory {peak:.2f} GiB; profiled window: wall "
@@ -1312,6 +1829,27 @@ def main():
               f"{[(k, round(v, 3)) for k, v in top]} ({card})", flush=True)
         del model7
         torch.cuda.empty_cache()
+        # the same run with the writes the shipped config asks for: every
+        # epoch, by the background writer; what they cost the steps
+        cfg7w = cfg7.clone()
+        cfg7w.OUTPUT_PATH = os.path.join(root, "out7w")
+        _, hist_w, _ = train_phase(cfg7w)
+        out7w = os.path.join(cfg7w.OUTPUT_PATH, "vqa_train")
+        files7w = sorted(f for f in os.listdir(out7w) if f.endswith(".model"))
+        shutil.rmtree(cfg7w.OUTPUT_PATH)
+        if len(files7w) != 9:
+            raise AssertionError(f"train_net wrote {files7w}, expected 8 "
+                                 f"epochs and -best")
+        p50_w = step_p50(hist_w["step_ms"])
+        print(f"[7 train] the same run with the shipped config's checkpoint "
+              f"writes (CHECKPOINT_FREQUENT 1, TPU.ASYNC_CHECKPOINT: a "
+              f"background writer; {len(files7w)} files of base width): step "
+              f"p50 {p50_w:.2f} ms against {p50:.2f} ms without writes "
+              f"({p50_w / p50:.3f}x) and {wall_ms:.2f} ms in the tight loop; "
+              f"median step ms by epoch with writes "
+              f"{epoch_medians(hist_w['step_ms'])}, without "
+              f"{epoch_medians(hist['step_ms'])}; loss {hist_w['loss'][0]:.2f}"
+              f" -> {hist_w['loss'][-1]:.2f} ({card})", flush=True)
         agree = step_agreement(cfg7, dev)
         print(f"[8 step fp32] kernels vs plain versions, one step from the "
               f"same weights and seed: loss {agree['loss'][0]:.6f} vs "
@@ -1323,6 +1861,102 @@ def main():
               f"abs param diff {agree['max_param_diff']:.3e} at lr "
               f"{agree['lr']:.3e}; a repeat of the kernel step is "
               f"bit-identical", flush=True)
+
+        # --- 9: train -> checkpoint -> resume; 10: VQA server; 11: test ---
+        cfg9, r9 = resume_phase(root, overrides)
+        h1, h2 = r9["run1"], r9["run2"]
+        n_val = -(-32 // cfg9.VAL.BATCH_IMAGES)
+        prefix = cfg9.MODEL_PREFIX
+        checks9 = {
+            "warm start": r9["warm_start_ok"],
+            "run 1": (h1["begin_epoch"], h1["resumed_count"],
+                      len(h1["loss"])) == (0, 0, 8),
+            "run 1 launches": r9["run1_launches"]
+            == train_launches(8, 2 * n_val),
+            "run 2": (h2["begin_epoch"], h2["resumed_count"],
+                      len(h2["loss"])) == (2, 8, 4),
+            "run 2 launches": r9["run2_launches"] == train_launches(4, n_val),
+            "files": {f"{prefix}-{e:04d}.model" for e in range(3)}
+            | {f"{prefix}-best.model"} <= set(r9["files"]),
+            "finite": all(map(math.isfinite, h1["loss"] + h2["loss"]))}
+        ms9 = [round(x, 2) for x in h1["step_ms"]]
+        if not all(checks9.values()):
+            raise AssertionError(f"train/checkpoint/resume: {checks9}; "
+                                 f"{r9}")
+        print(f"[9 resume] {VQA_CFG} with phase 7's overrides and "
+              f"{json.dumps(r9['overrides'])}; PARTIAL_PRETRAIN a "
+              f"reference-layout file ({r9['pretrain_mb']:.1f} MiB, module. "
+              f"prefix, {PRETRAIN_HEAD}* for final_mlp.0.*, no answer head) "
+              f"through the shipped prefix changes: {r9['from_file']} tensors "
+              f"from the file, every one but final_mlp.2.* and each "
+              f"unchanged, {r9['partial_pretrain_s']:.2f} s; run 1 epochs "
+              f"0-1, {len(h1['loss'])} steps, loss {h1['loss'][0]:.2f} -> "
+              f"{h1['loss'][-1]:.2f}, launches {r9['run1_launches']}, step "
+              f"ms (CUDA events) of epoch 0 {ms9[:4]} and of epoch 1, while "
+              f"epoch 0's checkpoint is written in the background, "
+              f"{ms9[4:]}; run 2 "
+              f"AUTO_RESUME to END_EPOCH 3: begin_epoch "
+              f"{h2['begin_epoch']}, optimizer count {h2['resumed_count']} "
+              f"restored, {len(h2['loss'])} steps, loss "
+              f"{[round(x, 2) for x in h2['loss']]}, launches "
+              f"{r9['run2_launches']}, {r9['run2_s']:.2f} s; files "
+              f"{r9['files']}; base-width checkpoint {r9['file_mb']:.1f} MiB "
+              f"(weights + AdamW moments): save {r9['save_s']:.2f} s "
+              f"synchronous, {r9['save_blocking_s']:.2f} s blocking with the "
+              f"writer ({r9['save_async_total_s']:.2f} s to written), load "
+              f"{r9['load_s']:.2f} s to the card ({card})", flush=True)
+
+        r10 = vqa_serve_phase(cfg9, r9["best"])
+        per_query = {"K1": 0, "K2": 12, "K3": 0, "K4": 0, "K5_fwd": 0,
+                     "K5_bwd": 0}
+        if not (all(c == per_query for c in r10["per_query"])
+                and r10["fp32_finite"] and r10["fp32_err"] <= E2E_ATOL
+                and r10["fp32_argmax"][0] == r10["fp32_argmax"][1]):
+            raise AssertionError(f"VQA server: {r10}")
+        vqa_lat = r10["lat"]
+        print(f"[10 serve VQA] {r9['best']} in VQAServer, bucket 64 text + "
+              f"108 boxes (L = {r10['L']}), bf16, 8 distinct questions "
+              f"answered {r10['answers']}; launches per query "
+              f"{per_query} on each; latency p50 {vqa_lat['p50_ms']:.2f} ms, "
+              f"p90 {vqa_lat['p90_ms']:.2f} ms over n={vqa_lat['n']}; fp32 "
+              f"kernels vs plain versions on one query: max abs logit err "
+              f"{r10['fp32_err']:.3e} (atol {E2E_ATOL}), argmax "
+              f"{r10['fp32_argmax'][0]} on both ({card})", flush=True)
+
+        r11v = vqa_test_phase(cfg9, r9["best"], root)
+        want_v = dict(per_query, K2=12 * r11v["batches"])
+        if not (r11v["ok"] and r11v["launches"] == want_v):
+            raise AssertionError(f"test_net_vqa: launches "
+                                 f"{r11v['launches']} (want {want_v}), "
+                                 f"rows ok {r11v['ok']}")
+        r11r = refcoco_test_phase(root, cfg9.NETWORK.BERT_MODEL_NAME)
+        want_r = dict(per_query, K1=16 // r11r["batch"],
+                      K2=12 * 16 // r11r["batch"])
+        if not (r11r["rc"] == 0 and r11r["loaded_all"]
+                and r11r["launches"] == want_r and r11r["n_rows"] == 16
+                and r11r["finite"] and r11r["fp32_boxes_equal"]
+                and r11r["fp32_logit_err"] <= E2E_ATOL):
+            raise AssertionError(f"test_net_refcoco: {r11r} (launches want "
+                                 f"{want_r})")
+        print(f"[11 test drivers] test_net_vqa from {r9['best']}: "
+              f"{len(r11v['rows'])} answers rows, batch "
+              f"{cfg9.TEST.BATCH_IMAGES}, launches {r11v['launches']}, "
+              f"{r11v['wall_s']:.2f} s end to end, inference loop "
+              f"{r11v['n'] / r11v['loop_s']:.1f} samples/s "
+              f"({r11v['n']} in {r11v['loop_s']:.3f} s); python -m "
+              f"vlbert_tpu_torch.engine.test --task refcoco --split val from "
+              f"{CFG} on 16 synthetic expressions, a reference-layout .model "
+              f"(module. + vlbert._module.) by --ckpt, every tensor loaded: "
+              f"{r11r['n_rows']} pred-box rows, IoU@0.5 accuracy "
+              f"{r11r['acc']:.4f} (random weights), batch {r11r['batch']}, "
+              f"{r11r['slots']} box slots, L = {r11r['L']}, launches "
+              f"{r11r['launches']}, {r11r['wall_s']:.2f} s end to end, "
+              f"inference loop {r11r['n'] / r11r['loop_s']:.1f} samples/s "
+              f"({r11r['n']} in {r11r['loop_s']:.3f} s); fp32 kernels vs "
+              f"plain versions on one batch: identical predicted boxes, max "
+              f"abs logit err {r11r['fp32_logit_err']:.3e} (atol {E2E_ATOL}) "
+              f"({card})",
+              flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1333,7 +1967,10 @@ def main():
     n_drop = 16 * 128 * 768            # K5's timed [16,128,768] tensor
     k1_bf16 = k1_bound(1, 38, 63, 1024, 16, 2, 2)
     k1_fp32 = k1_bound(1, 38, 63, 1024, 16, 2, 4)
-    k1_note = "no single PyTorch call: torchvision is not installed"
+    k1_note = (f"one F.grid_sample (bilinear, border, align_corners) over "
+               f"the 14x14 bin centres, {k1_lib[2]}, the mask multiply left "
+               f"out; fp32 max abs err {k1_lib[3]:.2e} against the plain "
+               f"ROIAlign on the {k1_lib[4]} live boxes inside the map")
     k1_main, k1_f32, k1_old = (k1_t[k] for k in ("bf16_out", "fp32_out",
                                                   "old_route"))
     kernels = [
@@ -1344,8 +1981,9 @@ def main():
          "max_abs_err": k1_fp32_err, "bf16_out_max_abs_err": k1_bf16_err,
          "out_dtype": "bfloat16", "ms": k1_main["ms"],
          "plain_ms": k1_t["plain"][0], "bound_ms": k1_bf16[0],
-         "bound_by": k1_bf16[1], "library_ms": None,
-         "library_note": k1_note, "call_ms": k1_main["call_ms"],
+         "bound_by": k1_bf16[1], "library_ms": k1_lib[0],
+         "library_kernels": k1_lib[1], "library_note": k1_note,
+         "call_ms": k1_main["call_ms"],
          "kernels_per_call": k1_main["kernels_per_call"],
          "plain_call_ms": k1_t["plain"][1],
          "fp32_out": {"ms": k1_f32["ms"], "call_ms": k1_f32["call_ms"],
@@ -1376,12 +2014,28 @@ def main():
              "library_ms": lib["K2_L128"][0],
              "library_kernels": lib["K2_L128"][1],
              "call_ms": k2_ms[128][0][1],
-             "plain_call_ms": k2_ms[128][1][1]}},
+             "plain_call_ms": k2_ms[128][1][1]},
+         "at_B1_L173": {
+             "ms": k2_ms[173][0][0], "plain_ms": k2_ms[173][1][0],
+             **dict(zip(("bound_ms", "bound_by"),
+                        attention_bound(1, 173, H, D, "bfloat16"))),
+             "library_ms": lib["K2_L173"][0],
+             "library_kernels": lib["K2_L173"][1],
+             "launches_per_vqa_query": [c["K2"]
+                                        for c in r10["per_query"]]},
+         "fp32_at_B16_L128": {
+             "source": "vlbert_tpu_torch/csrc/attention.cu",
+             "ms": k2_ms["128_fp32"][0][0],
+             "plain_ms": k2_ms["128_fp32"][1][0],
+             **dict(zip(("bound_ms", "bound_by"),
+                        attention_bound(B, L, H, D, "float32"))),
+             "library_ms": lib["K2_L128_fp32"][0],
+             "library_kernels": lib["K2_L128_fp32"][1]}},
         {"name": "dropout", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/dropout.cu",
          "replaces": "vlbert_tpu/ops/dropout.py:83",
-         "launches": train_launches["K5_fwd"],
-         "bwd_launches": train_launches["K5_bwd"],
+         "launches": launches7["K5_fwd"],
+         "bwd_launches": launches7["K5_bwd"],
          "max_abs_err": max(k5_errs.values()), "ms": k5_ms[0][0],
          "plain_ms": k5_ms[1][0],
          **dict(zip(("bound_ms", "bound_by"),
@@ -1394,7 +2048,7 @@ def main():
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
          "fp32_source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "vlbert_tpu/ops/attention.py:300",
-         "launches": train_launches["K3"],
+         "launches": launches7["K3"],
          "max_abs_err": max(k34_errs["K3"].values()), "ms": k3_ms[0][0],
          "plain_ms": k3_ms[1][0],
          **dict(zip(("bound_ms", "bound_by"),
@@ -1407,7 +2061,7 @@ def main():
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
          "fp32_source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "vlbert_tpu/ops/attention.py:326",
-         "launches": train_launches["K4"],
+         "launches": launches7["K4"],
          "max_abs_err": max(k34_errs["K4"].values()),
          "err_is_relative_to": "max(1, max |plain|)", "ms": k4_ms[0][0],
          "plain_ms": k4_ms[1][0],

@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's host code (config, tokenizer,
-transforms, text assembly, VQA dataset, collate, loader and the
-converter's name rules) against their originals, on the same inputs.
+transforms, text assembly, VQA and RefCOCO+ datasets, collate, loader,
+the converter's name rules and its checkpoint loaders and renamers)
+against their originals, on the same inputs.
 
 The port imports nothing of ``vlbert_tpu``; these tests are where the two
 meet. Every comparison is exact: the copies are the originals' code."""
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 import vlbert_tpu.data.collate as j_collate
+import vlbert_tpu.data.datasets.refcoco as j_refcoco
 import vlbert_tpu.data.datasets.vqa as j_vqa
 import vlbert_tpu.data.loader as j_loader
 import vlbert_tpu.data.tokenization as j_tok
@@ -21,12 +23,14 @@ import vlbert_tpu.data.transforms as j_transforms
 import vlbert_tpu.training.convert as j_convert
 import vlbert_tpu.utils.config as j_config
 import vlbert_tpu_torch.data.collate as t_collate
+import vlbert_tpu_torch.data.datasets.refcoco as t_refcoco
 import vlbert_tpu_torch.data.datasets.vqa as t_vqa
 import vlbert_tpu_torch.data.loader as t_loader
 import vlbert_tpu_torch.data.tokenization as t_tok
 import vlbert_tpu_torch.data.transforms as t_transforms
 import vlbert_tpu_torch.training.convert as t_convert
 import vlbert_tpu_torch.utils.config as t_config
+from tests.test_data_pipeline import _write_refcoco_fixture
 from tests.test_entrypoints import VOCAB, _write_vqa_fixture
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -235,3 +239,175 @@ def test_converter_name_rules_match(task):
         assert tn == jn, n
         assert t_convert.map_reference_name(tn) \
             == j_convert.map_reference_name(jn), n
+
+
+def _refcoco_batches(mods, data_dir, root, vocab_dir, boxes, test_mode):
+    refcoco, tok, tf, loader = mods
+    cfg = j_config.default_config("refcoco")
+    cfg.SCALES = (48, 64)
+    tokenizer = tok.BertTokenizer.from_pretrained(vocab_dir)
+    ds = refcoco.RefCOCODataset(
+        "ann.jsonl", "train", root, data_path=data_dir, tokenizer=tokenizer,
+        transform=tf.build_transforms(cfg, "test" if test_mode else "train",
+                                      rng=np.random.default_rng(3)),
+        test_mode=test_mode, boxes=boxes)
+    items = [ds[i] for i in range(len(ds))] * 3
+    collate = refcoco.make_refcoco_collate(tokenizer, 12, 8,
+                                           test_mode=test_mode)
+    dl = loader.DataLoader(ds, 1, collate, shuffle=False, seed=4,
+                           num_threads=1, num_workers=0)
+    try:
+        batch = next(iter(dl))
+    finally:
+        dl.shutdown()
+    return ds.database, ds.group_ids, items, collate(items), batch
+
+
+@pytest.mark.parametrize("boxes", ["gt", "proposal", "proposal+gt"])
+@pytest.mark.parametrize("test_mode", [False, True])
+def test_refcoco_dataset_and_collate_give_the_same_batches(tmp_path, boxes,
+                                                           test_mode):
+    d = _write_refcoco_fixture(tmp_path)
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(WORDPIECE_VOCAB) + "\n")
+    args = (str(d), str(tmp_path), str(tmp_path), boxes, test_mode)
+    want = _refcoco_batches((j_refcoco, j_tok, j_transforms, j_loader),
+                            *args)
+    got = _refcoco_batches((t_refcoco, t_tok, t_transforms, t_loader), *args)
+    _assert_same(got, want)
+    iou = t_refcoco.bbox_iou(np.asarray([[0, 0, 9, 9], [5, 5, 14, 14]],
+                                        np.float32), [0, 0, 9, 9])
+    _assert_same(iou, j_refcoco.bbox_iou(np.asarray(
+        [[0, 0, 9, 9], [5, 5, 14, 14]], np.float32), [0, 0, 9, 9]))
+
+
+def test_refer_db_is_the_same(tmp_path):
+    import json
+    import pickle
+
+    refs = [{"split": s, "image_id": 1, "ann_id": a, "sentences":
+             [{"tokens": ["the", "red", "dog"]}, {"tokens": ["a", "cat"]}]}
+            for s, a in (("train", 10), ("val", 11), ("testA", 10))]
+    inst = {"images": [{"id": 1, "file_name": "COCO_1.jpg", "width": 80,
+                        "height": 60}],
+            "annotations": [{"id": 10, "image_id": 1, "bbox": [1, 2, 30, 20]},
+                            {"id": 11, "image_id": 1,
+                             "bbox": [10, 5, 40, 50]}]}
+    with open(tmp_path / "refs(unc).p", "wb") as f:
+        pickle.dump(refs, f)
+    (tmp_path / "instances.json").write_text(json.dumps(inst))
+    for splits in ({"train"}, {"val", "testA"}):
+        args = (str(tmp_path / "refs(unc).p"),
+                str(tmp_path / "instances.json"), splits)
+        _assert_same(t_refcoco.load_refer_db(*args),
+                     j_refcoco.load_refer_db(*args))
+
+
+def _jax_named(sd):
+    """Reference names -> the JAX converter's flax paths, layouts
+    transformed, as the JAX package would hold the same tensors."""
+    flat, skipped = j_convert.convert_state_dict(sd)
+    assert skipped == []
+    return flat
+
+
+def _assert_same_flat(got, want):
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        np.testing.assert_array_equal(np.asarray(got[k]), w, err_msg=k)
+
+
+def _fake_bert(type_rows, rng):
+    names = ["embeddings.word_embeddings.weight",
+             "embeddings.position_embeddings.weight",
+             "embeddings.token_type_embeddings.weight",
+             "embeddings.LayerNorm.gamma", "embeddings.LayerNorm.beta",
+             "encoder.layer.0.attention.self.query.weight",
+             "encoder.layer.0.attention.output.LayerNorm.gamma",
+             "encoder.layer.1.output.dense.bias", "pooler.dense.weight"]
+    sd = {}
+    for n in names:
+        shape = (type_rows, 4) if "token_type" in n else (5, 4) \
+            if n.endswith("weight") else (4,)
+        sd["bert." + n] = torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32))
+    sd["cls.predictions.transform.dense.weight"] = torch.ones(4, 4)
+    sd["cls.predictions.transform.LayerNorm.gamma"] = torch.ones(4)
+    sd["cls.predictions.bias"] = torch.ones(5)
+    sd["cls.predictions.decoder.weight"] = torch.ones(5, 4)
+    sd["cls.seq_relationship.weight"] = torch.ones(2, 4)
+    sd["other.thing"] = torch.ones(1)
+    return sd
+
+
+@pytest.mark.parametrize("type_rows", [1, 2, 3])
+def test_bert_renamer_matches(type_rows):
+    sd = _fake_bert(type_rows, np.random.default_rng(type_rows))
+    want, want_skipped = j_convert.convert_bert_checkpoint(sd)
+    got, got_skipped = t_convert.convert_bert_checkpoint(sd)
+    assert got_skipped == want_skipped
+    _assert_same_flat(_jax_named(got), want)
+    _assert_same_flat(_jax_named(t_convert.convert_torch_state_dict(sd)),
+                      j_convert.convert_torch_state_dict(sd))
+    # the MLM transform onto the VQA 'mlm' classifier, on either side's
+    # names (the JAX VQA module names it final_mlp.transform_*)
+    want = j_convert.mlm_transform_to_classifier(want)
+    got = _jax_named(t_convert.mlm_transform_to_classifier(got))
+    got = {k.replace("final_mlp_transform.dense.",
+                     "final_mlp.transform_dense."): v for k, v in got.items()}
+    _assert_same_flat(got, want)
+
+
+def test_resnet_renamer_and_prefix_changes_match():
+    rng = np.random.default_rng(0)
+    sd = {}
+    for n in ("conv1.weight", "bn1.weight", "bn1.running_var",
+              "bn1.num_batches_tracked", "layer1.0.conv2.weight",
+              "layer1.0.downsample.0.weight", "layer1.0.downsample.1.bias",
+              "layer3.5.bn3.running_mean", "layer4.0.conv1.weight",
+              "layer4.2.bn2.weight", "fc.weight", "fc.bias"):
+        shape = (3, 2, 1, 1) if "conv" in n or "downsample.0" in n else (3,)
+        sd[n] = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    want, want_skipped = j_convert.convert_raw_resnet_checkpoint(sd)
+    got, got_skipped = t_convert.convert_raw_resnet_checkpoint(sd)
+    assert got_skipped == want_skipped
+    _assert_same_flat(_jax_named(got), want)
+    raw = {"module.vlbert.mvrc_head.transform.dense.weight": 1,
+           "vlbert.mlm_head.predictions.transform.dense.bias": 2,
+           "module.vlbert.encoder.layer.0.output.dense.weight": 3,
+           "module.final_mlp.2.weight": 4, "x.y": 5}
+    for yaml_file in YAMLS:
+        task = yaml_file.split(os.sep)[1]
+        rules = [tuple(r.split("->")) for r in j_config.load_config(
+            task, os.path.join(REPO, yaml_file)).NETWORK.get(
+                "PARTIAL_PRETRAIN_PREFIX_CHANGES", [])]
+        assert t_convert.apply_reference_prefix_changes(raw, rules) \
+            == j_convert.apply_reference_prefix_changes(raw, rules), yaml_file
+
+
+def test_checkpoint_formats_and_blob_loads_match(tmp_path):
+    sd = {"module.vlbert.word_embeddings.weight": torch.ones(3, 2)}
+    files = {}
+    torch.save({"state_dict": sd, "epoch": 1}, tmp_path / "zip.model")
+    files["zip.model"] = "torch"
+    torch.save(sd, tmp_path / "legacy.bin", _use_new_zipfile_serialization=False)
+    files["legacy.bin"] = "torch"
+    np.savez(tmp_path / "conv.npz", **{"vlbert.a.kernel": np.ones(2)})
+    files["conv.npz"] = "npz"
+    (tmp_path / "native.model").write_bytes(b"\x82\xa6params\x80")
+    files["native.model"] = "native"
+    files["missing.model"] = "native"
+    for name, fmt in files.items():
+        path = str(tmp_path / name)
+        assert t_convert.checkpoint_format(path) \
+            == j_convert.checkpoint_format(path) == fmt, name
+    for name in ("zip.model", "legacy.bin"):
+        path = str(tmp_path / name)
+        got, want = t_convert.load_torch_blob(path), \
+            j_convert.load_torch_blob(path)
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    _assert_same(t_convert.load_npz_checkpoint(str(tmp_path / "conv.npz")),
+                 j_convert.load_npz_checkpoint(str(tmp_path / "conv.npz")))
+    with pytest.raises(ValueError, match="'native'"):
+        t_convert.load_state_dict_file(str(tmp_path / "native.model"), None)

@@ -42,7 +42,11 @@ def test_port_imports_no_jax():
     loads neither jax nor the JAX package (``vlbert_tpu``)."""
     mods = _port_modules() + ["chip_smoke"] + [
         f"tools.{os.path.basename(p)[:-3]}" for p in _port_tools()]
-    assert "vlbert_tpu_torch.ops.roi_align" in mods and len(mods) >= 15
+    assert {"vlbert_tpu_torch.ops.roi_align",
+            "vlbert_tpu_torch.training.checkpoint",
+            "vlbert_tpu_torch.engine.test",
+            "vlbert_tpu_torch.data.datasets.refcoco"} <= set(mods)
+    assert len(mods) >= 18
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -81,7 +85,10 @@ def test_port_files_import_nothing_of_the_jax_package():
     files = (sorted(glob.glob(os.path.join(PKG, "**", "*.py"),
                               recursive=True))
              + [os.path.join(REPO, "chip_smoke.py")] + _port_tools())
-    assert len(files) >= 30 and len(_port_tools()) >= 2
+    assert len(files) >= 33 and len(_port_tools()) >= 2
+    for new in ("training/checkpoint.py", "engine/test.py",
+                "data/datasets/refcoco.py"):
+        assert os.path.join(PKG, new) in files, new
     offenders = []
     for f in files:
         with open(f, encoding="utf-8") as fh:

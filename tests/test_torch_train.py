@@ -298,7 +298,9 @@ def test_plateau_detector_matches_jax():
 
 def test_train_net_end_to_end(tmp_path):
     """train_net on the tiny fixture of tests/test_entrypoints.py: two
-    epochs, the loss falls, validation SoftAcc is logged, no checkpoint."""
+    epochs, the loss falls, validation SoftAcc is logged, a checkpoint per
+    epoch and the best are saved, and --do-test scores the best."""
+    from vlbert_tpu.training.convert import load_torch_or_native_checkpoint
     from vlbert_tpu_torch.engine.train import train_net
 
     data_dir, vocab_dir = _write_vqa_fixture(tmp_path)
@@ -308,7 +310,9 @@ def test_train_net_end_to_end(tmp_path):
     cfg.TRAIN.LR, cfg.TRAIN.WARMUP = 1e-3, False
     cfg.RNG_SEED = 0
     args = types.SimpleNamespace(model_dir=str(tmp_path / "out"),
-                                 device="cpu")
+                                 device="cpu", do_test=True, ckpt="",
+                                 result_path=str(tmp_path / "res"),
+                                 result_name="tiny")
     model, history = train_net(args, cfg, "vqa")
     loss = history["loss"]
     assert len(loss) == 16 and len(history["val"]) == 2
@@ -317,8 +321,15 @@ def test_train_net_end_to_end(tmp_path):
     out = os.path.join(cfg.OUTPUT_PATH, "vqa_train")
     with open(os.path.join(out, "train_rank0.log")) as f:
         log = f.read()
-    assert "val: {'SoftAcc'" in log and "no checkpoint is saved" in log
-    assert not any(f.endswith(".model") for f in os.listdir(out))
+    assert "val: {'SoftAcc'" in log and "saved checkpoint" in log
+    assert {"tiny-0000.model", "tiny-0001.model", "tiny-best.model"} \
+        <= set(os.listdir(out))
+    # the JAX package reads the port's checkpoint as a torch file
+    flat = load_torch_or_native_checkpoint(os.path.join(out,
+                                                        "tiny-0001.model"))
+    assert len(flat) == len(model.state_dict())
+    assert len(history["test"]) == 4
+    assert os.path.exists(tmp_path / "res" / "tiny_vqa2_test.json")
 
 
 def test_train_net_refuses_what_is_not_ported(tmp_path):
@@ -326,13 +337,34 @@ def test_train_net_refuses_what_is_not_ported(tmp_path):
 
     data_dir, vocab_dir = _write_vqa_fixture(tmp_path)
     cfg = _tiny_vqa_cfg(tmp_path, data_dir, vocab_dir)
+    cfg.TPU.PROCESS_WORKERS = False
     args = types.SimpleNamespace(model_dir="", device="cpu")
-    cfg.NETWORK.PARTIAL_PRETRAIN = str(tmp_path / "vl-bert.model")
-    with pytest.raises(NotImplementedError, match="PARTIAL_PRETRAIN"):
+    # a JAX-native (flax msgpack) checkpoint needs flax
+    native = tmp_path / "vl-bert.model"
+    native.write_bytes(b"\x82\xa6params\x80\xa4step\x00")
+    cfg.NETWORK.PARTIAL_PRETRAIN = str(native)
+    with pytest.raises(ValueError, match="'native'"):
         train_net(args, cfg, "vqa")
     cfg.NETWORK.PARTIAL_PRETRAIN = ""
-    out = os.path.join(cfg.OUTPUT_PATH, "vqa_train")
-    os.makedirs(out, exist_ok=True)
-    open(os.path.join(out, "tiny-0000.model"), "w").close()
-    with pytest.raises(NotImplementedError, match="AUTO_RESUME"):
+    cfg.DATASET.DATASET = "vcr"
+    with pytest.raises(NotImplementedError, match="queue 1 #4"):
         train_net(args, cfg, "vqa")
+
+
+def test_fp16_parity_mode_is_refused(tmp_path):
+    """TRAIN.FP16 with TPU.FP16_PARITY_MODE is float16 compute in the JAX
+    package; the port's kernels take fp32 and bf16 only, so it raises.
+    TRAIN.FP16 alone trains in bf16."""
+    from vlbert_tpu_torch.engine.train import check_unported, train_net
+
+    data_dir, vocab_dir = _write_vqa_fixture(tmp_path)
+    cfg = _tiny_vqa_cfg(tmp_path, data_dir, vocab_dir)
+    cfg.TRAIN.FP16 = True
+    check_unported(cfg)
+    cfg.TPU.FP16_PARITY_MODE = True
+    args = types.SimpleNamespace(model_dir="", device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="FP16_PARITY_MODE.*float32 and bfloat16 only"):
+        train_net(args, cfg, "vqa")
+    cfg.TRAIN.FP16 = False
+    check_unported(cfg)

@@ -4,14 +4,16 @@ jax): cfg -> (transform, dataset, collate, loader).
 The dataset, collate, loader, tokenizer and transforms are the port's
 copies of the JAX package's host code (numpy, no jax). Rank and world size
 come from ``torch.distributed`` when it is initialised, else 0 and 1; each
-process loads its own shard. Ported so far: VQA; the other datasets are
-ROADMAP.md queue 1.
+process loads its own shard. Ported so far: VQA and RefCOCO / RefCOCO+;
+VCR and the pretraining datasets are ROADMAP.md queue 1.
 """
 
 from __future__ import annotations
 
 import os
 
+from vlbert_tpu_torch.data.datasets.refcoco import (RefCOCODataset,
+                                                    make_refcoco_collate)
 from vlbert_tpu_torch.data.datasets.vqa import VQADataset, make_vqa_collate
 from vlbert_tpu_torch.data.loader import DataLoader
 from vlbert_tpu_torch.data.tokenization import BertTokenizer
@@ -43,9 +45,10 @@ def make_dataloader(cfg, task, mode="train", tokenizer=None, num_replicas=None,
     """One loader of per-process batches: BATCH_IMAGES (one card per
     process) times GRAD_ACCUMULATE_STEPS for training, flat."""
     d = cfg.DATASET
-    if d.DATASET != "vqa":
+    if d.DATASET not in ("vqa", "refcoco", "refcoco+"):
+        where = "#4 (VCR)" if d.DATASET == "vcr" else "#8 (other tasks)"
         raise NotImplementedError(f"dataset {d.DATASET!r} is not ported yet; "
-                                  f"see ROADMAP.md queue 1")
+                                  f"see ROADMAP.md queue 1 {where}")
     if d.get("CACHE_MODE", False):
         raise NotImplementedError(
             "DATASET.CACHE_MODE (whole-dataset RAM cache) is not supported, "
@@ -63,18 +66,30 @@ def make_dataloader(cfg, task, mode="train", tokenizer=None, num_replicas=None,
     device_norm = cfg.TPU.get("DEVICE_IMAGE_NORM", True) and not precomputed
     transform = build_transforms(cfg, mode, device_norm=device_norm)
     test_mode = mode == "test"
-    ds = VQADataset(
+    common = dict(
         ann_file=ann_file, image_set=image_set, root_path=d.ROOT_PATH,
         data_path=d.DATASET_PATH, tokenizer=tokenizer, transform=transform,
         test_mode=test_mode, zip_mode=d.ZIP_MODE,
-        add_image_as_a_box=d.ADD_IMAGE_AS_A_BOX,
-        answer_vocab_file=d.ANSWER_VOCAB_FILE,
-        with_precomputed_visual_feat=precomputed,
-        boxes=d.get("BOXES", "36"), use_imdb=d.get("USE_IMDB", True))
-    collate = make_vqa_collate(
-        tokenizer, cfg.TPU.MAX_TEXT_LEN, cfg.TPU.MAX_BOXES,
-        precomputed_dim=d.get("PRECOMPUTED_FEAT_DIM", 2048)
-        if precomputed else 0, test_mode=test_mode)
+        add_image_as_a_box=d.ADD_IMAGE_AS_A_BOX)
+    max_text, max_boxes = cfg.TPU.MAX_TEXT_LEN, cfg.TPU.MAX_BOXES
+    if d.DATASET == "vqa":
+        ds = VQADataset(
+            answer_vocab_file=d.ANSWER_VOCAB_FILE,
+            with_precomputed_visual_feat=precomputed,
+            boxes=d.get("BOXES", "36"), use_imdb=d.get("USE_IMDB", True),
+            **common)
+        collate = make_vqa_collate(
+            tokenizer, max_text, max_boxes,
+            precomputed_dim=d.get("PRECOMPUTED_FEAT_DIM", 2048)
+            if precomputed else 0, test_mode=test_mode)
+    else:
+        boxes_field = {"train": "TRAIN_BOXES", "val": "VAL_BOXES",
+                       "test": "TEST_BOXES"}[mode]
+        ds = RefCOCODataset(boxes=d.get(boxes_field, "gt"),
+                            proposal_source=d.get("PROPOSAL_SOURCE",
+                                                  "official"), **common)
+        collate = make_refcoco_collate(tokenizer, max_text, max_boxes,
+                                       test_mode=test_mode)
     n_workers = min(cfg.NUM_WORKERS_PER_GPU, max((os.cpu_count() or 1) - 1, 0))
     use_procs = cfg.TPU.get("PROCESS_WORKERS", True) and n_workers > 0
     return DataLoader(ds, batch_images, collate,

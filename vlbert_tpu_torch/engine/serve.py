@@ -1,12 +1,14 @@
-"""Single-query RefCOCO+ serving path + latency probe (port of
-vlbert_tpu/engine/serve.py, RefCOCOServer).
+"""Single-query serving paths + latency probe (port of
+vlbert_tpu/engine/serve.py: VQAServer and RefCOCOServer).
 
-Runs the whole model from raw pixels on the device: the eval transform
-(``vlbert_tpu_torch.data.transforms.build_transforms(cfg, "test")``) on the
-host, then ResNet C4 + ROIAlign + conv5 RoI head, [CLS] expr [SEP] text through
-VL-BERT, per-candidate grounding logits and the argmax box. The VQA server
-(precomputed features) and int8 weight serving are not ported yet
-(ROADMAP.md queue 1).
+``VQAServer`` answers a question over precomputed box features in one
+static (max_text, max_boxes) bucket: [CLS] question [SEP] [MASK] [SEP]
+assembled on the host, VL-BERT, the answer logits at the [MASK] slot.
+``RefCOCOServer`` runs the whole model from raw pixels on the device: the
+eval transform (``vlbert_tpu_torch.data.transforms.build_transforms(cfg,
+"test")``) on the host, then ResNet C4 + ROIAlign + conv5 RoI head, [CLS]
+expr [SEP] text through VL-BERT, per-candidate grounding logits and the
+argmax box. int8 weight serving is not ported yet (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -16,10 +18,116 @@ import time
 import numpy as np
 import torch
 
-from vlbert_tpu_torch.data.collate import assemble_expression_text, pad_to
+from vlbert_tpu_torch.data.collate import (assemble_expression_text,
+                                           assemble_qa_text, pad_to)
 
 
-class RefCOCOServer:
+def _check_quantize(quantize):
+    if quantize == "int8":
+        raise NotImplementedError(
+            "int8 weight serving is not ported yet; see ROADMAP.md "
+            "queue 1 (int8 serving)")
+    if quantize is not None:
+        raise ValueError(f"unknown quantize mode: {quantize!r}")
+
+
+class _Server:
+    """Shared plumbing: the model in eval mode on its device, host numpy
+    batches in, host numpy outputs back, and the latency probe.
+    Subclasses define ``preprocess`` and ``_forward(*tensors)``."""
+
+    def __init__(self, model):
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+
+    def infer(self, batch):
+        """Run one preprocessed batch; returns host numpy outputs. A None
+        entry (no image) stays None."""
+        tensors = [None if a is None else
+                   torch.from_numpy(np.asarray(a)).to(self.device)
+                   for a in batch]
+        with torch.inference_mode():
+            out = self._forward(*tensors)
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def measure_latency(self, queries, warmup=3):
+        """p50/p90/p99 ms over distinct preprocessed queries; each timed
+        call runs the model and fetches its outputs to the host, between
+        two device synchronizations."""
+        batches = [self.preprocess(*q) for q in queries]
+        for b in batches[:warmup]:
+            self.infer(b)
+        lat = []
+        for b in batches:
+            self._sync()
+            t0 = time.perf_counter()
+            self.infer(b)
+            self._sync()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        lat = np.asarray(lat)
+        return {"p50_ms": float(np.percentile(lat, 50)),
+                "p90_ms": float(np.percentile(lat, 90)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "n": len(lat)}
+
+
+class VQAServer(_Server):
+    """VQA over precomputed features, one static (max_text, max_boxes)
+    bucket: at the defaults L = 64 + 108 + 1 = 173.
+
+    ``model`` is a ``ResNetVLBERTForVQA`` holding its weights; it is put in
+    eval mode. ``answer_vocab`` lists the answers in logit order."""
+
+    def __init__(self, model, tokenizer, answer_vocab, max_text=64,
+                 max_boxes=108, feat_dim=2048, quantize=None):
+        _check_quantize(quantize)
+        super().__init__(model)
+        self.tokenizer = tokenizer
+        self.answer_vocab = answer_vocab
+        self.max_text = max_text
+        self.max_boxes = max_boxes
+        self.feat_dim = feat_dim
+
+    def preprocess(self, question, boxes, features, im_w, im_h):
+        """Host-side: tokenize, assemble and pad one query. Returns host
+        numpy arrays (None, boxes+features, box_mask, im_info, ids, types,
+        text_mask, ans_pos), each with a batch dim of 1; ans_pos is the
+        [MASK] slot, one before the last [SEP], as the dataset has it."""
+        q_ids = self.tokenizer.convert_tokens_to_ids(
+            self.tokenizer.tokenize(question))
+        ids, types, _tags, tmask, ans_pos = assemble_qa_text(
+            q_ids, [0] * len(q_ids), [self.tokenizer.mask_id], [0],
+            self.max_text, self.tokenizer.cls_id, self.tokenizer.sep_id)
+        n = min(len(boxes), self.max_boxes)
+        box_buf = np.full((self.max_boxes, 4 + self.feat_dim), -2.0,
+                          np.float32)
+        box_buf[:n, :4] = boxes[:n]
+        box_buf[:n, 4:] = features[:n]
+        box_mask = np.zeros(self.max_boxes, bool)
+        box_mask[:n] = True
+        im_info = np.asarray([im_w, im_h, 1.0, 1.0], np.float32)
+        return (None, box_buf[None], box_mask[None], im_info[None],
+                ids[None], types[None], tmask[None],
+                np.asarray([ans_pos - 1], np.int32))
+
+    def _forward(self, image, boxes, box_mask, im_info, ids, types, tmask,
+                 ans_pos):
+        out = self.model(image, boxes, box_mask, im_info, ids.long(),
+                         types.long(), tmask, ans_pos.long())
+        return {"label_logits": out["label_logits"]}
+
+    def query(self, question, boxes, features, im_w, im_h):
+        """The answer string."""
+        logits = self.infer(self.preprocess(question, boxes, features, im_w,
+                                            im_h))["label_logits"]
+        return self.answer_vocab[int(np.argmax(logits[0]))]
+
+
+class RefCOCOServer(_Server):
     """Single-image referring-expression grounding over static
     (max_text, max_boxes) buckets.
 
@@ -29,19 +137,13 @@ class RefCOCOServer:
 
     def __init__(self, model, tokenizer, transform, max_text=24,
                  max_boxes=16, add_image_as_a_box=True, quantize=None):
-        if quantize == "int8":
-            raise NotImplementedError(
-                "int8 weight serving is not ported yet; see ROADMAP.md "
-                "queue 1 (int8 serving)")
-        if quantize is not None:
-            raise ValueError(f"unknown quantize mode: {quantize!r}")
-        self.model = model.eval()
+        _check_quantize(quantize)
+        super().__init__(model)
         self.tokenizer = tokenizer
         self.transform = transform
         self.max_text = max_text
         self.max_boxes = max_boxes
         self.add_image_as_a_box = add_image_as_a_box
-        self.device = next(model.parameters()).device
 
     def preprocess(self, image, boxes, expression):
         """image: uint8/float RGB [H0, W0, 3]; boxes: [N, 4] candidate boxes
@@ -77,16 +179,9 @@ class RefCOCOServer:
                 box_mask[None], np.asarray(im_info, np.float32)[None],
                 ids[None], tmask[None])
 
-    def infer(self, batch):
-        """Run one preprocessed batch; returns host numpy
-        {"label_logits": [1, O], "pred_boxes": [1, 4]}."""
-        image, boxes, box_mask, im_info, ids, tmask = (
-            torch.from_numpy(np.asarray(a)).to(self.device)
-            for a in batch)
-        with torch.inference_mode():
-            out = self.model(image, boxes, box_mask, im_info, ids.long(),
-                             tmask)
-            return {k: v.cpu().numpy() for k, v in out.items()}
+    def _forward(self, image, boxes, box_mask, im_info, ids, tmask):
+        """{"label_logits": [1, O], "pred_boxes": [1, 4]}."""
+        return self.model(image, boxes, box_mask, im_info, ids.long(), tmask)
 
     def query(self, image, boxes, expression):
         """Returns a consistent triple over the CALLER's candidate list:
@@ -107,27 +202,3 @@ class RefCOCOServer:
                 "candidate_scores": 1.0 / (1.0 + np.exp(-cand)),
                 "image_box_score": float(1.0 / (1.0 + np.exp(-logits[0])))
                 if self.add_image_as_a_box else None}
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def measure_latency(self, queries, warmup=3):
-        """p50/p90/p99 ms over distinct preprocessed queries; each timed
-        call runs the model and fetches its outputs to the host, between
-        two device synchronizations."""
-        batches = [self.preprocess(*q) for q in queries]
-        for b in batches[:warmup]:
-            self.infer(b)
-        lat = []
-        for b in batches:
-            self._sync()
-            t0 = time.perf_counter()
-            self.infer(b)
-            self._sync()
-            lat.append((time.perf_counter() - t0) * 1e3)
-        lat = np.asarray(lat)
-        return {"p50_ms": float(np.percentile(lat, 50)),
-                "p90_ms": float(np.percentile(lat, 90)),
-                "p99_ms": float(np.percentile(lat, 99)),
-                "n": len(lat)}

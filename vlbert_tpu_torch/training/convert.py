@@ -1,13 +1,34 @@
-"""JAX params -> port state_dict: the inverse of vlbert_tpu.training.convert.
+"""Checkpoint names and formats for the port (port of
+vlbert_tpu/training/convert.py, on torch names instead of flax paths).
 
-Port modules keep the reference's torch parameter names, so
-``vlbert_tpu.training.convert.convert_state_dict(port.state_dict())`` gives
-the JAX tree. ``state_dict_from_jax`` goes the other way: for each port
-parameter name, ``map_reference_name(normalize_torch_name(name))`` gives the
-JAX path and the layout transform, which is inverted here. Those two name
-rules (and ``_map_resnet_name``) are copies of the JAX converter's, kept
-here because the port imports nothing of the JAX package;
-``tests/test_torch_host_copies.py`` holds them to the originals. A fused
+Port modules keep the reference's torch parameter names, so a reference
+``.model``, a checkpoint the port writes and the JAX package's torch path
+all meet on **reference names**: ``reference_name`` strips the DDP and
+TimeDistributed wrappers (``module.``, ``vlbert._module.``) and undoes the
+TF-era LayerNorm names, and what is left is a key of the port module's
+``state_dict``. The JAX converter's name rules (``normalize_torch_name``,
+``map_reference_name``, ``_map_resnet_name``) are copied here, because the
+port imports nothing of the JAX package; ``tests/test_torch_host_copies.py``
+holds them and the loaders below to the originals.
+
+Loaders and renamers, each a copy of the JAX function of the same name:
+``checkpoint_format``, ``load_torch_blob``, ``apply_reference_prefix_
+changes``, ``convert_bert_checkpoint`` (``bert.*`` / ``roberta.*`` /
+``cls.*`` to ``vlbert.*`` with the token-type row copy),
+``convert_raw_resnet_checkpoint`` and ``mlm_transform_to_classifier``.
+Formats read (``load_state_dict_file``): torch (reference ``.model``, raw
+``pytorch_model.bin``, the port's own checkpoints), and the flax-named
+``.npz`` of ``tools/convert_checkpoint.py``, mapped back through the
+inverse rules of ``state_dict_from_jax``. The JAX package's native msgpack
+checkpoints need flax, which the port does not have: that format raises.
+There is no ``stack_layer_params``, ``fuse_qkv_params`` or
+``align_vlbert_nesting``: the port has no scan layers, keeps separate
+query / key / value parameters under TPU.FUSED_QKV, and has no pretrain
+tree yet.
+
+``state_dict_from_jax`` turns JAX params into a port ``state_dict``: for
+each port parameter name, ``map_reference_name(normalize_torch_name(name))``
+gives the JAX path and the layout transform, which is inverted here. A fused
 ``...attention.self.qkv`` leaf (TPU.FUSED_QKV) is split back into query,
 key and value.
 
@@ -21,10 +42,14 @@ whose ``final_mlp`` is an ``mlm`` Classifier the paths are renamed here.
 
 from __future__ import annotations
 
+import logging
 import re
+import zipfile
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 # --------------------------------------------------------------- name rules
 
@@ -36,6 +61,13 @@ def normalize_torch_name(name):
     name = name.replace(".gamma", ".weight_ln").replace(".beta", ".bias_ln")
     name = name.replace("relationsip_head", "relationship_head")
     return name
+
+
+def reference_name(name):
+    """A checkpoint's torch name -> the port's ``state_dict`` key: the
+    wrappers stripped and the TF-era LayerNorm names undone."""
+    name = normalize_torch_name(name)
+    return name.replace(".weight_ln", ".weight").replace(".bias_ln", ".bias")
 
 
 def map_reference_name(name):
@@ -241,19 +273,20 @@ def _lookup(flat, path, used):
     return None
 
 
-def state_dict_from_jax(flat, module):
+def state_dict_from_jax(flat, module, strict=True):
     """JAX params as a flat {dot.path: np.ndarray} -> the port module's
     state_dict ({name: torch.Tensor} on the CPU, fp32 as stored).
 
-    Raises on a port parameter with no source, on a shape mismatch and on
-    any JAX leaf left unused.
+    Strict (the default): raises on a port parameter with no source, on a
+    shape mismatch and on any JAX leaf left unused. ``strict=False`` returns
+    what it could map and logs the rest (the ``.npz`` loader).
     """
     from vlbert_tpu_torch.models.task_modules import Classifier
 
     head = getattr(module, "final_mlp", None)
     renames = _MLM_HEAD if isinstance(head, Classifier) \
         and head.kind == "mlm" else ()
-    out, used, missing = {}, set(), []
+    out, used, missing, mismatched = {}, set(), [], []
     for name, ref in module.state_dict().items():
         mapped = map_reference_name(normalize_torch_name(name))
         arr = None
@@ -268,13 +301,218 @@ def state_dict_from_jax(flat, module):
             continue
         arr = _inverse(arr, transform)
         if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"{name}: JAX leaf {path} has shape "
-                             f"{arr.shape} after transform, port expects "
-                             f"{tuple(ref.shape)}")
+            mismatched.append(f"{name}: JAX leaf {path} has shape "
+                              f"{arr.shape} after transform, port expects "
+                              f"{tuple(ref.shape)}")
+            continue
         out[name] = torch.tensor(arr, dtype=ref.dtype)
+    unused = sorted(set(flat) - used)
+    if not strict:
+        if missing or mismatched or unused:
+            logger.info("npz: %d port tensors with no source, %d shape "
+                        "mismatches, %d leaves unused (e.g. %s)",
+                        len(missing), len(mismatched), len(unused),
+                        unused[:5])
+        return out
+    if mismatched:
+        raise ValueError(mismatched[0])
     if missing:
         raise KeyError(f"port parameters with no JAX source: {missing}")
-    unused = sorted(set(flat) - used)
     if unused:
         raise KeyError(f"JAX leaves not used by the port: {unused}")
+    return out
+
+
+# ------------------------------------------------- torch-name loaders
+
+def convert_bert_checkpoint(sd, target_prefix="vlbert."):
+    """Language-pretrained BERT (bert.* / roberta.* / cls.* keys) ->
+    reference names of the VL-BERT tree (ref visual_linguistic_bert.py:
+    243-309), with the token-type row copy for checkpoints of one or two
+    types. Returns (state_dict, skipped): keys with no counterpart are
+    skipped, as the JAX converter skips them."""
+    remapped = {}
+    for k, v in sd.items():
+        if k.startswith("bert."):
+            k = k[len("bert."):]
+        elif k.startswith("roberta."):
+            k = k[len("roberta."):]
+        elif k.startswith("cls.predictions."):
+            k = "mlm_head.predictions." + k[len("cls.predictions."):]
+        elif k.startswith("cls.seq_relationship."):
+            k = "relationship_head.caption_image_relationship." \
+                + k[len("cls.seq_relationship."):]
+        else:
+            continue
+        k = k.replace("embeddings.word_embeddings", "word_embeddings")
+        k = k.replace("embeddings.position_embeddings", "position_embeddings")
+        k = k.replace("embeddings.token_type_embeddings",
+                      "token_type_embeddings")
+        k = k.replace("embeddings.LayerNorm", "embedding_LayerNorm")
+        remapped[target_prefix + k] = v
+    out, skipped = reference_state_dict(remapped)
+
+    # token-type rows (ref :276-286): one row -> rows 0, 0, 0; two rows ->
+    # rows 0, 1, 1
+    key = f"{target_prefix}token_type_embeddings.weight"
+    tt = out.get(key)
+    if tt is not None and tt.shape[0] < 3:
+        rows = [0, 0, 0] if tt.shape[0] == 1 else [0, 1, 1]
+        out[key] = tt[rows]
+    return out, skipped
+
+
+def convert_raw_resnet_checkpoint(sd, target_prefix="image_feature_extractor."):
+    """Raw torchvision-style ResNet state dict (conv1./bn1./layerL.K.*) ->
+    the backbone and conv5 RoI head warm start: ``layer4.*`` goes to
+    ``roi_head_feature_extractor.*`` (ref common/fast_rcnn.py:115-121), the
+    rest to ``backbone.*`` (the C4 backbone holds the stem and layer1-3);
+    ``fc.*`` and ``num_batches_tracked`` are dropped. Returns
+    (state_dict, skipped)."""
+    remapped = {}
+    for k, v in sd.items():
+        if k.startswith("fc.") or k.endswith("num_batches_tracked"):
+            continue
+        if k.startswith("layer4."):
+            remapped[target_prefix + "roi_head_feature_extractor."
+                     + k[len("layer4."):]] = v
+        else:
+            remapped[target_prefix + "backbone." + k] = v
+    return reference_state_dict(remapped)
+
+
+def reference_state_dict(sd):
+    """Checkpoint names -> reference names (``reference_name``); a key the
+    JAX converter has no rule for is skipped, as it skips it. Returns
+    (state_dict, skipped)."""
+    out, skipped = {}, []
+    for name, tensor in sd.items():
+        if map_reference_name(normalize_torch_name(name)) is None:
+            skipped.append(name)
+            continue
+        out[reference_name(name)] = tensor
+    return out, skipped
+
+
+def load_torch_blob(path):
+    """torch.load + state_dict extraction (the one place a foreign torch
+    file is read). Tensors, dicts, lists and numbers load with
+    ``weights_only=True``; a reference ``.model`` also pickles its
+    optimizer's and validation monitor's state, which may hold numpy
+    scalars that ``weights_only`` refuses, so such a file is read again
+    with ``weights_only=False``, as the reference itself reads it."""
+    import pickle
+
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        logger.warning("%s holds objects weights_only refuses; reading it "
+                       "as the reference does (weights_only=False)", path)
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+    return blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+
+
+def convert_torch_state_dict(sd):
+    """Detect raw-BERT vs reference VL-BERT names; reference names out."""
+    if any(k.startswith("bert.") or k.startswith("roberta.")
+           for k in sd.keys()):
+        out, _ = convert_bert_checkpoint(sd)
+    else:
+        out, _ = reference_state_dict(sd)
+    return out
+
+
+def apply_reference_prefix_changes(sd, prefix_changes):
+    """PARTIAL_PRETRAIN_PREFIX_CHANGES on RAW torch checkpoint names,
+    exactly as the reference applies them BEFORE loading
+    (ref vcr/function/train.py:202-214): first matching rule wins, keys
+    matching no rule pass through unchanged."""
+    if not prefix_changes:
+        return sd
+    out = {}
+    for k, v in sd.items():
+        for old, new in prefix_changes:
+            if k.startswith(old):
+                out[new + k[len(old):]] = v
+                break
+        else:
+            out[k] = v
+    return out
+
+
+def checkpoint_format(path):
+    """Classify a checkpoint file: 'torch' | 'native' (flax msgpack) |
+    'npz' (tools/convert_checkpoint.py output).
+
+    Suffixes are ambiguous — '.model' is both the reference torch format
+    and the JAX package's native save, and torch>=1.6 zips share the PK
+    header with numpy's .npz — so classify by content: PK zips with
+    'data.pkl' are torch, PK zips of .npy members are npz, legacy pickles
+    (0x80 + protocol byte) are torch, everything else is native msgpack.
+    """
+    try:
+        with open(path, "rb") as f:
+            head = f.read(4)
+    except OSError:
+        return "native"
+    if head[:2] == b"PK":
+        try:
+            with zipfile.ZipFile(path) as z:
+                names = z.namelist()
+            if any(n.endswith("data.pkl") for n in names):
+                return "torch"
+            if names and all(n.endswith(".npy") for n in names):
+                return "npz"
+        except zipfile.BadZipFile:
+            pass
+        return "torch"
+    if len(head) >= 2 and head[0] == 0x80 and head[1] <= 0x05:
+        return "torch"      # legacy (pre-1.6) torch pickle
+    return "native"
+
+
+def load_npz_checkpoint(path):
+    """tools/convert_checkpoint.py output: flat {flax.dot.path: array}."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load_state_dict_file(path, module):
+    """A checkpoint file -> (state_dict, raw): ``raw`` is True for a torch
+    file, whose names are still the file's own (prefix changes apply to
+    them), False for an ``.npz``, already mapped onto ``module``'s names.
+    The JAX package's native msgpack format raises ValueError."""
+    fmt = checkpoint_format(path)
+    if fmt == "torch":
+        return load_torch_blob(path), True
+    if fmt == "npz":
+        return state_dict_from_jax(load_npz_checkpoint(path), module,
+                                   strict=False), False
+    raise ValueError(
+        f"{path}: checkpoint format {fmt!r} (the JAX package's flax msgpack "
+        f"save) cannot be read without flax; convert it with "
+        f"tools/convert_checkpoint.py to .npz, or save a torch checkpoint")
+
+
+_MLM_TRANSFORM = {
+    "mlm_head.predictions.transform.dense.weight": "final_mlp.0.dense.weight",
+    "mlm_head.predictions.transform.dense.bias": "final_mlp.0.dense.bias",
+    "mlm_head.predictions.transform.LayerNorm.weight":
+        "final_mlp.0.LayerNorm.weight",
+    "mlm_head.predictions.transform.LayerNorm.bias":
+        "final_mlp.0.LayerNorm.bias",
+}
+
+
+def mlm_transform_to_classifier(sd):
+    """VQA 'mlm' classifier warm start (ref vqa module init_weight :97-111):
+    the BERT MLM prediction transform becomes the classifier's transform
+    (``final_mlp.0``). Input: reference names, the head under ``vlbert.``
+    or bare."""
+    out = dict(sd)
+    for src, dst in _MLM_TRANSFORM.items():
+        for k in (src, "vlbert." + src):
+            if k in sd:
+                out[dst] = sd[k]
+                break
     return out

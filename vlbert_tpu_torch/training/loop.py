@@ -10,8 +10,11 @@ no update. A non-finite loss raises.
 
 ``fit`` keeps the reference's epoch structure: set_epoch shuffling, one
 seed per step from the trainer's ``torch.Generator``, Speedometer logging,
-per-epoch validation, plateau LR stepping from the validation metric. It
-saves no checkpoint (ROADMAP.md queue 1).
+per-epoch validation, plateau LR stepping from the validation metric, and
+``checkpoint_fn`` on CHECKPOINT_FREQUENT epochs and on every best-val
+epoch. On a resume the caller passes the checkpoint's ``best_val`` and
+plateau state; the dropout seeds restart from the trainer's seed, as the
+JAX package's do.
 """
 
 from __future__ import annotations
@@ -153,9 +156,16 @@ class _StepTimer:
 
 def fit(model, config, task, train_loader, optimizer, *, device,
         seed_generator, val_loader=None, validation_fn=None,
-        begin_epoch=None, end_epoch=None):
+        begin_epoch=None, end_epoch=None, checkpoint_fn=None,
+        best_val=None, plateau_state=None):
     """Host training loop. Returns the history: per-step ``loss`` and
-    ``step_ms``, per-epoch ``train`` and ``val`` metrics."""
+    ``step_ms``, per-epoch ``train`` and ``val`` metrics.
+
+    ``checkpoint_fn(model, optimizer, epoch, extra, is_best)`` is called
+    after an epoch's validation when ``(epoch + 1) % CHECKPOINT_FREQUENT ==
+    0`` or the epoch set a new best validation metric; ``extra`` is
+    {"best_val", "plateau"}. ``best_val`` and ``plateau_state`` restore
+    those two from a checkpoint's ``extra``."""
     grad_accum = max(int(config.TRAIN.GRAD_ACCUMULATE_STEPS), 1)
     train_step = make_train_step(model, optimizer, task, config, grad_accum)
     begin_epoch = config.TRAIN.BEGIN_EPOCH if begin_epoch is None \
@@ -166,10 +176,14 @@ def fit(model, config, task, train_loader, optimizer, *, device,
                          len(train_loader), end_epoch - begin_epoch)
     acc = metrics_lib.HostAccumulator()
     host_metric = metrics_lib.HOST_METRIC_NAME[task]
-    best_val = float("-inf")
+    # restored on resume, so that -best.model never regresses across
+    # restarts (ref vcr/function/train.py:267-270)
+    best_val = float("-inf") if best_val is None else float(best_val)
     plateau = None
     if config.TRAIN.LR_SCHEDULE == "plateau":
         plateau = ReduceLROnPlateau(factor=config.TRAIN.LR_FACTOR)
+        if plateau_state:
+            plateau.load_state_dict(plateau_state)
     history = {"loss": [], "step_ms": [], "train": [], "val": []}
     timer = _StepTimer(device)
 
@@ -189,17 +203,27 @@ def fit(model, config, task, train_loader, optimizer, *, device,
             speedo(epoch, i, acc.format())
         history["train"].append(acc.get())
         logger.info("Epoch[%d] train: %s", epoch, acc.format())
+        is_best = False
         if validation_fn is not None and val_loader is not None \
                 and (epoch + 1) % max(config.VAL_FREQUENT, 1) == 0:
             val = validation_fn(val_loader)
             history["val"].append(val)
             logger.info("Epoch[%d] val: %s", epoch, val)
-            host_val = val.get(host_metric, float("-inf"))
+            host_val = float(val.get(host_metric, float("-inf")))
             if host_val > best_val:
                 best_val = host_val
+                is_best = True
                 logger.info("New Best Val %s: %s, Epoch: %d", host_metric,
                             best_val, epoch)
             if plateau is not None:
                 optimizer.plateau_scale = plateau.step(host_val)
+        # also on best-val epochs between CHECKPOINT_FREQUENT saves, so
+        # -best.model never holds stale weights
+        on_cadence = (epoch + 1) % max(config.CHECKPOINT_FREQUENT, 1) == 0
+        if checkpoint_fn is not None and (on_cadence or is_best):
+            extra = {"best_val": best_val}
+            if plateau is not None:
+                extra["plateau"] = plateau.state_dict()
+            checkpoint_fn(model, optimizer, epoch, extra, is_best)
     history["step_ms"] = timer.step_ms()
     return history

@@ -101,6 +101,14 @@ class ReduceLROnPlateau:
             self.num_bad_epochs = 0
         return self.scale
 
+    def state_dict(self):
+        return {k: getattr(self, k) for k in
+                ("best", "num_bad_epochs", "cooldown_counter", "scale")}
+
+    def load_state_dict(self, d):
+        for k, v in d.items():
+            setattr(self, k, v)
+
 
 # ------------------------------------------------------------- param groups
 
@@ -173,7 +181,9 @@ def apply_trainable_mask(module, config):
 class Optimizer:
     """The JAX package's optax chain over ``module``'s trainable
     parameters. ``step(grads)`` applies one update in place; ``count`` is
-    the number of steps taken (the schedule's step)."""
+    the number of steps taken (the schedule's step). ``state_dict()`` holds
+    the moments keyed by parameter name, ``count`` and ``plateau_scale``;
+    a resume that did not restore ``count`` would restart the schedule."""
 
     def __init__(self, config, module, steps_per_epoch, world_size=1):
         t = config.TRAIN
@@ -199,6 +209,33 @@ class Optimizer:
                     for p in self.params] if self.kind != "SGD" else None)
         self.count = 0
         self.plateau_scale = 1.0
+
+    def state_dict(self):
+        """{"mu": {name: moment}, "nu": {name: moment} or None, "count",
+        "plateau_scale"}; the tensors are the live ones."""
+        nu = None if self.nu is None else dict(zip(self.names, self.nu))
+        return {"mu": dict(zip(self.names, self.mu)), "nu": nu,
+                "count": self.count, "plateau_scale": self.plateau_scale}
+
+    @torch.no_grad()
+    def load_state_dict(self, d):
+        """Restore moments by parameter name; raises on a missing or
+        misshaped moment."""
+        for key, live in (("mu", self.mu), ("nu", self.nu)):
+            if live is None:
+                continue
+            saved = d.get(key) or {}
+            for name, m in zip(self.names, live):
+                if name not in saved:
+                    raise KeyError(f"optimizer state has no {key} for {name}")
+                if tuple(saved[name].shape) != tuple(m.shape):
+                    raise ValueError(
+                        f"optimizer {key} of {name}: shape "
+                        f"{tuple(saved[name].shape)}, parameter "
+                        f"{tuple(m.shape)}")
+                m.copy_(saved[name])
+        self.count = int(d["count"])
+        self.plateau_scale = float(d["plateau_scale"])
 
     def lr(self):
         """The learning rate the next step uses."""
