@@ -11,11 +11,12 @@ its own line:
   2. build: compiles the kernels from vlbert_tpu_torch/csrc at first use;
   3. kernel parity: ROIAlign (K1; fp32 and bf16 maps, fp32 and bf16
      output, sampling ratio 1, 0 and 2) at the serve shape, at B=2 with 37
-     slots, at the RefCOCO+ test driver's B=4 with 108 slots, on the
-     portrait map of a 640x480 query and at an odd C, and attention (K2;
-     bf16 on the tensor cores, fp32 on the CUDA cores) at L = 1, 41, 63,
-     64, 65, 128 (B=16 and test_net_vqa's B=64) and 173 (B=1 and
-     test_net_refcoco's B=4) against their plain PyTorch
+     slots, at the RefCOCO+ test driver's B=4 with 108 slots, at VCR's
+     B=4 on 600x1200 canvases with 108 slots, on the portrait map of a
+     640x480 query and at an odd C, and attention (K2; bf16 on the tensor
+     cores, fp32 on the CUDA cores) at L = 1, 41, 63, 64, 65, 128 (B=16
+     and test_net_vqa's B=64) and 173 (B=1, test_net_refcoco's B=4 and
+     VCR's 4 questions x 4 choices, B=16) against their plain PyTorch
      versions, with device times (profiler) and per-call CUDA-event times
      for both; K1 also timed by kernel name with its kernels per call, and
      the three ops the main path ran before K1 stored the compute dtype
@@ -32,13 +33,15 @@ its own line:
      that start off a 16-byte boundary, attention with prob dropout
      forward (K3) and backward (K4; bf16 on the tensor cores, fp32 on the
      CUDA cores) at L = 128, 41 and 173, and K2's backward, each against
-     its plain version in explicit-bits and Philox mode; the kernels' keep
+     its plain version in explicit-bits and Philox mode (timed in bf16 and,
+     at B=16 L=128, on the fp32 route); the kernels' keep
      masks are read back exactly in both dtypes and must equal the plain
      Philox's bit for bit, the backward must replay the forward's mask, the
      keep fraction must lie within 5 sigma of 1 - rate and two seeds must
      differ; a bf16 K4 repeated on the same inputs must give bit-identical
      gradients. Then the yardsticks: one PyTorch library call per kernel
-     that computes the same function (scaled_dot_product_attention,
+     that computes the same function (scaled_dot_product_attention, also
+     in fp32 with dropout and its backward beside the fp32 K3 and K4,
      dropout), timed and never used by the port, and the SASS instructions
      of one Philox evaluation, for each kernel's Philox floor;
   7. train: train_net (python -m vlbert_tpu_torch.engine.train) on a
@@ -77,7 +80,22 @@ its own line:
      reference-layout ``.model`` (``module.`` and ``vlbert._module.``):
      batch 4, so K1 4 and K2 48 launches; pred-box rows, IoU@0.5 accuracy,
      samples/s of each test driver's inference loop; fp32 kernels and plain
-     versions must predict identical boxes on one batch.
+     versions must predict identical boxes on one batch;
+  12. VCR: the shipped base Q2A and QA2R configs at full width
+     (cfgs/vcr/base_{q2a,qa2r}_4x16G_fp32.yaml: ResNet-101 C4 with a
+     dilated conv5, 14x14 ROIAlign and instance masks, VL-BERT 768 x 12 x
+     12, bf16) on a synthetic split the script writes (16 questions over 4
+     landscape and 4 portrait JPEGs with 3-107 boxes and polygon segms, 4
+     answers and 4 rationales each), from a reference-layout ``.model`` of
+     seed-0 weights: ``python -m vlbert_tpu_torch.engine.test --task vcr``
+     for Q2A val and test (batch 4 x 4 choices, L = 173: K1 once and K2 12
+     times a batch) and the answer-conditioned QA2R test (4 passes a
+     batch), ``merge_vcr_results``, ``python -m
+     vlbert_tpu_torch.engine.vcr_val`` and the single-model Q2AR through
+     ``make_validation_fn`` (one visual pass, two text passes), each with
+     exact launch counts; the warm inference loops' samples/s and device
+     idle share; fp32 kernels vs plain versions on one batch: logits within
+     1e-3 and the same argmax for each question.
 
 Any failure raises. Every file the phases write lives under one temporary
 directory, removed on exit. On every exit it stops the processes it
@@ -97,6 +115,7 @@ the instructions of one over the card's integer issue rate.
 """
 
 import contextlib
+import csv
 import json
 import math
 import os
@@ -308,7 +327,8 @@ def k1_cases(dev):
     """(name, fp32 map, boxes, bool mask, sampling ratios) of K1's parity:
     the serve shape; B=2 with 37 slots, the edge boxes and random ones,
     different in each image, padded slots at other places in each; the
-    RefCOCO+ test driver's B=4 with 108 slots, 108, 97, 66 and 40 live; the
+    RefCOCO+ test driver's B=4 with 108 slots, 108, 97, 66 and 40 live;
+    VCR's test batch, B=4 on 600x1200 canvases with 108 slots; the
     portrait canvas a 480x640 query is padded to (1000 tall, 600 wide: map
     [1,63,38,1024]) with the serve boxes transposed; and an odd C (1032:
     129 bf16 or 258 fp32 chunks a pixel, more than a block's threads)."""
@@ -349,6 +369,23 @@ def k1_cases(dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     yield ("B4_O108", torch.randn(4, 38, 63, 1024, generator=g, device=dev),
            torch.from_numpy(b4).to(dev), torch.from_numpy(m4).to(dev), (1,))
+    # VCR's test batch: four 600x1200 canvases (SCALES 600, 1200; body4
+    # [4,38,75,1024]), 108 slots, the whole-image box first, 108, 60, 21
+    # and 8 live
+    O, live = 108, (108, 60, 21, 8)
+    bv = np.zeros((4, O, 4), np.float32)
+    mv = np.zeros((4, O), bool)
+    for b in range(4):
+        xy = rng.uniform([-20, -20], [1180, 580], (O, 2))
+        wh = rng.uniform(0.2, 1.0, (O, 1)) * rng.choice(
+            [4.0, 60.0, 400.0], (O, 1)) * rng.uniform(0.5, 1.5, (O, 2))
+        bv[b] = np.concatenate([xy, xy + wh], 1)
+        bv[b, 0] = (0, 0, 1199 - 100 * b, 599)
+        mv[b, :live[b]] = True
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    yield ("vcr_B4_O108", torch.randn(4, 38, 75, 1024, generator=g,
+                                      device=dev),
+           torch.from_numpy(bv).to(dev), torch.from_numpy(mv).to(dev), (1,))
     portrait = boxes[..., [1, 0, 3, 2]].contiguous()
     yield ("portrait", feat.transpose(1, 2).contiguous(), portrait, mask,
            (1, 0))
@@ -421,11 +458,12 @@ def k1_bound(B, H, W, C, O, in_bytes, out_bytes, P=14, Q=14, taps=4):
 
 
 # (B, L): the edges of one 64-row tile, the serve shape, the VQA
-# validation shape, test_net_vqa's (B=64 L=128), the VQA server's and
-# test_net_refcoco's (B=4 L=173)
+# validation shape, test_net_vqa's (B=64 L=128), the VQA server's,
+# test_net_refcoco's (B=4 L=173) and VCR's (4 questions x 4 choices,
+# B=16 L=173)
 K2_CASES = ((1, 1), (1, 41), (1, 63), (1, 64), (1, 65), (16, 128), (64, 128),
-            (1, 173), (4, 173))
-K2_TIMED = ((1, 41), (16, 128), (1, 173))
+            (1, 173), (4, 173), (16, 173))
+K2_TIMED = ((1, 41), (16, 128), (1, 173), (16, 173))
 
 
 def k2_parity(dev):
@@ -434,10 +472,11 @@ def k2_parity(dev):
     shape (24 text + 16 boxes + END), 128 the VQA validation (B=16) and
     test_net_vqa (B=64) shape, 173 the VQA server's (B=1) and
     test_net_refcoco's (B=4) bucket, and 1, 63, 64, 65 the ragged edges
-    of one 64-row tile. 5 keys masked (at L=1 the only key, a fully
-    masked row); q, k, v are strided views of one fused projection.
-    Device times in bf16 at the cases of K2_TIMED, keyed by L, and of the
-    fp32 route (CUDA cores) at B=16 L=128 under the key "128_fp32"."""
+    of one 64-row tile, and B=16 L=173 VCR's 4 questions x 4 choices. 5
+    keys masked (at L=1 the only key, a fully masked row); q, k, v are
+    strided views of one fused projection. Device times in bf16 at the
+    cases of K2_TIMED, keyed "B{B}_L{L}", and of the fp32 route (CUDA
+    cores) at B=16 L=128 under "B16_L128_fp32"."""
     import torch
     from vlbert_tpu_torch.ops.attention import fused_attention, plain_attention
 
@@ -460,8 +499,9 @@ def k2_parity(dev):
                 raise AssertionError(f"K2 B={B} L={L} {dtype}: max abs err "
                                      f"{err} > {tol}")
             errs[f"B{B}_L{L}/{str(dtype)[6:]}"] = err
-            key = L if dtype == torch.bfloat16 else f"{L}_fp32"
-            if (B, L) in K2_TIMED and (dtype == torch.bfloat16 or L == 128):
+            key = f"B{B}_L{L}" + ("" if dtype == torch.bfloat16 else "_fp32")
+            if (B, L) in K2_TIMED and (dtype == torch.bfloat16
+                                       or (B, L) == (16, 128)):
                 timing[key] = (cuda_ms(lambda: fused_attention(q, k, v, bias)),
                                cuda_ms(lambda: plain_attention(q, k, v, bias)))
     return errs, timing
@@ -612,7 +652,7 @@ def k34_parity(dev):
     173 (7 padded keys, one all-masked batch row), explicit bits and
     Philox, fp32 (CUDA cores) and bf16 (tensor cores); masks read back bit
     for bit in both dtypes; a bf16 backward repeated bit for bit; K2's
-    backward; timings in bf16."""
+    backward; timings in bf16 and of the fp32 route at B=16 L=128."""
     import torch
     from vlbert_tpu_torch.ops.attention import (
         attention_bits, fused_attention, fused_attention_dropout,
@@ -683,26 +723,36 @@ def k34_parity(dev):
     if torch.equal(fwd_masks[0], fwd_masks[1]):
         raise AssertionError("K3: two seeds gave the same mask")
 
-    # timings, bf16, Philox: K3 on the fused-projection views; K4 as the
-    # backward of one forward (separate leaves)
-    with torch.no_grad():
-        _, (q, k, v), bias = _train_qkv(g, dev, torch.bfloat16)
-        bias = bias.detach()
-        k3 = (cuda_ms(lambda: fused_attention_dropout(
-                  q, k, v, bias, DROP_RATE, seed=SEED)),
-              cuda_ms(lambda: plain_attention_dropout(
-                  q, k, v, bias, DROP_RATE, seed=SEED)))
-    leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
-    gy = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
-    outs = (fused_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED),
-            plain_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED))
-    k4 = tuple(cuda_ms(lambda o=o: torch.autograd.grad(
-        o, leaves, gy, retain_graph=True)) for o in outs)
-    # K4's device time by kernel: its two passes and the sum over heads
-    k4_split = {name: us / 1e3 / 50 for name, us in device_us_by_name(
-        lambda: torch.autograd.grad(outs[0], leaves, gy, retain_graph=True),
-        50).items()}
-    return errs, {"keep_fraction": frac, "sigma": sigma}, k3, k4, k4_split
+    # timings, Philox: K3 on the fused-projection views; K4 as the
+    # backward of one forward (separate leaves); bf16 (the main path), then
+    # the fp32 route (csrc/attention_dropout.cu) with its plain version
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        with torch.no_grad():
+            _, (q, k, v), bias = _train_qkv(g, dev, dtype)
+            bias = bias.detach()
+            k3 = (cuda_ms(lambda: fused_attention_dropout(
+                      q, k, v, bias, DROP_RATE, seed=SEED)),
+                  cuda_ms(lambda: plain_attention_dropout(
+                      q, k, v, bias, DROP_RATE, seed=SEED)))
+        leaves = [t.detach().contiguous().requires_grad_()
+                  for t in (q, k, v)]
+        gy = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+        outs = (fused_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED),
+                plain_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED))
+        k4 = tuple(cuda_ms(lambda o=o: torch.autograd.grad(
+            o, leaves, gy, retain_graph=True)) for o in outs)
+        times[str(dtype)[6:]] = (k3, k4)
+        if dtype == torch.bfloat16:
+            # K4's device time by kernel: its two passes and the sum over
+            # heads
+            k4_split = {name: us / 1e3 / 50 for name, us in
+                        device_us_by_name(lambda: torch.autograd.grad(
+                            outs[0], leaves, gy, retain_graph=True),
+                            50).items()}
+    k3, k4 = times["bfloat16"]
+    return (errs, {"keep_fraction": frac, "sigma": sigma}, k3, k4, k4_split,
+            times["float32"])
 
 
 def library_ms(fn, iters=50, warmup=5):
@@ -781,9 +831,10 @@ def k1_library(dev):
 def library_yardsticks(dev):
     """One PyTorch call per kernel that computes the same function, at the
     main path's shapes, bf16: scaled_dot_product_attention for K2 (B=1
-    L=41, B=1 L=173, B=16 L=128, and B=16 L=128 in fp32 beside the fp32
-    K2), with dropout_p=rate for K3 (its masks are its own; the work is
-    the same), autograd through that call for K4,
+    L=41, B=1 L=173, B=16 L=173, B=16 L=128, and B=16 L=128 in fp32
+    beside the fp32 K2), with dropout_p=rate for K3 (its masks are its
+    own; the work is the same), autograd through that call for K4 (both
+    also in fp32 at B=16 L=128 beside the fp32 routes),
     torch.nn.functional.dropout for K5 and grid_sample for K1
     (``k1_library``). Returns {name: (ms, kernel names)}."""
     import torch
@@ -791,15 +842,15 @@ def library_yardsticks(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     out = {}
-    for L in (41, 173):
-        qkv = torch.randn(1, L, 3 * 768, generator=g, device=dev) \
+    for B, L in ((1, 41), (1, 173), (16, 173)):
+        qkv = torch.randn(B, L, 3 * 768, generator=g, device=dev) \
             .to(torch.bfloat16)
-        q, k, v = (t.view(1, L, 12, 64) for t in qkv.split(768, dim=-1))
-        m = torch.ones(1, L, device=dev)
-        m[0, -5:] = 0
+        q, k, v = (t.view(B, L, 12, 64) for t in qkv.split(768, dim=-1))
+        m = torch.ones(B, L, device=dev)
+        m[:, -5:] = 0
         bias = ((1.0 - m) * -10000.0)[:, None, None, :].contiguous()
         a = _sdpa_args(q, k, v, bias)
-        out[f"K2_L{L}"] = library_ms(
+        out[f"K2_L{L}" if B == 1 else f"K2_B{B}_L{L}"] = library_ms(
             lambda a=a: F.scaled_dot_product_attention(*a[:3],
                                                        attn_mask=a[3]))
     with torch.no_grad():
@@ -808,6 +859,15 @@ def library_yardsticks(dev):
         out["K2_L128_fp32"] = library_ms(
             lambda: F.scaled_dot_product_attention(*a32[:3],
                                                    attn_mask=a32[3]))
+        out["K3_fp32"] = library_ms(lambda: F.scaled_dot_product_attention(
+            *a32[:3], attn_mask=a32[3], dropout_p=DROP_RATE))
+    leaves32 = [t.detach().transpose(1, 2).contiguous().requires_grad_()
+                for t in (q, k, v)]
+    o32 = F.scaled_dot_product_attention(*leaves32, attn_mask=a32[3],
+                                         dropout_p=DROP_RATE)
+    gy32 = torch.randn(o32.shape, generator=g, device=dev)
+    out["K4_fp32"] = library_ms(lambda: torch.autograd.grad(
+        o32, leaves32, gy32, retain_graph=True))
     with torch.no_grad():
         _, (q, k, v), bias = _train_qkv(g, dev, torch.bfloat16)
         bias = bias.detach()
@@ -1444,21 +1504,31 @@ def vqa_serve_phase(cfg, best):
     return res
 
 
-def _timed_loop(config, task, ckpt_path, mode):
-    """(samples, seconds) of the test driver's inference loop over its loader,
-    warm (a first pass compiles nothing but fills the caches)."""
+def _timed_loop(config, task, ckpt_path, mode, profile=False):
+    """(samples, seconds, device-busy seconds or None) of the test driver's
+    inference loop over its loader, warm (a first pass compiles nothing but
+    fills the caches); ``profile``: the summed device time of a third pass
+    in a torch.profiler window."""
     import torch
     from vlbert_tpu_torch.engine import test as t_test
 
     model, loader, n_label = t_test.setup_inference(config, task, ckpt_path,
                                                     mode, "cuda")
+    conditioned = t_test.is_conditioned(config, task, mode)
+
+    def loop():
+        t_test.infer_loader(model, loader, n_label, "cuda", conditioned)
+
     try:
-        t_test.infer_loader(model, loader, n_label, "cuda")
+        loop()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        t_test.infer_loader(model, loader, n_label, "cuda")
+        loop()
         torch.cuda.synchronize()
-        return len(loader.dataset), time.perf_counter() - t0
+        loop_s = time.perf_counter() - t0
+        busy_s = sum(device_us_by_name(loop, 1).values()) / 1e6 \
+            if profile else None
+        return len(loader.dataset), loop_s, busy_s
     finally:
         loader.shutdown()
 
@@ -1491,7 +1561,7 @@ def vqa_test_phase(cfg9, best, root):
     res["ok"] = (res["rows"] == answers and [a["question_id"] for a in
                                             answers]
                  == [r["question_id"] + 1000 for r in rows])
-    res["n"], res["loop_s"] = _timed_loop(cfg, "vqa", best, "test")
+    res["n"], res["loop_s"], _ = _timed_loop(cfg, "vqa", best, "test")
     return res
 
 
@@ -1592,7 +1662,8 @@ def refcoco_test_phase(root, vocab_dir):
     res["acc"] = float(np.mean([
         bbox_iou(b[None], np.asarray(r["gt_box"], np.float32))[0] > 0.5
         for b, r in zip(boxes, rows)]))
-    res["n"], res["loop_s"] = _timed_loop(cfg, "refcoco", ckpt_path, "val")
+    res["n"], res["loop_s"], _ = _timed_loop(cfg, "refcoco", ckpt_path,
+                                             "val")
     # fp32: kernels vs plain versions on one batch
     cfg.TPU.COMPUTE_DTYPE = "float32"
     model, loader, n_label = t_test.setup_inference(cfg, "refcoco",
@@ -1610,6 +1681,244 @@ def refcoco_test_phase(root, vocab_dir):
     live = batch[2]
     res["fp32_logit_err"] = _maxerr(a["label_logits"][live],
                                     b["label_logits"][live])
+    return res
+
+
+VCR_CFGS = {"Q2A": os.path.join(REPO, "cfgs", "vcr",
+                                 "base_q2a_4x16G_fp32.yaml"),
+            "QA2R": os.path.join(REPO, "cfgs", "vcr",
+                                 "base_qa2r_4x16G_fp32.yaml")}
+VCR_OBJECTS = ("person", "dog", "car", "chair", "cup", "bottle", "horse",
+               "umbrella", "tie", "bench")
+# (width, height) of the synthetic images: four landscape, four portrait
+# (a batch of 4 shares one canvas orientation), and the boxes each holds:
+# 107 fills the 108 slots with the whole-image box
+VCR_IMAGES = (((640, 480), 107), ((800, 600), 40), ((1000, 562), 12),
+              ((720, 540), 3), ((480, 640), 60), ((600, 800), 25),
+              ((562, 1000), 7), ((540, 720), 90))
+
+
+def write_vcr_fixture(root, per_image=2):
+    """A synthetic VCR split in the dataset's on-disk form under ``root``:
+    JPEGs (VCR_IMAGES), one metadata json per image with [x1, y1, x2, y2,
+    score] boxes and polygon segms, and ``val.jsonl`` (labels) and
+    ``test.jsonl`` (none) with ``per_image`` questions an image: mixed
+    questions, 4 answers and 4 rationales whose [obj, ...] references tag
+    the image's objects. Returns (data dir, val rows)."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 12)
+    d = os.path.join(root, "vcr")
+    os.makedirs(os.path.join(d, "img"), exist_ok=True)
+    words = FIXTURE_WORDS[:-1]
+
+    def sentence(n_obj, n):
+        toks = list(rng.choice(words, n))
+        for _ in range(int(rng.integers(1, 3))):
+            refs = sorted({int(o) for o in rng.integers(0, n_obj,
+                                                        rng.integers(1, 3))})
+            toks.insert(int(rng.integers(0, len(toks) + 1)), refs)
+        return [t if isinstance(t, list) else str(t) for t in toks] + ["?"]
+
+    rows = []
+    for i, ((w, h), n_obj) in enumerate(VCR_IMAGES):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(d, "img", f"{i}.jpg"),
+                                  quality=90)
+        x1 = rng.uniform(0, w * 0.8, n_obj)
+        y1 = rng.uniform(0, h * 0.8, n_obj)
+        x2 = np.minimum(x1 + rng.uniform(10, w * 0.5, n_obj), w - 1)
+        y2 = np.minimum(y1 + rng.uniform(10, h * 0.5, n_obj), h - 1)
+        boxes, segms = [], []
+        for b in zip(x1, y1, x2, y2):
+            boxes.append([float(v) for v in b] + [float(rng.uniform(.5, 1))])
+            polys = []
+            for _ in range(int(rng.integers(1, 3))):
+                k = int(rng.integers(3, 9))
+                polys.append(np.stack([rng.uniform(b[0], b[2], k),
+                                       rng.uniform(b[1], b[3], k)],
+                                      1).round(1).tolist())
+            segms.append(polys)
+        names = [str(rng.choice(VCR_OBJECTS)) for _ in range(n_obj)]
+        with open(os.path.join(d, f"{i}.json"), "w") as f:
+            json.dump({"boxes": boxes, "segms": segms, "names": names,
+                       "width": w, "height": h}, f)
+        for j in range(per_image):
+            rows.append({
+                "annot_id": f"val-{len(rows)}", "img_fn": f"img/{i}.jpg",
+                "metadata_fn": f"{i}.json", "objects": names,
+                "question": sentence(n_obj, int(rng.integers(4, 12))),
+                "answer_choices": [sentence(n_obj, int(rng.integers(3, 14)))
+                                   for _ in range(4)],
+                "rationale_choices": [
+                    sentence(n_obj, int(rng.integers(6, 22)))
+                    for _ in range(4)],
+                "answer_label": int(rng.integers(0, 4)),
+                "rationale_label": int(rng.integers(0, 4))})
+    with open(os.path.join(d, "val.jsonl"), "w") as f:
+        f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+    with open(os.path.join(d, "test.jsonl"), "w") as f:
+        for r in rows:
+            r = {k: v for k, v in r.items() if not k.endswith("_label")}
+            r["annot_id"] = r["annot_id"].replace("val", "test")
+            f.write(json.dumps(r) + "\n")
+    return d, rows
+
+
+def vcr_configs(root, data_dir, vocab_dir):
+    """The shipped base Q2A and QA2R configs on the synthetic split (the
+    only changes: its paths, the vocabulary and visual LN scales 1.0, as
+    phase 4), written as yamls. Returns {task: yaml path}."""
+    import yaml
+
+    paths = {}
+    for task, src in VCR_CFGS.items():
+        with open(src) as f:
+            raw = yaml.safe_load(f)
+        raw["DATASET"].update(DATASET_PATH=data_dir, ROOT_PATH=root,
+                              VAL_ANNOTATION_FILE="val.jsonl",
+                              TEST_ANNOTATION_FILE="test.jsonl")
+        raw["NETWORK"].update(BERT_MODEL_NAME=vocab_dir, PARTIAL_PRETRAIN="",
+                              IMAGE_PRETRAINED="")
+        raw["NETWORK"]["VLBERT"].update(visual_scale_text_init=1.0,
+                                        visual_scale_object_init=1.0)
+        paths[task] = os.path.join(root, f"vcr_{task.lower()}_smoke.yaml")
+        with open(paths[task], "w") as f:
+            yaml.safe_dump(raw, f)
+    return paths
+
+
+def _vcr_csv(path):
+    import numpy as np
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], [r[0] for r in rows[1:]], \
+        np.asarray([[float(x) for x in r[1:]] for r in rows[1:]])
+
+
+def vcr_phase(root, vocab_dir):
+    """Phase 12: VCR inference at full width from the shipped base configs
+    on a synthetic split: ``python -m vlbert_tpu_torch.engine.test --task
+    vcr`` (its ``main``) for Q2A val and test and the answer-conditioned
+    QA2R test, ``merge_vcr_results``, ``python -m
+    vlbert_tpu_torch.engine.vcr_val`` and the single-model Q2AR validation
+    through ``make_validation_fn``, each with its K1/K2 launches; the warm
+    inference loops' samples/s and device idle share; fp32 kernels vs
+    plain versions on one batch. Returns results."""
+    import numpy as np
+    import torch
+    from vlbert_tpu_torch.data.build import make_dataloader
+    from vlbert_tpu_torch.engine import test as t_test
+    from vlbert_tpu_torch.engine import vcr_val
+    from vlbert_tpu_torch.engine.val import make_validation_fn
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.training.loop import to_device
+    from vlbert_tpu_torch.utils.config import load_config
+
+    data_dir, rows = write_vcr_fixture(root)
+    yamls = vcr_configs(root, data_dir, vocab_dir)
+    cfg = load_config("vcr", yamls["Q2A"])
+    model = build_module(cfg, "vcr", dtype=torch.bfloat16, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    ckpt = os.path.join(root, "vl-bert_base_a_res101_ref.model")
+    torch.save({"state_dict": _reference_layout(model.state_dict())}, ckpt)
+    res = {"n_params": n_params, "ckpt_mb": os.path.getsize(ckpt) / 2 ** 20,
+           "loaded_all": len(t_test._load_params(model, ckpt))
+           == len(model.state_dict()),
+           "batch": cfg.TEST.BATCH_IMAGES, "slots": cfg.TPU.MAX_BOXES,
+           "L": cfg.TPU.MAX_TEXT_LEN + cfg.TPU.MAX_BOXES + 1,
+           "n": len(rows), "runs": {}}
+    del model
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(root, "results")
+
+    def run(name, fn):
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        res["runs"][name] = {"launches": _launch_counts(),
+                             "wall_s": time.perf_counter() - t0}
+        return out
+
+    files = {}
+    for task, split in (("Q2A", "val"), ("Q2A", "test"), ("QA2R", "test")):
+        rc = run(f"{task}_{split}", lambda: t_test.main([
+            "--task", "vcr", "--cfg", yamls[task], "--ckpt", ckpt,
+            "--split", split, "--result-path", out_dir,
+            "--result-name", "smoke"]))
+        files[task, split] = t_test.result_file(out_dir, "smoke", "vcr",
+                                                split, task)
+        head, ids, probs = _vcr_csv(files[task, split])
+        npy = np.load(os.path.splitext(files[task, split])[0] + ".npy")
+        blocks = probs.reshape(len(probs), -1, 4)
+        res["runs"][f"{task}_{split}"].update(
+            rc=rc, columns=len(head) - 1, rows=len(ids),
+            ids_ok=ids == [r["annot_id"].replace("val", split)
+                           for r in rows],
+            probs_ok=bool(np.isfinite(probs).all()
+                          and np.allclose(blocks.sum(-1), 1.0, atol=1e-5)
+                          and np.allclose(npy, probs, atol=1e-6)),
+            head_ok=head[0] == "annot_id" and head[1] == (
+                "answer_0" if task == "Q2A"
+                else "rationale_conditioned_on_a0_0"))
+    merged = os.path.join(out_dir, "smoke_test_merged.csv")
+    t_test.merge_vcr_results(files["Q2A", "test"], files["QA2R", "test"],
+                             merged)
+    head, ids, probs = _vcr_csv(merged)
+    res["merged"] = {"columns": len(head) - 1, "rows": len(ids),
+                     "ok": probs.shape == (len(rows), 20)
+                     and ids == [r["annot_id"].replace("val", "test")
+                                 for r in rows]}
+    res["vcr_val"] = run("vcr_val", lambda: vcr_val.main([
+        "--a-cfg", yamls["Q2A"], "--r-cfg", yamls["QA2R"], "--a-ckpt", ckpt,
+        "--r-ckpt", ckpt]))
+
+    # the single-model Q2AR: one visual pass, two text passes a batch
+    cfg_ar = load_config("vcr", yamls["Q2A"])
+    cfg_ar.DATASET.TASK = "Q2AR"
+    model = build_module(cfg_ar, "vcr", dtype=torch.bfloat16, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    t_test._load_params(model, ckpt)
+    loader = make_dataloader(cfg_ar, "vcr", "val")
+    try:
+        res["q2ar"] = run("Q2AR_val", lambda: make_validation_fn(
+            model, cfg_ar, "vcr", "cuda")(loader))
+    finally:
+        loader.shutdown()
+    del model
+    torch.cuda.empty_cache()
+
+    # warm inference loops: samples/s and the device's idle share
+    cfg_r = load_config("vcr", yamls["QA2R"])
+    for name, c, split in (("Q2A_val", cfg, "val"),
+                           ("QA2R_test", cfg_r, "test")):
+        n, loop_s, busy_s = _timed_loop(c, "vcr", ckpt, split, profile=True)
+        res["runs"][name].update(samples_per_s=n / loop_s, loop_s=loop_s,
+                                 busy_s=busy_s, idle=1 - busy_s / loop_s)
+
+    # fp32: kernels vs plain versions on one Q2A val batch
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    model, loader, n_label = t_test.setup_inference(cfg, "vcr", ckpt, "val",
+                                                    "cuda")
+    try:
+        batch = to_device(next(iter(loader))[:-n_label], "cuda")
+    finally:
+        loader.shutdown()
+    with torch.inference_mode():
+        a = model(*batch)["label_logits"]
+        with plain_versions():
+            b = model(*batch)["label_logits"]
+    top2 = torch.sort(b, dim=1).values[:, -2:]
+    res["fp32"] = {"err": _maxerr(a, b), "finite": bool(torch.isfinite(a)
+                                                        .all()),
+                   "argmax_equal": bool(torch.equal(a.argmax(1),
+                                                    b.argmax(1))),
+                   "min_margin": float((top2[:, 1] - top2[:, 0]).min()),
+                   "shape": tuple(a.shape)}
     return res
 
 
@@ -1670,9 +1979,10 @@ def main():
     print(f"[3 parity K2 attention] max abs err {k2_errs} (atol "
           f"{K2_ATOL}); bf16 on the tensor cores, H=12 D=64, device ms (call "
           f"ms): " +
-          ", ".join(f"B={16 if L == 128 else 1} L={L} kernel {a[0]:.4f} "
-                    f"({a[1]:.4f}), plain {b[0]:.4f} ({b[1]:.4f})"
-                    for L, (a, b) in k2_ms.items() if isinstance(L, int))
+          ", ".join(f"{key} kernel {a[0]:.4f} ({a[1]:.4f}), plain "
+                    f"{b[0]:.4f} ({b[1]:.4f})"
+                    for key, (a, b) in k2_ms.items()
+                    if not key.endswith("fp32"))
           + f" ({card})",
           flush=True)
 
@@ -1762,7 +2072,7 @@ def main():
           f"device ms (call ms): kernel {k5_ms[0][0]:.4f} "
           f"({k5_ms[0][1]:.4f}), plain {k5_ms[1][0]:.4f} ({k5_ms[1][1]:.4f}) "
           f"({card})", flush=True)
-    k34_errs, k3_mask, k3_ms, k4_ms, k4_split = k34_parity(dev)
+    k34_errs, k3_mask, k3_ms, k4_ms, k4_split, k34_f32 = k34_parity(dev)
     print(f"[6 parity K3/K4 attention dropout] H=12 D=64, q/k/v views of "
           f"one fused projection, 7 padded keys, one all-masked batch row, "
           f"B=16 L=128 and B=4 L=41, 173; fp32 on the CUDA cores, bf16 on "
@@ -1795,9 +2105,13 @@ def main():
           f"mask multiply left out) {k1_lib[0]:.4f} ms "
           f"({', '.join(n[:48] for n in k1_lib[1])}), fp32 max abs err "
           f"{k1_lib[3]:.2e} against the plain ROIAlign on the {k1_lib[4]} "
-          f"live boxes inside the map; fp32 K2 (attention.cu) B=16 L=128 "
-          f"{k2_ms['128_fp32'][0][0]:.4f} ms, plain "
-          f"{k2_ms['128_fp32'][1][0]:.4f} ({card})", flush=True)
+          f"live boxes inside the map; fp32 routes at B=16 L=128, kernel "
+          f"(plain) ms: K2 (attention.cu) "
+          f"{k2_ms['B16_L128_fp32'][0][0]:.4f} "
+          f"({k2_ms['B16_L128_fp32'][1][0]:.4f}), K3 (attention_dropout.cu) "
+          f"{k34_f32[0][0][0]:.4f} ({k34_f32[0][1][0]:.4f}), K4 "
+          f"{k34_f32[1][0][0]:.4f} ({k34_f32[1][1][0]:.4f}) ({card})",
+          flush=True)
 
     # --- 7: VQA fine-tuning at full width; 8: fp32 step agreement ---
     root = tempfile.mkdtemp(prefix="vqa_fixture_")
@@ -1957,6 +2271,71 @@ def main():
               f"abs logit err {r11r['fp32_logit_err']:.3e} (atol {E2E_ATOL}) "
               f"({card})",
               flush=True)
+
+        # --- 12: VCR inference at full width ---
+        r12 = vcr_phase(root, cfg9.NETWORK.BERT_MODEL_NAME)
+        none = dict.fromkeys(("K3", "K4", "K5_fwd", "K5_bwd"), 0)
+        n_b = r12["n"] // r12["batch"]
+        want12 = {"Q2A_val": dict(none, K1=n_b, K2=12 * n_b),
+                  "Q2A_test": dict(none, K1=n_b, K2=12 * n_b),
+                  "QA2R_test": dict(none, K1=4 * n_b, K2=48 * n_b),
+                  "vcr_val": dict(none, K1=2 * n_b, K2=24 * n_b),
+                  "Q2AR_val": dict(none, K1=n_b, K2=24 * n_b)}
+        runs12 = r12["runs"]
+        checks12 = {
+            "launches": {k: v["launches"] for k, v in runs12.items()}
+            == want12,
+            "loaded_all": r12["loaded_all"],
+            "csv": all(runs12[k]["rc"] == 0 and runs12[k]["rows"] == r12["n"]
+                       and runs12[k]["ids_ok"] and runs12[k]["probs_ok"]
+                       and runs12[k]["head_ok"]
+                       and runs12[k]["columns"] == (16 if k == "QA2R_test"
+                                                    else 4)
+                       for k in ("Q2A_val", "Q2A_test", "QA2R_test")),
+            "merged": r12["merged"]["ok"],
+            "vcr_val": all(0 <= x <= 1 for x in r12["vcr_val"])
+            and r12["vcr_val"][2] <= min(r12["vcr_val"][:2]),
+            "q2ar": set(r12["q2ar"]) >= {"Acc", "RationaleAcc", "JointAcc"}
+            and r12["q2ar"]["JointAcc"] <= min(r12["q2ar"]["Acc"],
+                                               r12["q2ar"]["RationaleAcc"]),
+            "fp32": r12["fp32"]["finite"] and r12["fp32"]["argmax_equal"]
+            and r12["fp32"]["err"] <= E2E_ATOL
+            and r12["fp32"]["shape"] == (r12["batch"], 4)}
+        if not all(checks12.values()):
+            raise AssertionError(f"VCR: {checks12}; {r12} (launches want "
+                                 f"{want12})")
+        loops12 = {k: runs12[k] for k in ("Q2A_val", "QA2R_test")}
+        print(f"[12 VCR] {VCR_CFGS['Q2A']} and its QA2R twin at full width "
+              f"(ResNet-101 C4, dilated conv5, 14x14 ROIAlign and instance "
+              f"masks, VL-BERT 768 x 12 x 12, {r12['n_params'] / 1e6:.1f}M "
+              f"params), bf16, on a synthetic split of {r12['n']} questions "
+              f"over 8 JPEGs (4 landscape, 4 portrait; 3-107 boxes and "
+              f"polygon segms each), 4 answers and 4 rationales a question, "
+              f"from a reference-layout .model of seed-0 weights "
+              f"({r12['ckpt_mb']:.1f} MiB, every tensor loaded); batch "
+              f"{r12['batch']} x 4 choices = 16 sequences, {r12['slots']} "
+              f"box slots, L = {r12['L']}; python -m vlbert_tpu_torch.engine."
+              f"test --task vcr: Q2A val and test {runs12['Q2A_val']['rows']} "
+              f"rows x {runs12['Q2A_val']['columns']} answer_k columns, QA2R "
+              f"test answer-conditioned {runs12['QA2R_test']['columns']} "
+              f"columns, merge_vcr_results {r12['merged']['rows']} rows x "
+              f"{r12['merged']['columns']}; vcr_val Q->A / QA->R / Q->AR "
+              f"{[round(x, 4) for x in r12['vcr_val']]}; Q2AR "
+              f"make_validation_fn "
+              f"{ {k: round(v, 4) for k, v in r12['q2ar'].items()} } "
+              f"(random weights); launches "
+              f"{ {k: (v['launches']['K1'], v['launches']['K2']) for k, v in runs12.items()} } "
+              f"(K1, K2; no K3-K5), wall s "
+              f"{ {k: round(v['wall_s'], 2) for k, v in runs12.items()} }; "
+              f"warm inference loop "
+              + "; ".join(f"{k} {v['samples_per_s']:.1f} samples/s ({r12['n']}"
+                          f" in {v['loop_s']:.3f} s, device busy "
+                          f"{v['busy_s']:.3f} s, idle share {v['idle']:.3f})"
+                          for k, v in loops12.items())
+              + f"; fp32 kernels vs plain versions on one Q2A batch: max abs "
+              f"logit err {r12['fp32']['err']:.3e} (atol {E2E_ATOL}), the same "
+              f"argmax for each question (smallest top-2 margin "
+              f"{r12['fp32']['min_margin']:.3e}) ({card})", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1995,38 +2374,53 @@ def main():
              "by_kernel": k1_old["by_kernel"],
              "note": "the three ops the main path ran before this K1 "
                      "stored the compute dtype (bool mask to uint8, fp32-out "
-                     "K1, cast to bf16), timed in this run with this K1"}},
+                     "K1, cast to bf16), timed in this run with this K1"},
+         "launches_vcr": {k: v["launches"]["K1"]
+                          for k, v in r12["runs"].items()}},
         {"name": "attention_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
          "fp32_source": "vlbert_tpu_torch/csrc/attention.cu",
          "replaces": "vlbert_tpu/ops/attention.py:127",
          "launches": launches["fused_attention"],
-         "max_abs_err": max(k2_errs.values()), "ms": k2_ms[41][0][0],
-         "plain_ms": k2_ms[41][1][0],
+         "max_abs_err": max(k2_errs.values()), "ms": k2_ms["B1_L41"][0][0],
+         "plain_ms": k2_ms["B1_L41"][1][0],
          **dict(zip(("bound_ms", "bound_by"),
                     attention_bound(1, 41, H, D, "bfloat16"))),
          "library_ms": lib["K2_L41"][0], "library_kernels": lib["K2_L41"][1],
-         "call_ms": k2_ms[41][0][1], "plain_call_ms": k2_ms[41][1][1],
+         "call_ms": k2_ms["B1_L41"][0][1],
+         "plain_call_ms": k2_ms["B1_L41"][1][1],
          "at_B16_L128": {
-             "ms": k2_ms[128][0][0], "plain_ms": k2_ms[128][1][0],
+             "ms": k2_ms["B16_L128"][0][0],
+             "plain_ms": k2_ms["B16_L128"][1][0],
              **dict(zip(("bound_ms", "bound_by"),
                         attention_bound(B, L, H, D, "bfloat16"))),
              "library_ms": lib["K2_L128"][0],
              "library_kernels": lib["K2_L128"][1],
-             "call_ms": k2_ms[128][0][1],
-             "plain_call_ms": k2_ms[128][1][1]},
+             "call_ms": k2_ms["B16_L128"][0][1],
+             "plain_call_ms": k2_ms["B16_L128"][1][1]},
          "at_B1_L173": {
-             "ms": k2_ms[173][0][0], "plain_ms": k2_ms[173][1][0],
+             "ms": k2_ms["B1_L173"][0][0],
+             "plain_ms": k2_ms["B1_L173"][1][0],
              **dict(zip(("bound_ms", "bound_by"),
                         attention_bound(1, 173, H, D, "bfloat16"))),
              "library_ms": lib["K2_L173"][0],
              "library_kernels": lib["K2_L173"][1],
              "launches_per_vqa_query": [c["K2"]
                                         for c in r10["per_query"]]},
+         "at_B16_L173": {
+             "ms": k2_ms["B16_L173"][0][0],
+             "plain_ms": k2_ms["B16_L173"][1][0],
+             **dict(zip(("bound_ms", "bound_by"),
+                        attention_bound(16, 173, H, D, "bfloat16"))),
+             "library_ms": lib["K2_B16_L173"][0],
+             "library_kernels": lib["K2_B16_L173"][1],
+             "call_ms": k2_ms["B16_L173"][0][1],
+             "launches_vcr": {k: v["launches"]["K2"]
+                              for k, v in r12["runs"].items()}},
          "fp32_at_B16_L128": {
              "source": "vlbert_tpu_torch/csrc/attention.cu",
-             "ms": k2_ms["128_fp32"][0][0],
-             "plain_ms": k2_ms["128_fp32"][1][0],
+             "ms": k2_ms["B16_L128_fp32"][0][0],
+             "plain_ms": k2_ms["B16_L128_fp32"][1][0],
              **dict(zip(("bound_ms", "bound_by"),
                         attention_bound(B, L, H, D, "float32"))),
              "library_ms": lib["K2_L128_fp32"][0],
@@ -2056,7 +2450,14 @@ def main():
          "philox_floor_ms": philox_floor_ms(
              PHILOX_PER_CALL["K3"](B, H, L), philox4_instr),
          "library_ms": lib["K3"][0], "library_kernels": lib["K3"][1],
-         "call_ms": k3_ms[0][1], "plain_call_ms": k3_ms[1][1]},
+         "call_ms": k3_ms[0][1], "plain_call_ms": k3_ms[1][1],
+         "fp32_at_B16_L128": {
+             "source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
+             "ms": k34_f32[0][0][0], "plain_ms": k34_f32[0][1][0],
+             **dict(zip(("bound_ms", "bound_by"),
+                        attention_bound(B, L, H, D, "float32"))),
+             "library_ms": lib["K3_fp32"][0],
+             "library_kernels": lib["K3_fp32"][1]}},
         {"name": "attention_dropout_bwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
          "fp32_source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
@@ -2071,7 +2472,15 @@ def main():
              PHILOX_PER_CALL["K4"](B, H, L), philox4_instr),
          "library_ms": lib["K4"][0], "library_kernels": lib["K4"][1],
          "per_kernel_ms": k4_split, "call_ms": k4_ms[0][1],
-         "plain_call_ms": k4_ms[1][1]},
+         "plain_call_ms": k4_ms[1][1],
+         "fp32_at_B16_L128": {
+             "source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
+             "ms": k34_f32[1][0][0], "plain_ms": k34_f32[1][1][0],
+             **dict(zip(("bound_ms", "bound_by"),
+                        attention_bound(B, L, H, D, "float32",
+                                        backward=True))),
+             "library_ms": lib["K4_fp32"][0],
+             "library_kernels": lib["K4_fp32"][1]}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,21 +16,25 @@ import torch
 
 import vlbert_tpu.data.collate as j_collate
 import vlbert_tpu.data.datasets.refcoco as j_refcoco
+import vlbert_tpu.data.datasets.vcr as j_vcr
 import vlbert_tpu.data.datasets.vqa as j_vqa
 import vlbert_tpu.data.loader as j_loader
 import vlbert_tpu.data.tokenization as j_tok
 import vlbert_tpu.data.transforms as j_transforms
 import vlbert_tpu.training.convert as j_convert
 import vlbert_tpu.utils.config as j_config
+import vlbert_tpu.utils.mask as j_mask
 import vlbert_tpu_torch.data.collate as t_collate
 import vlbert_tpu_torch.data.datasets.refcoco as t_refcoco
+import vlbert_tpu_torch.data.datasets.vcr as t_vcr
 import vlbert_tpu_torch.data.datasets.vqa as t_vqa
 import vlbert_tpu_torch.data.loader as t_loader
 import vlbert_tpu_torch.data.tokenization as t_tok
 import vlbert_tpu_torch.data.transforms as t_transforms
 import vlbert_tpu_torch.training.convert as t_convert
 import vlbert_tpu_torch.utils.config as t_config
-from tests.test_data_pipeline import _write_refcoco_fixture
+import vlbert_tpu_torch.utils.mask as t_mask
+from tests.test_data_pipeline import _write_refcoco_fixture, _write_vcr_fixture
 from tests.test_entrypoints import VOCAB, _write_vqa_fixture
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -201,6 +205,8 @@ def _tiny_port_module(task):
     v.max_position_embeddings = 64; v.visual_ln = True
     cfg.NETWORK.IMAGE_FINAL_DIM = 32
     cfg.NETWORK.IMAGE_NUM_LAYERS = 50
+    if task == "vcr":        # the default: modes 1, the class embedding
+        cfg.NETWORK.CNN_LOSS_TOP = True    # and the reg head on top
     if task == "vqa":
         cfg.NETWORK.IMAGE_FEAT_PRECOMPUTED = True
         cfg.NETWORK.CLASSIFIER_TYPE = "mlm"
@@ -226,10 +232,13 @@ REFERENCE_NAMES = [
     "cnn_loss_reg.2.weight", "mvrc_head.region_cls_pred.bias",
     "mlm_head.predictions.transform.LayerNorm.gamma",
     "vlbert.object_mask_word_embedding.weight", "no.such.parameter",
+    "module.image_feature_extractor.object_embed.weight",
+    "image_feature_extractor.regularizing_predictor.bias",
+    "final_mlp_rationale.1.weight", "module.cnn_loss_reg.0.dense.bias",
 ]
 
 
-@pytest.mark.parametrize("task", ["refcoco", "vqa"])
+@pytest.mark.parametrize("task", ["refcoco", "vqa", "vcr"])
 def test_converter_name_rules_match(task):
     names = list(_tiny_port_module(task).state_dict()) + REFERENCE_NAMES
     assert len(names) > 60
@@ -239,6 +248,97 @@ def test_converter_name_rules_match(task):
         assert tn == jn, n
         assert t_convert.map_reference_name(tn) \
             == j_convert.map_reference_name(jn), n
+
+
+# (rows, columns) of the instance-mask grids: VCR's MASK_SIZE 14, the
+# fixture tests' 7, non-square ones (where the two axes' scales differ)
+# and an image-sized one
+MASK_SIZES = [(14, 14), (7, 7), (14, 9), (5, 12), (64, 48)]
+
+
+def _polygons(rng, n):
+    """n polygons of 3-9 vertices around a box, some past its edges."""
+    box = np.asarray([10.0, 20.0, 70.0, 65.0])
+    polys = []
+    for _ in range(n):
+        k = int(rng.integers(3, 10))
+        xy = rng.uniform([box[0] - 8, box[1] - 8], [box[2] + 8, box[3] + 8],
+                         (k, 2))
+        polys.append(xy.astype(np.float32))
+    return box, polys
+
+
+@pytest.mark.parametrize("mask_size", MASK_SIZES)
+def test_instance_masks_are_the_same(mask_size):
+    rng = np.random.default_rng(sum(mask_size))
+    box, polys = _polygons(rng, 12)
+    for i in range(len(polys)):
+        seg = polys[i:i + 1 + i % 3]
+        _assert_same(t_mask.generate_instance_mask(seg, box, mask_size),
+                     j_mask.generate_instance_mask(seg, box, mask_size))
+    r, c = polys[0][:, 1], polys[0][:, 0]
+    _assert_same(t_mask.polygon_fill(r, c, mask_size),
+                 j_mask.polygon_fill(r, c, mask_size))
+
+
+def test_the_grid_cache_is_bounded_and_leaves_the_masks_unchanged():
+    """The copy keeps GRID_CACHE_SIZE grids however many shapes it sees
+    (the original's dict grows with each); a shape evicted and asked for
+    again gives the same mask."""
+    box, polys = _polygons(np.random.default_rng(1), 1)
+    shapes = [(4 + i, 6 + i) for i in range(3 * t_mask.GRID_CACHE_SIZE)]
+    for shape in shapes + shapes[:2]:
+        _assert_same(t_mask.generate_instance_mask(polys, box, shape),
+                     j_mask.generate_instance_mask(polys, box, shape))
+    assert t_mask._grid.cache_info().currsize <= t_mask.GRID_CACHE_SIZE
+
+
+def _vcr_batches(mods, data_dir, root, vocab_dir, task, test_mode,
+                 relevant):
+    vcr, tok, tf, loader = mods
+    cfg = j_config.default_config("vcr")
+    cfg.SCALES = (48, 64)
+    tokenizer = tok.BertTokenizer.from_pretrained(vocab_dir)
+    ds = vcr.VCRDataset(
+        "ann.jsonl", "val", root, data_path=data_dir, tokenizer=tokenizer,
+        transform=tf.build_transforms(cfg, "test" if test_mode else "train",
+                                      rng=np.random.default_rng(3)),
+        task=task, test_mode=test_mode, only_use_relevant_dets=relevant,
+        mask_size=(14, 14), seq_len=12)
+    ds.epoch = 2
+    items = [ds[i] for i in range(len(ds))]
+    collate = vcr.make_vcr_collate(tokenizer, 16, 6, mask_size=(14, 14),
+                                   answer_first=task == "Q2A",
+                                   test_mode=test_mode, task=task)
+    dl = loader.DataLoader(ds, 2, collate, shuffle=False, seed=4,
+                           num_threads=1, num_workers=0)
+    try:
+        batch = next(iter(dl))
+    finally:
+        dl.shutdown()
+    return ds.database, items, collate(items), batch
+
+
+@pytest.mark.parametrize("task,test_mode,relevant", [
+    ("Q2A", False, True), ("QA2R", False, False), ("Q2AR", False, True),
+    ("QA2R", True, True), ("Q2A", True, False)])
+def test_vcr_dataset_and_collate_give_the_same_batches(tmp_path, task,
+                                                       test_mode, relevant):
+    """Every layout of the collate: text [B, C, T] for Q2A and QA2R val,
+    [B, A, C, T] for QA2R test (answer-conditioned), answer and rationale
+    text for Q2AR; the retokenized tags, truncation, instance masks,
+    relevant-detection remap and name rotation on the way."""
+    d = _write_vcr_fixture(tmp_path, test_mode=test_mode)
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(WORDPIECE_VOCAB + [
+        "doing", "wearing", "hat", "ran", "left", "because", "it", "cold",
+        "why", "and", "casey", "riley", "jessie"]) + "\n")
+    args = (str(d), str(tmp_path), str(tmp_path), task, test_mode, relevant)
+    want = _vcr_batches((j_vcr, j_tok, j_transforms, j_loader), *args)
+    got = _vcr_batches((t_vcr, t_tok, t_transforms, t_loader), *args)
+    _assert_same(got, want)
+    if task == "QA2R" and test_mode:
+        assert got[3][5].shape == (2, 4, 4, 16)
 
 
 def _refcoco_batches(mods, data_dir, root, vocab_dir, boxes, test_mode):

@@ -50,7 +50,7 @@ def test_resnet50_backbone_and_roi_head(rng):
         vh = jh.init(jax.random.PRNGKey(1), jnp.asarray(rois))
         want_head = np.asarray(jh.apply(vh, jnp.asarray(rois)))
         holder.roi_head_feature_extractor = ResNetRoIHead(
-            50, c5_dilated=dilated, stride_in_1x1=True, average_pool=False)
+            50, c5_dilated=dilated, stride_in_1x1=True)
         _load(holder, {**_flat(vb, "backbone."), **_flat(vh, "roi_head.")})
         with torch.no_grad():
             body4 = holder.backbone(torch.from_numpy(images))

@@ -45,8 +45,11 @@ def test_port_imports_no_jax():
     assert {"vlbert_tpu_torch.ops.roi_align",
             "vlbert_tpu_torch.training.checkpoint",
             "vlbert_tpu_torch.engine.test",
-            "vlbert_tpu_torch.data.datasets.refcoco"} <= set(mods)
-    assert len(mods) >= 18
+            "vlbert_tpu_torch.data.datasets.refcoco",
+            "vlbert_tpu_torch.data.datasets.vcr",
+            "vlbert_tpu_torch.utils.mask",
+            "vlbert_tpu_torch.engine.vcr_val"} <= set(mods)
+    assert len(mods) >= 21
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -346,9 +346,16 @@ def test_train_net_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="'native'"):
         train_net(args, cfg, "vqa")
     cfg.NETWORK.PARTIAL_PRETRAIN = ""
-    cfg.DATASET.DATASET = "vcr"
-    with pytest.raises(NotImplementedError, match="queue 1 #4"):
+    cfg.DATASET.DATASET = "conceptual_captions"
+    with pytest.raises(NotImplementedError, match="queue 1 #8"):
         train_net(args, cfg, "vqa")
+    # VCR's end-to-end training on the card waits for K1b: refused before
+    # anything is built or loaded
+    cfg.DATASET.DATASET = "vcr"
+    cfg.NETWORK.IMAGE_FEAT_PRECOMPUTED = False
+    args.device = "cuda"
+    with pytest.raises(NotImplementedError, match="K1b.*queue 1 #5"):
+        train_net(args, cfg, "vcr")
 
 
 def test_fp16_parity_mode_is_refused(tmp_path):

@@ -4,8 +4,8 @@ jax): cfg -> (transform, dataset, collate, loader).
 The dataset, collate, loader, tokenizer and transforms are the port's
 copies of the JAX package's host code (numpy, no jax). Rank and world size
 come from ``torch.distributed`` when it is initialised, else 0 and 1; each
-process loads its own shard. Ported so far: VQA and RefCOCO / RefCOCO+;
-VCR and the pretraining datasets are ROADMAP.md queue 1.
+process loads its own shard. Ported so far: VQA, RefCOCO / RefCOCO+ and
+VCR; the pretraining datasets are ROADMAP.md queue 1 #8.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import os
 
 from vlbert_tpu_torch.data.datasets.refcoco import (RefCOCODataset,
                                                     make_refcoco_collate)
+from vlbert_tpu_torch.data.datasets.vcr import VCRDataset, make_vcr_collate
 from vlbert_tpu_torch.data.datasets.vqa import VQADataset, make_vqa_collate
 from vlbert_tpu_torch.data.loader import DataLoader
 from vlbert_tpu_torch.data.tokenization import BertTokenizer
@@ -45,14 +46,17 @@ def make_dataloader(cfg, task, mode="train", tokenizer=None, num_replicas=None,
     """One loader of per-process batches: BATCH_IMAGES (one card per
     process) times GRAD_ACCUMULATE_STEPS for training, flat."""
     d = cfg.DATASET
-    if d.DATASET not in ("vqa", "refcoco", "refcoco+"):
-        where = "#4 (VCR)" if d.DATASET == "vcr" else "#8 (other tasks)"
+    if d.DATASET not in ("vqa", "refcoco", "refcoco+", "vcr"):
         raise NotImplementedError(f"dataset {d.DATASET!r} is not ported yet; "
-                                  f"see ROADMAP.md queue 1 {where}")
+                                  f"see ROADMAP.md queue 1 #8 (other tasks)")
     if d.get("CACHE_MODE", False):
         raise NotImplementedError(
             "DATASET.CACHE_MODE (whole-dataset RAM cache) is not supported, "
             "matching the reference's own assert")
+    if d.get("QA2R_AUG", False):
+        # reference: `assert not qa2r_aug, "Not implemented!"` (vcr.py:62)
+        raise NotImplementedError("DATASET.QA2R_AUG is not implemented, "
+                                  "matching the reference's own assert")
     ann_file, image_set, batch_images, shuffle = _mode_fields(cfg, mode)
     if mode == "train":
         batch_images *= max(int(cfg.TRAIN.GRAD_ACCUMULATE_STEPS), 1)
@@ -72,7 +76,21 @@ def make_dataloader(cfg, task, mode="train", tokenizer=None, num_replicas=None,
         test_mode=test_mode, zip_mode=d.ZIP_MODE,
         add_image_as_a_box=d.ADD_IMAGE_AS_A_BOX)
     max_text, max_boxes = cfg.TPU.MAX_TEXT_LEN, cfg.TPU.MAX_BOXES
-    if d.DATASET == "vqa":
+    if d.DATASET == "vcr":
+        mask_size = (d.MASK_SIZE, d.MASK_SIZE)
+        ds = VCRDataset(task=d.TASK,
+                        only_use_relevant_dets=d.ONLY_USE_RELEVANT_DETS,
+                        mask_size=mask_size, basic_align=d.BASIC_ALIGN,
+                        qa2r_noq=d.QA2R_NOQ, seq_len=d.get("SEQ_LEN", 64),
+                        cache_db=(rank == 0),  # only rank 0 writes the cache
+                        ignore_db_cache=d.get("IGNORE_DB_CACHE", True),
+                        **common)
+        collate = make_vcr_collate(
+            tokenizer, max_text, max_boxes, mask_size=mask_size,
+            answer_first=cfg.NETWORK.get("ANSWER_FIRST", False),
+            one_sent=cfg.NETWORK.get("QA_ONE_SENT", False),
+            test_mode=test_mode, task=d.TASK)
+    elif d.DATASET == "vqa":
         ds = VQADataset(
             answer_vocab_file=d.ANSWER_VOCAB_FILE,
             with_precomputed_visual_feat=precomputed,

@@ -45,7 +45,7 @@ def parse_test_args(argv=None):
     parser = argparse.ArgumentParser(
         description="VL-BERT test driver (PyTorch + CUDA)")
     parser.add_argument("--task", type=str, required=True,
-                        choices=("vqa", "refcoco"))
+                        choices=("vqa", "refcoco", "vcr"))
     parser.add_argument("--cfg", type=str, required=True,
                         help="path to experiment yaml")
     _add_test_args(parser)

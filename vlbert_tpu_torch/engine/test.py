@@ -1,22 +1,25 @@
 """test_net, the inference drivers that write result files (port of
 vlbert_tpu/engine/test.py).
 
-    python -m vlbert_tpu_torch.engine.test --task vqa|refcoco \\
+    python -m vlbert_tpu_torch.engine.test --task vqa|refcoco|vcr \\
         --cfg <yaml> --ckpt <path> [--split val|test] [--result-path D] \\
         [--result-name N] [--device cpu]
 
 ref: vqa/function/test.py (answers json :74-81), refcoco/function/test.py
-(pred-box json + local IoU@0.5 accuracy :20-97). One process on one card
-(``--device cuda`` unless asked for the CPU; no fallback), as the
-reference runs its rank-0 test. The checkpoint may be a reference
-``.model``, a raw torch state dict, an ``.npz`` of
+(pred-box json + local IoU@0.5 accuracy :20-97), vcr/function/test.py
+(csv of per-choice probabilities :90-135, the Q2A + QA2R merge :138-147).
+VCR's QA2R test split is answer-conditioned: its text tensors are
+[B, A, C, T] and each batch runs the model once per candidate answer. One
+process on one card (``--device cuda`` unless asked for the CPU; no
+fallback), as the reference runs its rank-0 test. The checkpoint may be a
+reference ``.model``, a raw torch state dict, an ``.npz`` of
 ``tools/convert_checkpoint.py`` or a checkpoint the port wrote; it is
-loaded on reference names (``training/convert.py``). VCR's csv driver and
-``merge_vcr_results`` wait for the VCR module (ROADMAP.md queue 1 #4).
+loaded on reference names (``training/convert.py``).
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import logging
 import os
@@ -35,7 +38,8 @@ from vlbert_tpu_torch.training.loop import to_device
 
 logger = logging.getLogger(__name__)
 
-_VCR = "VCR is not ported yet; see ROADMAP.md queue 1 #4 (VCR forward)"
+# the text slots of a VCR batch (input ids, token types, tags, mask)
+VCR_TEXT_SLOTS = (5, 6, 7, 8)
 
 
 def _load_params(model, ckpt_path):
@@ -55,9 +59,22 @@ def _load_params(model, ckpt_path):
 def _n_labels(config, task, mode):
     if mode == "test":
         return 0
-    if task == "vcr":
-        raise NotImplementedError(_VCR)
+    if task == "vcr" and config.DATASET.get("TASK") == "Q2AR":
+        return 2      # answer_label + rationale_label
     return 1
+
+
+def is_conditioned(config, task, mode):
+    """VCR QA2R on the test split: one query per candidate answer."""
+    return task == "vcr" and config.DATASET.TASK == "QA2R" and mode == "test"
+
+
+def _slice_conditioned(batch, a_id):
+    """Conditioning answer ``a_id`` of the [B, A, C, T] text tensors."""
+    out = list(batch)
+    for k in VCR_TEXT_SLOTS:
+        out[k] = batch[k][:, a_id]
+    return tuple(out)
 
 
 def setup_inference(config, task, ckpt_path, mode="test", device="cuda"):
@@ -78,15 +95,26 @@ def setup_inference(config, task, ckpt_path, mode="test", device="cuda"):
     return model.eval(), loader, _n_labels(config, task, mode)
 
 
-def infer_loader(model, loader, n_label, device):
+def _host(out):
+    return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+
+def infer_loader(model, loader, n_label, device, conditioned=False):
     """Inference over every batch of ``loader``; returns the per-batch host
-    numpy output dicts (fp32)."""
+    numpy output dicts (fp32). ``conditioned``: the batches hold [B, A, C,
+    T] text; the model runs once per conditioning answer and each output
+    is stacked on a new axis 1, [B, A, ...]."""
     results = []
     with torch.inference_mode():
         for batch in loader:
             b = to_device(batch if n_label == 0 else batch[:-n_label], device)
-            results.append({k: v.float().cpu().numpy()
-                            for k, v in model(*b).items()})
+            if not conditioned:
+                results.append(_host(model(*b)))
+                continue
+            per_a = [_host(model(*_slice_conditioned(b, a)))
+                     for a in range(b[VCR_TEXT_SLOTS[0]].shape[1])]
+            results.append({k: np.stack([o[k] for o in per_a], 1)
+                            for k in per_a[0]})
     return results
 
 
@@ -96,7 +124,8 @@ def run_inference(config, task, ckpt_path, mode="test", device="cuda"):
     model, loader, n_label = setup_inference(config, task, ckpt_path, mode,
                                              device)
     try:
-        return infer_loader(model, loader, n_label, device), loader
+        return infer_loader(model, loader, n_label, device,
+                            is_conditioned(config, task, mode)), loader
     finally:
         loader.shutdown()
 
@@ -153,16 +182,78 @@ def test_net_refcoco(config, ckpt_path, output_path, mode="val",
     return preds, acc
 
 
+def _softmax_np(logits):
+    logits = np.asarray(logits, np.float32)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    return p / p.sum(-1, keepdims=True)
+
+
 def test_net_vcr(config, ckpt_path, output_path, mode="test",
                  device="cuda"):
-    raise NotImplementedError(_VCR)
+    """VCR leaderboard csv (ref vcr/function/test.py:90-135): the softmax
+    over the choices of each question (per-choice sigmoid logits too).
+
+    Q2A: columns ``answer_{k}``. QA2R on the test split: 4 conditioned
+    passes, one per candidate answer, and 16 columns
+    ``rationale_conditioned_on_a{i}_{j}``. The probability matrix is also
+    saved as .npy beside the csv. Returns the csv rows."""
+    task = config.DATASET.TASK
+    if task not in ("Q2A", "QA2R"):
+        raise ValueError(f"the leaderboard test takes Q2A or QA2R, got "
+                         f"{task!r} (ref test.py:116)")
+    conditioned = is_conditioned(config, "vcr", mode)
+    results, loader = run_inference(config, "vcr", ckpt_path, mode, device)
+    db = loader.dataset.database
+    probs = np.concatenate([_softmax_np(o["label_logits"]) for o in results])
+    # [N, A, C] -> blocks of C rationale probabilities per answer
+    probs = probs.reshape(len(probs), -1)[: len(db)]
+
+    np.save(os.path.splitext(output_path)[0] + ".npy", probs)
+    if conditioned:
+        columns = [f"rationale_conditioned_on_a{i}_{j}"
+                   for i in range(4) for j in range(4)]
+    else:
+        columns = [f"answer_{k}" for k in range(probs.shape[1])]
+    rows = [[db[i].get("annot_id", i)] + probs[i].tolist()
+            for i in range(len(probs))]
+    with open(output_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["annot_id"] + columns)
+        w.writerows(rows)
+    logger.info("wrote %d rows to %s", len(rows), output_path)
+    return rows
 
 
 def merge_vcr_results(q2a_csv, qa2r_csv, output_path):
-    raise NotImplementedError(_VCR)
+    """Join the Q2A and QA2R csvs on annot_id into the leaderboard
+    submission (ref vcr/function/test.py:138-147): an inner join in the
+    Q2A file's row order, the Q2A columns first, fields copied as they
+    are (the JAX package's pandas merge, without pandas)."""
+    def read(path):
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f))
+        return rows[0], rows[1:]
+
+    a_head, a_rows = read(q2a_csv)
+    r_head, r_rows = read(qa2r_csv)
+    ka, kr = a_head.index("annot_id"), r_head.index("annot_id")
+    by_id = {}
+    for r in r_rows:
+        by_id.setdefault(r[kr], []).append(r[:kr] + r[kr + 1:])
+    os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+    with open(output_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(a_head + r_head[:kr] + r_head[kr + 1:])
+        for a in a_rows:
+            w.writerows(a + r for r in by_id.get(a[ka], ()))
+    logger.info("merged result csv saved to %s", output_path)
+    return output_path
 
 
-def result_file(result_path, name, task, split):
+def result_file(result_path, name, task, split, vcr_task=None):
+    """The result file test_net writes: ``vcr_task`` is DATASET.TASK."""
+    if task == "vcr":
+        return os.path.join(result_path, f"{name}_{split}_{vcr_task}.csv")
     return os.path.join(result_path, f"{name}_vqa2_{split}.json"
                         if task == "vqa" else f"{name}_refcoco_{split}.json")
 
@@ -170,9 +261,10 @@ def result_file(result_path, name, task, split):
 def test_net(config, task, ckpt, result_path, name="result", split="test",
              device="cuda"):
     """Score ``ckpt`` on ``split`` into ``result_path``: the VQA answers
-    json, or the RefCOCO+ pred-box json and its accuracy."""
+    json, the RefCOCO+ pred-box json and its accuracy, or the VCR csv."""
     os.makedirs(result_path, exist_ok=True)
-    out = result_file(result_path, name, task, split)
+    out = result_file(result_path, name, task, split,
+                      config.DATASET.get("TASK"))
     if task == "vqa":
         with open(config.DATASET.ANSWER_VOCAB_FILE) as f:
             vocab = [line.strip() for line in f if line.strip()]
@@ -181,7 +273,7 @@ def test_net(config, task, ckpt, result_path, name="result", split="test",
     if task == "refcoco":
         return test_net_refcoco(config, ckpt, out, mode=split, device=device)
     if task == "vcr":
-        raise NotImplementedError(_VCR)
+        return test_net_vcr(config, ckpt, out, mode=split, device=device)
     raise ValueError(f"test unsupported for task {task!r}")
 
 

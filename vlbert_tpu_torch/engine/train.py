@@ -52,8 +52,17 @@ def setup_logger(output_path, rank=0):
         force=True)
 
 
-def check_unported(config):
-    """Raise on what the config asks for that the port does not do."""
+def check_unported(config, task=None, device=None):
+    """Raise on what the config asks for that the port does not do, before
+    anything is built. ``device``: where the run trains."""
+    if task == "vcr" and not config.NETWORK.IMAGE_FEAT_PRECOMPUTED \
+            and torch.device(device or "cpu").type == "cuda":
+        raise NotImplementedError(
+            "VCR training on the end-to-end visual path needs the ROIAlign "
+            "backward (K1b, the dF of vlbert_tpu/ops/roi_align.py::_sep_bwd) "
+            "and the ResNet backward on CUDA, which are not ported yet; see "
+            "ROADMAP.md queue 1 #5. VCR inference runs: python -m "
+            "vlbert_tpu_torch.engine.test --task vcr")
     if config.TRAIN.FP16 and config.TPU.get("FP16_PARITY_MODE", False):
         raise NotImplementedError(
             "TRAIN.FP16 with TPU.FP16_PARITY_MODE asks for float16 compute "
@@ -192,8 +201,8 @@ def train_net(args, config, task):
     setup_logger(output_path, rank)
     logger.info("config: %s", dict(config))
     model_prefix = model_prefix_of(config, output_path)
-    check_unported(config)
     device = torch.device(getattr(args, "device", "cuda"))
+    check_unported(config, task, device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but torch.cuda is not "
                            "available")

@@ -10,11 +10,19 @@ from vlbert_tpu_torch.training import metrics as metrics_lib
 from vlbert_tpu_torch.training.loop import make_eval_step, to_device
 
 # which trailing batch entries are labels, and the output key each feeds
-TASK_LABELS = {"vqa": {"label": -1}}
+TASK_LABELS = {"vcr": {"label": -1}, "vqa": {"label": -1}}
+
+
+def label_map_of(config, task):
+    """TASK_LABELS, and for VCR Q2AR both labels: the answer's and the
+    rationale's, last."""
+    if task == "vcr" and config.DATASET.get("TASK") == "Q2AR":
+        return {"label": -2, "rationale_label": -1}
+    return TASK_LABELS[task]
 
 
 def make_validation_fn(model, config, task, device):
-    label_map = TASK_LABELS[task]
+    label_map = label_map_of(config, task)
     n_labels = len(label_map)
     eval_step = make_eval_step(model, task, config)
 

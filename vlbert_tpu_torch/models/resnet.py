@@ -144,20 +144,18 @@ class ResNetC4Backbone(nn.Module):
 class ResNetRoIHead(ResNetStage):
     """conv5 stage applied to RoI features: 3 bottleneck blocks for every
     depth, as the reference builds it. ``c5_dilated`` gives stride 1 and
-    dilation 2. [N, 14, 14, 1024] NHWC -> [N, 2048] fp32 (average_pool) or
-    [N, h, w, 2048] NHWC."""
+    dilation 2. [N, 14, 14, 1024] NHWC -> the unpooled map [N, h, w, 2048]
+    NHWC in the compute dtype (h = w = 14 dilated, 7 otherwise); FastRCNN
+    applies the instance masks and pools, as the JAX package's
+    ``average_pool=False`` head leaves it to."""
 
     def __init__(self, num_layers=101, c5_dilated=False, stride_in_1x1=False,
-                 average_pool=True, *, dtype=torch.float32, device=None):
+                 *, dtype=torch.float32, device=None):
         _bottleneck_layers(num_layers)
         stride, dilation = (1, 2) if c5_dilated else (2, 1)
         super().__init__(1024, 512, 3, stride, dilation, stride_in_1x1,
                          dtype=dtype, device=device)
-        self.average_pool = average_pool
         self.to(memory_format=torch.channels_last)
 
     def forward(self, x):
-        x = super().forward(_to_nchw(x))
-        if self.average_pool:
-            return x.to(torch.float32).mean(dim=(2, 3))
-        return x.permute(0, 2, 3, 1)
+        return super().forward(_to_nchw(x)).permute(0, 2, 3, 1)

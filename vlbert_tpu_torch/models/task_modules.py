@@ -1,13 +1,16 @@
 """Task modules (port of vlbert_tpu/models/task_modules.py).
 
 Ported so far: the RefCOCO+ grounding model, eval branch
-(``ResNetVLBERTForRefCOCO``), and the VQA model, train and eval
-(``ResNetVLBERTForVQA`` with its ``1fc`` / ``2fc`` / ``mlm`` classifiers).
-Text arrives pre-assembled by the host; boxes stay in the static [B, O]
-layout with a mask. A module in training mode returns (outputs, loss) and
-in eval mode its outputs. ``build_module`` raises NotImplementedError,
-naming the ROADMAP.md queue, for every other task module of the JAX
-package.
+(``ResNetVLBERTForRefCOCO``); the VQA model, train and eval
+(``ResNetVLBERTForVQA`` with its ``1fc`` / ``2fc`` / ``mlm`` classifiers);
+the VCR models, train and eval (``ResNetVLBERTForVCR`` for Q2A and QA2R,
+``ResNetVLBERTForVCRQ2AR`` for the single-model Q2AR with its second head;
+their training on the CUDA end-to-end visual path waits for the ROIAlign
+backward, see ``engine/train.py::check_unported``). Text arrives
+pre-assembled by the host; boxes stay in the static [B, O] layout with a
+mask. A module in training mode returns (outputs, loss) and in eval mode
+its outputs. ``build_module`` raises NotImplementedError, naming the
+ROADMAP.md queue, for the pretraining modules of the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +26,18 @@ from vlbert_tpu_torch.models.layers import Embedding, Linear
 from vlbert_tpu_torch.models.vlbert import VisualLinguisticBert, VLBertConfig
 from vlbert_tpu_torch.ops.dropout import Dropout
 from vlbert_tpu_torch.utils import losses
+
+
+def collect_obj_reps(span_tags, object_reps):
+    """Per-token grounded object features gathered by the text tags
+    ([..., T] -> [..., T, H] from [B, O, H]): negative tags (and tags past
+    the last slot) land on the clipped slot, so -1 and -2 take object 0,
+    the whole-image box."""
+    B, O, H = object_reps.shape
+    tags = span_tags.long().clamp(0, O - 1)
+    flat = tags.reshape(B, -1)
+    out = torch.gather(object_reps, 1, flat[..., None].expand(-1, -1, H))
+    return out.reshape(*tags.shape, H)
 
 
 def generic_obj_vl_embeddings(embed_table, obj_reps):
@@ -97,7 +112,11 @@ class Classifier(nn.Sequential):
         return super().forward(x).to(torch.float32)
 
 
-def _fast_rcnn_from_cfg(cfg, vl_cfg, device=None):
+def _fast_rcnn_from_cfg(cfg, vl_cfg, device=None, with_classes=False,
+                        enable_cnn_reg_loss=False):
+    """``with_classes``: the module passes per-box classes, so
+    IMAGE_SEMANTIC applies (the JAX package skips the class embedding
+    where no classes are given)."""
     n = cfg.NETWORK
     tpu = cfg.TPU if "TPU" in cfg else {}
     return FastRCNN(
@@ -106,7 +125,8 @@ def _fast_rcnn_from_cfg(cfg, vl_cfg, device=None):
         stride_in_1x1=n.IMAGE_STRIDE_IN_1x1,
         c5_dilated=n.IMAGE_C5_DILATED,
         final_dim=n.IMAGE_FINAL_DIM,
-        image_semantic=n.IMAGE_SEMANTIC,
+        enable_cnn_reg_loss=enable_cnn_reg_loss,
+        image_semantic=with_classes and n.IMAGE_SEMANTIC,
         # 1 = reference parity (its ROIAlign ctor default); 0 = adaptive
         roi_sampling_ratio=tpu.get("ROI_SAMPLING_RATIO", 1),
         pixel_means=tuple(n.PIXEL_MEANS or (102.9801, 115.9465, 122.7717)),
@@ -208,14 +228,236 @@ class ResNetVLBERTForVQA(nn.Module):
         return outputs, ans_loss
 
 
+class ResNetVLBERTForVCR(nn.Module):
+    """VCR Q2A / QA2R model: one score per choice.
+
+    Text arrives pre-assembled per choice, [B, C, T] input ids / type ids /
+    tags / mask (the collate's [CLS] Q [SEP] A [SEP]). The object features
+    are computed once per image and repeated per choice; the B x C
+    sequences go through VL-BERT as one batch and the pooled output of
+    each gives its choice's logit (fp32)."""
+
+    def __init__(self, config, vl_config, *, device=None):
+        super().__init__()
+        vl = self.vl_config = vl_config
+        net = self.net = config.NETWORK
+        kw = dict(dtype=vl.dtype, device=device)
+        self.enable_cnn_reg_loss = net.ENABLE_CNN_REG_LOSS
+        self.cnn_loss_top = net.CNN_LOSS_TOP
+        if not net.BLIND:
+            self.image_feature_extractor = _fast_rcnn_from_cfg(
+                config, vl, device, with_classes=True,
+                enable_cnn_reg_loss=(self.enable_cnn_reg_loss
+                                     and not self.cnn_loss_top))
+            self.object_word_embed_mode = net.VLBERT.object_word_embed_mode
+            if self.object_word_embed_mode in (1, 2):
+                n_emb = 81 if self.object_word_embed_mode == 1 else 1
+                self.object_linguistic_embeddings = Embedding(
+                    n_emb, vl.hidden_size, **kw)
+            elif self.object_word_embed_mode != 3:
+                raise NotImplementedError(
+                    f"object_word_embed_mode "
+                    f"{self.object_word_embed_mode!r} (supported: 1, 2, 3)")
+            if self.enable_cnn_reg_loss and self.cnn_loss_top:
+                # the reference's layout: transform, dropout, 81-way linear
+                self.cnn_loss_reg = nn.Sequential(
+                    MVRCHeadTransform(vl.hidden_size, vl.hidden_act, **kw),
+                    Dropout(net.CNN_REG_DROPOUT),
+                    Linear(vl.hidden_size, 81, **kw))
+        self.vlbert = VisualLinguisticBert(vl, device=device)
+        self.final_mlp = self._classifier(config, **kw)
+
+    def _classifier(self, config, **kw):
+        net, vl = config.NETWORK, self.vl_config
+        return Classifier(net.CLASSIFIER_TYPE, 1, vl.hidden_size,
+                          net.CLASSIFIER_HIDDEN_SIZE, net.CLASSIFIER_DROPOUT,
+                          vl.hidden_act, **kw)
+
+    def extract_obj_reps(self, image, boxes, objects, segms, box_mask,
+                         im_info):
+        """The visual features, shared by the answer and rationale passes
+        of Q2AR (they do not depend on the text)."""
+        B, O = box_mask.shape
+        if self.net.BLIND:
+            return {"obj_reps": torch.zeros(
+                (B, O, self.net.IMAGE_FINAL_DIM), dtype=self.vl_config.dtype,
+                device=box_mask.device)}
+        return self.image_feature_extractor(image, boxes, box_mask, im_info,
+                                            classes=objects, segms=segms)
+
+    def choice_logits(self, obj_reps, objects, box_mask, text_input_ids,
+                      text_token_type_ids, text_tags, text_mask, classifier):
+        """Per-choice logits [B, C] of one (query, choices) text block, the
+        object hidden states [B*C, O, H] and the per-choice box mask."""
+        net, vl = self.net, self.vl_config
+        B, C, T = text_input_ids.shape
+        O = box_mask.shape[1]
+        reps = obj_reps["obj_reps"]
+        if net.NO_GROUNDING:
+            text_tags = torch.zeros_like(text_tags)
+        text_visual = collect_obj_reps(text_tags, reps)
+
+        if net.BLIND:
+            obj_ling = torch.zeros((B, O, vl.hidden_size), dtype=vl.dtype,
+                                   device=reps.device)
+        elif self.object_word_embed_mode in (1, 2):
+            n_emb = self.object_linguistic_embeddings.num_embeddings
+            obj_ling = self.object_linguistic_embeddings(
+                objects.long().clamp(0, n_emb - 1))
+        else:
+            # mode 3: each choice's mean word embedding over its text
+            # tokens, [CLS] and [SEP] left out; the count is cast to the
+            # embedding dtype before the divide, as in the JAX package
+            ids = text_input_ids.long()
+            ctx = text_mask.bool() & (ids != 101) & (ids != 102)
+            we = self.vlbert.word_embeddings(ids)
+            we = we * ctx[..., None].to(we.dtype)
+            mean_we = we.sum(dim=2) / ctx.sum(dim=2)[..., None] \
+                .clamp(min=1).to(we.dtype)
+            obj_ling = mean_we[:, :, None, :].expand(B, C, O, vl.hidden_size)
+
+        # object VL embeddings, one copy per choice
+        if obj_ling.dim() == 3:
+            obj_vl = torch.cat([reps, obj_ling.to(reps.dtype)], dim=-1)
+            obj_vl = obj_vl[:, None].expand(B, C, O, obj_vl.shape[-1])
+        else:
+            obj_vl = torch.cat([reps[:, None].expand(B, C, O, reps.shape[-1]),
+                                obj_ling.to(reps.dtype)], dim=-1)
+        eff_box_mask = torch.zeros_like(box_mask) \
+            if net.NO_OBJ_ATTENTION or net.BLIND else box_mask
+        box_mask_c = eff_box_mask[:, None].expand(B, C, O)
+
+        def fold(x):       # [B, C, ...] -> [B*C, ...]
+            return x.reshape(B * C, *x.shape[2:])
+
+        _, h_obj, pooled = self.vlbert(
+            fold(text_input_ids), fold(text_token_type_ids),
+            fold(text_visual), fold(text_mask), fold(obj_vl),
+            fold(box_mask_c), output_text_and_object_separately=True)
+        return classifier(pooled).reshape(B, C), h_obj, box_mask_c
+
+    def forward(self, image, boxes, objects, segms, box_mask, text_input_ids,
+                text_token_type_ids, text_tags, text_mask, im_info,
+                answer_label=None):
+        C = text_input_ids.shape[1]
+        obj_reps = self.extract_obj_reps(image, boxes, objects, segms,
+                                         box_mask, im_info)
+        logits, h_obj, box_mask_c = self.choice_logits(
+            obj_reps, objects, box_mask, text_input_ids, text_token_type_ids,
+            text_tags, text_mask, self.final_mlp)
+        outputs = {"label_logits": logits}
+        if not self.training:
+            return outputs
+        if answer_label is None:
+            raise ValueError("ResNetVLBERTForVCR in training mode needs "
+                             "answer_label")
+        ans_loss, pos_frac = self._choice_loss(logits, answer_label, C)
+        if pos_frac is not None:
+            outputs["positive_fraction"] = pos_frac
+        outputs.update(label=answer_label, ans_loss=ans_loss)
+        loss = ans_loss * self.net.ANS_LOSS_WEIGHT
+        cnn_reg, loss = self._cnn_reg_loss(loss, obj_reps, h_obj, box_mask_c,
+                                           objects)
+        if cnn_reg is not None:
+            outputs["cnn_regularization_loss"] = cnn_reg
+        return outputs, loss
+
+    def _choice_loss(self, logits, answer_label, C):
+        """Sigmoid BCE per choice with a positive weight
+        (CLASSIFIER_SIGMOID), or softmax CE over the choices. Returns
+        (loss, the positive fraction or None)."""
+        net = self.net
+        if net.CLASSIFIER_SIGMOID:
+            label_binary = (torch.arange(C, device=logits.device)[None, :]
+                            == answer_label.long()[:, None])
+            pw = net.CLASSIFIER_SIGMOID_LOSS_POSITIVE_WEIGHT
+            weight = torch.where(label_binary, torch.full_like(logits, pw),
+                                 torch.ones_like(logits))
+            rescale = (pw + 1.0) / (2.0 * pw)
+            loss = rescale * losses.bce_with_logits(
+                logits, label_binary.to(torch.float32), weight)
+            return loss, label_binary.to(torch.float32).mean()
+        return losses.cross_entropy(logits, answer_label), None
+
+    def _cnn_reg_loss(self, loss, obj_reps, h_obj, box_mask_c, objects):
+        """Adds the CNN regularization loss to ``loss``: FastRCNN's, or
+        under CNN_LOSS_TOP the 81-way head on the object hidden states,
+        NLL averaged over the live (choice, box) slots."""
+        net = self.net
+        if not (self.enable_cnn_reg_loss and not net.BLIND):
+            return None, loss
+        if not self.cnn_loss_top:
+            if "cnn_regularization_loss" not in obj_reps:
+                raise ValueError(
+                    "ENABLE_CNN_REG_LOSS with CNN_LOSS_TOP=false needs the "
+                    "end-to-end visual path (IMAGE_FEAT_PRECOMPUTED=true "
+                    "computes no FastRCNN reg loss; set CNN_LOSS_TOP=true "
+                    "or disable the reg loss)")
+            cnn_reg = obj_reps["cnn_regularization_loss"]
+        else:
+            B, C, O = box_mask_c.shape
+            cnn_reg = losses.masked_cross_entropy(
+                self.cnn_loss_reg(h_obj.reshape(B, C, O, -1)),
+                objects[:, None].expand(B, C, O), box_mask_c)
+        return cnn_reg, loss + cnn_reg * net.CNN_LOSS_WEIGHT
+
+
+class ResNetVLBERTForVCRQ2AR(ResNetVLBERTForVCR):
+    """Single-model Q2AR: one visual pass scores the answer choices and the
+    rationale choices (the rationale query holds the gt answer at
+    train/val time); the rationales have their own head,
+    ``final_mlp_rationale``."""
+
+    def __init__(self, config, vl_config, *, device=None):
+        super().__init__(config, vl_config, device=device)
+        self.final_mlp_rationale = self._classifier(
+            config, dtype=vl_config.dtype, device=device)
+
+    def forward(self, image, boxes, objects, segms, box_mask, text_input_ids,
+                text_token_type_ids, text_tags, text_mask,
+                rationale_input_ids, rationale_token_type_ids,
+                rationale_tags, rationale_mask, im_info, answer_label=None,
+                rationale_label=None):
+        C = text_input_ids.shape[1]
+        obj_reps = self.extract_obj_reps(image, boxes, objects, segms,
+                                         box_mask, im_info)
+        a_logits, h_obj, box_mask_c = self.choice_logits(
+            obj_reps, objects, box_mask, text_input_ids, text_token_type_ids,
+            text_tags, text_mask, self.final_mlp)
+        r_logits, _, _ = self.choice_logits(
+            obj_reps, objects, box_mask, rationale_input_ids,
+            rationale_token_type_ids, rationale_tags, rationale_mask,
+            self.final_mlp_rationale)
+        outputs = {"label_logits": a_logits, "rationale_logits": r_logits}
+        if not self.training:
+            return outputs
+        if answer_label is None or rationale_label is None:
+            raise ValueError("ResNetVLBERTForVCRQ2AR in training mode needs "
+                             "answer_label and rationale_label")
+        ans_loss, pos_frac = self._choice_loss(a_logits, answer_label, C)
+        rationale_loss, _ = self._choice_loss(r_logits, rationale_label, C)
+        if pos_frac is not None:
+            outputs["positive_fraction"] = pos_frac
+        outputs.update(label=answer_label, rationale_label=rationale_label,
+                       ans_loss=ans_loss, rationale_loss=rationale_loss)
+        loss = (ans_loss + rationale_loss) * self.net.ANS_LOSS_WEIGHT
+        # the shared visual path's reg loss, once (the answer pass's object
+        # hidden states stand in under CNN_LOSS_TOP)
+        cnn_reg, loss = self._cnn_reg_loss(loss, obj_reps, h_obj, box_mask_c,
+                                           objects)
+        if cnn_reg is not None:
+            outputs["cnn_regularization_loss"] = cnn_reg
+        return outputs, loss
+
+
 _QUEUE = {
-    "ResNetVLBERT:vcr": "queue 1 (VCR forward)",
-    "ResNetVLBERTForPretraining:pretrain": "queue 1 (other tasks)",
-    "ResNetVLBERTForPretrainingMultitask:pretrain": "queue 1 (other tasks)",
+    "ResNetVLBERTForPretraining:pretrain": "queue 1 #8 (other tasks)",
+    "ResNetVLBERTForPretrainingMultitask:pretrain": "queue 1 #8 (other tasks)",
 }
 
 MODULES = {"ResNetVLBERT:refcoco": ResNetVLBERTForRefCOCO,
-           "ResNetVLBERT:vqa": ResNetVLBERTForVQA}
+           "ResNetVLBERT:vqa": ResNetVLBERTForVQA,
+           "ResNetVLBERT:vcr": ResNetVLBERTForVCR}
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -255,4 +497,7 @@ def build_module(config, task, dtype=None, device=None, fused_qkv=None):
         fused_qkv = bool(tpu.get("FUSED_QKV", False))
     vl_cfg = VLBertConfig.from_attrdict(config.NETWORK.VLBERT, dtype=dtype,
                                         fused_qkv=fused_qkv)
-    return MODULES[key](config, vl_cfg, device=device)
+    cls = MODULES[key]
+    if cls is ResNetVLBERTForVCR and config.DATASET.get("TASK") == "Q2AR":
+        cls = ResNetVLBERTForVCRQ2AR
+    return cls(config, vl_cfg, device=device)

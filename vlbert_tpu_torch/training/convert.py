@@ -35,9 +35,12 @@ key and value.
 One head needs a task-aware rename: the reference names its VQA ``mlm``
 classifier ``final_mlp.0`` (transform) and ``final_mlp.2`` (linear), which
 the JAX converter maps to RefCOCO's leaves (``final_mlp_transform.dense``,
-``final_mlp_fc``), while the JAX VQA module names them
+``final_mlp_fc``), while the JAX VQA and VCR modules name them
 ``final_mlp.transform_dense`` and ``final_mlp.dense_0``. For a port module
 whose ``final_mlp`` is an ``mlm`` Classifier the paths are renamed here.
+The second head of the single-model VCR Q2AR, ``final_mlp_rationale``,
+has no reference name (the reference has no such model): it is mapped as
+``final_mlp`` is and moved to the JAX module's ``final_mlp_rationale``.
 """
 
 from __future__ import annotations
@@ -242,6 +245,17 @@ def _map_resnet_name(n):
 _MLM_HEAD = (("final_mlp_transform.dense.", "final_mlp.transform_dense."),
              ("final_mlp_fc.", "final_mlp.dense_0."))
 
+RATIONALE_HEAD = "final_mlp_rationale."
+
+
+def _head_alias(name):
+    """(name with the rationale head read as ``final_mlp``, whether it
+    was the rationale head); ``name`` normalized."""
+    if name.startswith(RATIONALE_HEAD):
+        return "final_mlp." + name[len(RATIONALE_HEAD):], True
+    return name, False
+
+
 _QKV = re.compile(r"^(.*attention\.self\.)(query|key|value)\.(kernel|bias)$")
 
 
@@ -288,13 +302,16 @@ def state_dict_from_jax(flat, module, strict=True):
         and head.kind == "mlm" else ()
     out, used, missing, mismatched = {}, set(), [], []
     for name, ref in module.state_dict().items():
-        mapped = map_reference_name(normalize_torch_name(name))
+        alias, rationale = _head_alias(normalize_torch_name(name))
+        mapped = map_reference_name(alias)
         arr = None
         if mapped is not None:
             path, transform = mapped
             for old, new in renames:
                 if path.startswith(old):
                     path = new + path[len(old):]
+            if rationale:
+                path = "final_mlp_rationale" + path[len("final_mlp"):]
             arr = _lookup(flat, path, used)
         if arr is None:
             missing.append(name)
@@ -383,11 +400,13 @@ def convert_raw_resnet_checkpoint(sd, target_prefix="image_feature_extractor."):
 
 def reference_state_dict(sd):
     """Checkpoint names -> reference names (``reference_name``); a key the
-    JAX converter has no rule for is skipped, as it skips it. Returns
+    JAX converter has no rule for is skipped, as it skips it (the Q2AR
+    rationale head is read by ``final_mlp``'s rules). Returns
     (state_dict, skipped)."""
     out, skipped = {}, []
     for name, tensor in sd.items():
-        if map_reference_name(normalize_torch_name(name)) is None:
+        if map_reference_name(_head_alias(normalize_torch_name(name))[0]) \
+                is None:
             skipped.append(name)
             continue
         out[reference_name(name)] = tensor

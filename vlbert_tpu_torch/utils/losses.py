@@ -22,6 +22,13 @@ def cross_entropy(logits, labels):
     return _nll(logits, labels).mean()
 
 
+def masked_cross_entropy(logits, labels, mask):
+    """Mean CE over the entries ``mask`` selects; 0 when it selects none
+    (the CNN regularization losses over live box slots)."""
+    m = _f32(mask)
+    return (_nll(logits, labels) * m).sum() / m.sum().clamp(min=1.0)
+
+
 def cross_entropy_ignore_index(logits, labels, ignore_index=-1):
     """Mean CE over entries whose label is not ``ignore_index``; 0 when
     none is valid (torch would give NaN)."""
