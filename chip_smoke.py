@@ -95,7 +95,25 @@ its own line:
      ``make_validation_fn`` (one visual pass, two text passes), each with
      exact launch counts; the warm inference loops' samples/s and device
      idle share; fp32 kernels vs plain versions on one batch: logits within
-     1e-3 and the same argmax for each question.
+     1e-3 and the same argmax for each question;
+  13. training from pixels: the ROIAlign backward (K1b) against its plain
+     version on phase 3's K1 cases (fp32 and bf16 g and dF, sampling
+     ratio 1, 0 and 2; the padded slots' g must not reach dF), each call
+     repeated bit for bit, and timed at VCR's training shape beside its
+     bound, its plain version and the backward of K1's grid_sample
+     yardstick; then ``python -m vlbert_tpu_torch.engine.train --task vcr``
+     (its ``main``) from the shipped base Q2A config at full width (bf16,
+     SGD, 4 micro-steps of 4 images x 4 choices) on 64 synthetic training
+     questions over phase 12's JPEGs, with the printed overrides: 8
+     optimizer steps, each launching K1 4, K1b 4, K3 48, K4 48 and K5 108
+     times forward and backward, each validation run K1 and K2 only, a
+     falling loss, the epochs' checkpoints, and a second ``main`` that
+     AUTO_RESUMEs past the last; step p50, peak memory and a profiler
+     window's idle share; an fp32 optimizer step with the kernels and with
+     the plain versions (plain ROIAlign too), every gradient leaf held,
+     stages 3-4 and the RoI head apart; then ``--task refcoco`` from the
+     shipped RefCOCO+ config on phase 11's expressions: 8 AdamW steps with
+     exact launches, a falling loss, RefAcc from validation.
 
 Any failure raises. Every file the phases write lives under one temporary
 directory, removed on exit. On every exit it stops the processes it
@@ -106,7 +124,8 @@ to compare a kernel with its plain version are not counted: each path's
 counts are set to 0 just before it runs. Each kernel's record carries its
 device time, its plain version's and its library call's (for K1
 ``F.grid_sample`` over the 14x14 bin centres, which computes ROIAlign at
-sampling ratio 1 for boxes inside the map), and bound_ms: the larger of the bytes it must move over 3.35 TB/s and its
+sampling ratio 1 for boxes inside the map; for K1b that call's
+backward), and bound_ms: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the H100's peak for its dtype (bound_by says which; K1's
 for its main-path route, bf16 in and out, with the fp32-out route beside
 it);
@@ -163,6 +182,16 @@ VQA_CFG = os.path.join(REPO, "cfgs", "vqa", "base_v5e_bf16.yaml")
 STEP_RTOL = {"loss": 1e-4, "grad_norm": 1e-3, "leaf_grad": 1e-4,
              "param_per_lr": 0.1}
 LEAF_FLOOR = 1e-5
+# From pixels (VCR), the leaves of the image path: the random ResNet's
+# activations are large, and a weight gradient of the conv5 head or of
+# stages 3-4 sums ~10^5 products of them that cancel to a far smaller
+# result, behind ReLUs that a 1-ulp difference in ROIAlign's or attention's
+# fp32 sums can switch; such a leaf is held to 2e-3 of its largest element
+# (the worst read 4.6e-4 on the card). A wrong K1b (a dropped, doubled or
+# misplaced sample) moves stage 3-4 gradients by a sizeable fraction of
+# their size; phase 13's K1b parity holds the kernel itself to 1e-5
+IMAGE_LEAF_RTOL = 2e-3
+IMAGE_LEAF_PREFIX = "image_feature_extractor."
 
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, at the full
@@ -258,11 +287,14 @@ def time_calls(fn, kernel=None, iters=50, warmup=5):
 def device_by_name(fn, iters):
     """{kernel name: (summed device µs, launches)} over ``iters`` calls of
     ``fn`` in a torch.profiler window. The profiler now and then returns a
-    window without device events; such a window is measured again, up to
-    three times in all."""
+    window without device events, or with some of them missing (a kernel
+    counted a number of times that is not a multiple of ``iters``, when
+    every call launches the same kernels); such a window is measured
+    again, up to three times in all, and the fullest one is kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    windows = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -274,10 +306,15 @@ def device_by_name(fn, iters):
             if e.device_type.name == "CUDA":
                 us, n = by_name.get(e.name, (0.0, 0))
                 by_name[e.name] = (us + e.device_time, n + 1)
-        if sum(us for us, _ in by_name.values()) > 0:
+        total = sum(us for us, _ in by_name.values())
+        if total > 0 and all(n % iters == 0 for _, n in by_name.values()):
             return by_name
-    raise AssertionError("the profiler recorded no device time in three "
-                         "windows")
+        windows.append((total, by_name))
+    total, by_name = max(windows, key=lambda w: w[0])
+    if total == 0:
+        raise AssertionError("the profiler recorded no device time in "
+                             "three windows")
+    return by_name
 
 
 def device_us_by_name(fn, iters):
@@ -455,6 +492,149 @@ def k1_bound(B, H, W, C, O, in_bytes, out_bytes, P=14, Q=14, taps=4):
     return roofline(B * H * W * C * in_bytes + B * O * (16 + 1)
                     + B * O * P * Q * C * out_bytes,
                     2 * taps * B * O * P * Q * C, "float32")
+
+
+# K1b's kernel, by the name the profiler reports
+K1B_KERNEL = "roi_align_bwd_kernel"
+# K1b against roi_align_bwd_plain: fp32 sums in another order, relative to
+# the case's largest |dF| (at least 1; a map pixel sums up to thousands of
+# bins); a bf16 dF within one bf16 step of the plain fp32 result rounded
+# to bf16, as K1's bf16 output
+K1B_RTOL = 1e-5
+
+
+def k1b_parity(dev):
+    """K1b (the dF of ROIAlign) vs roi_align_bwd_plain over k1_cases: fp32
+    and bf16 maps (dF in the map's dtype) from fp32 and bf16 g, each
+    sampling ratio of the case; fp32 dF within K1B_RTOL of the case's
+    largest |dF|, bf16 within one bf16 step plus that; the padded slots' g
+    set to 1e6 must not reach dF; a repeat on the same inputs must be bit
+    for bit the same. Returns {case: relative error}."""
+    import torch
+    from vlbert_tpu_torch.ops import roi_align as troi
+
+    errs = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for name, feat, boxes, mask, ratios in k1_cases(dev):
+        B, H, W, C = feat.shape
+        g32 = torch.randn(B, boxes.shape[1], 14, 14, C, generator=gen,
+                          device=dev)
+        g32[~mask] = 1e6
+        for dtype in (torch.float32, torch.bfloat16):
+            for g_dtype in (torch.float32, torch.bfloat16):
+                g = g32.to(g_dtype)
+                for sr in ratios:
+                    args = (g, boxes, mask, feat.shape, dtype, 14, 14,
+                            1.0 / 16, sr)
+                    a = troi._roi_align_bwd_cuda(*args)
+                    again = troi._roi_align_bwd_cuda(*args)
+                    b = troi.roi_align_bwd_plain(feat.to(dtype), boxes,
+                                                 mask, g, sampling_ratio=sr)
+                    torch.cuda.synchronize()
+                    key = (f"{name}/{str(g_dtype)[6:]}->{str(dtype)[6:]}"
+                           f"/sr{sr}")
+                    scale = max(1.0, b.float().abs().max().item())
+                    diff = (a.float() - b.float()).abs()
+                    bound = K1B_RTOL * scale + (
+                        K1_BF16_RTOL * b.float().abs()
+                        if dtype == torch.bfloat16 else 0.0)
+                    excess = (diff - bound).max().item()
+                    if not (a.dtype == dtype and a.shape == b.shape
+                            and excess <= 0 and torch.equal(a, again)):
+                        raise AssertionError(
+                            f"K1b {key}: max abs err {diff.max().item()} "
+                            f"(largest |dF| {scale}), excess over the "
+                            f"tolerance {excess}, repeat bit-identical "
+                            f"{bool(torch.equal(a, again))}")
+                    errs[key] = diff.max().item() / scale
+    return errs
+
+
+def k1b_inputs(dev, all_live=False):
+    """The main path's K1b call at VCR's training shape: the vcr_B4_O108
+    case of k1_cases (body4 [4,38,75,1024], 108 slots, 108, 60, 21 and 8
+    live, or all 108 live) with a bf16 map and a bf16 g
+    [4,108,14,14,1024]."""
+    import torch
+
+    case = {c[0]: c for c in k1_cases(dev)}["vcr_B4_O108"]
+    _, feat, boxes, mask, _ = case
+    if all_live:
+        mask = torch.ones_like(mask)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    g = torch.randn(*mask.shape, 14, 14, feat.shape[-1], generator=gen,
+                    device=dev).to(torch.bfloat16)
+    return feat.to(torch.bfloat16), boxes, mask, g
+
+
+def k1b_bound(feat, mask, g):
+    """K1b's roofline: g over the live slots read once, the boxes and the
+    mask, dF written once; 2 fp32 operations a sample tap, channel and
+    live bin (4 taps a bin at sampling ratio 1)."""
+    B, H, W, C = feat.shape
+    live = int(mask.sum())
+    return roofline(live * 14 * 14 * C * g.element_size()
+                    + mask.numel() * 17 + B * H * W * C * feat.element_size(),
+                    2 * 4 * live * 14 * 14 * C, "float32")
+
+
+def k1b_times(dev):
+    """K1b at VCR's training shape (bf16, sampling ratio 1), by kernel
+    name, with the padded slots of the main path and with every slot live;
+    and the plain version."""
+    from vlbert_tpu_torch.ops import roi_align as troi
+
+    out = {}
+    for key, all_live in (("vcr", False), ("vcr_all_live", True)):
+        feat, boxes, mask, g = k1b_inputs(dev, all_live)
+        args = (g, boxes, mask, feat.shape, feat.dtype, 14, 14, 1.0 / 16, 1)
+        out[key] = time_calls(lambda args=args: troi._roi_align_bwd_cuda(
+            *args), K1B_KERNEL)
+        out[key]["bound"] = k1b_bound(feat, mask, g)
+        out[key]["live"] = int(mask.sum())
+    feat, boxes, mask, g = k1b_inputs(dev)
+    out["plain"] = cuda_ms(lambda: troi.roi_align_bwd_plain(
+        feat, boxes, mask, g, sampling_ratio=1))
+    return out
+
+
+def k1b_library(dev):
+    """K1b's yardstick: the backward (autograd) of phase 3's F.grid_sample
+    yardstick, at VCR's training shape: the 14x14 bin centres of the 108
+    slots of each of 4 maps (sampling ratio 1; exact for boxes inside the
+    map, the padded slots' mask multiply left out), on the map as an NCHW
+    view of its NHWC memory, bf16 where grid_sample takes it. Returns (ms,
+    kernel names, dtype timed, fp32 max abs err of its dF against the
+    plain dF with g on the boxes inside the map)."""
+    import torch
+    import torch.nn.functional as F
+    from vlbert_tpu_torch.ops.roi_align import roi_align_bwd_plain
+
+    feat, boxes, mask, g = k1b_inputs(dev)
+    B, H, W, C = feat.shape
+    grid, inside = k1_grid(boxes, H, W)
+    kw = dict(mode="bilinear", padding_mode="border", align_corners=True)
+    sel = (inside & mask).to(torch.float32)[..., None, None, None]
+    g32 = g.float() * sel
+    f32 = feat.float().permute(0, 3, 1, 2).detach().requires_grad_()
+    out = F.grid_sample(f32, grid, **kw)
+    gl = g32.permute(0, 4, 1, 2, 3).reshape(out.shape)
+    (got,) = torch.autograd.grad(out, f32, gl)
+    want = roi_align_bwd_plain(feat.float(), boxes, mask, g32,
+                               sampling_ratio=1)
+    err = _maxerr(got.permute(0, 2, 3, 1), want)
+    dtype = "bfloat16"
+    try:
+        fb = feat.permute(0, 3, 1, 2).detach().requires_grad_()
+        ob = F.grid_sample(fb, grid.to(torch.bfloat16), **kw)
+        gb = gl.to(torch.bfloat16)
+        torch.autograd.grad(ob, fb, gb, retain_graph=True)
+    except RuntimeError:
+        dtype = "float32"
+        fb, ob, gb = f32, out, gl
+    ms, names = library_ms(lambda: torch.autograd.grad(ob, fb, gb,
+                                                       retain_graph=True))
+    return ms, names, dtype, err
 
 
 # (B, L): the edges of one 64-row tile, the serve shape, the VQA
@@ -1136,7 +1316,8 @@ def _launch_counts():
     from vlbert_tpu_torch.ops.dropout import hw_dropout
     from vlbert_tpu_torch.ops.roi_align import roi_align
 
-    return {"K1": roi_align.launches, "K2": fused_attention.launches,
+    return {"K1": roi_align.launches, "K1b": roi_align.bwd_launches,
+            "K2": fused_attention.launches,
             "K3": fused_attention_dropout.launches,
             "K4": fused_attention_dropout.bwd_launches,
             "K5_fwd": hw_dropout.launches,
@@ -1149,7 +1330,7 @@ def _zero_counts():
     from vlbert_tpu_torch.ops.dropout import hw_dropout
     from vlbert_tpu_torch.ops.roi_align import roi_align
 
-    roi_align.launches = fused_attention.launches = 0
+    roi_align.launches = roi_align.bwd_launches = fused_attention.launches = 0
     fused_attention_dropout.launches = fused_attention_dropout.bwd_launches = 0
     hw_dropout.launches = hw_dropout.bwd_launches = 0
 
@@ -1158,7 +1339,7 @@ def train_launches(steps, val_batches):
     """Launches of ``steps`` VQA train steps and ``val_batches`` validation
     batches at full width: K3 and K4 once a layer and step, K5 27 times
     forward and 26 backward, K2 once a layer and batch, no K1."""
-    return {"K1": 0, "K2": 12 * val_batches, "K3": 12 * steps,
+    return {"K1": 0, "K1b": 0, "K2": 12 * val_batches, "K3": 12 * steps,
             "K4": 12 * steps, "K5_fwd": 27 * steps, "K5_bwd": 26 * steps}
 
 
@@ -1221,20 +1402,30 @@ def train_phase(cfg, device="cuda"):
     return model, history, launches
 
 
-def profile_steps(model, cfg, n=4):
-    """Device busy time and top kernels over ``n`` train steps of
-    ``model`` (a fresh optimizer, the phase's first batch)."""
-    import torch
+def first_train_batch(cfg, task, dev):
+    """The first batch of the config's training loader, on ``dev``."""
     from vlbert_tpu_torch.data.build import make_dataloader
-    from vlbert_tpu_torch.training.loop import make_train_step, to_device
-    from vlbert_tpu_torch.training.optim import Optimizer
+    from vlbert_tpu_torch.training.loop import to_device
 
-    loader = make_dataloader(cfg, "vqa", "train")
+    loader = make_dataloader(cfg, task, "train")
     try:
-        batch = to_device(next(iter(loader)), "cuda")
+        return to_device(next(iter(loader)), dev)
     finally:
         loader.shutdown()
-    step = make_train_step(model, Optimizer(cfg, model, 4), "vqa", cfg)
+
+
+def profile_steps(model, cfg, task="vqa", n=4, batch=None):
+    """Device busy time and top kernels over ``n`` optimizer steps of
+    ``model`` (a fresh optimizer, the config's gradient accumulation) on
+    ``batch``, by default the phase's first."""
+    import torch
+    from vlbert_tpu_torch.training.loop import make_train_step
+    from vlbert_tpu_torch.training.optim import Optimizer
+
+    if batch is None:
+        batch = first_train_batch(cfg, task, "cuda")
+    accum = max(int(cfg.TRAIN.GRAD_ACCUMULATE_STEPS), 1)
+    step = make_train_step(model, Optimizer(cfg, model, 4), task, cfg, accum)
     step(batch, SEED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1248,48 +1439,96 @@ def profile_steps(model, cfg, n=4):
     return wall_ms, busy_ms, [(k[:60], v / 1e3 / n) for k, v in top]
 
 
-def step_agreement(cfg, dev):
-    """One fp32 step from the same weights and seed with the kernels and
-    with the plain versions."""
+# leaf groups whose worst gradient gap step_agreement reports apart:
+# VL-BERT, the backbone stages that train (3 = layer2, 4 = layer3) and the
+# conv5 head
+E2E_LEAF_GROUPS = {
+    "vlbert": "vlbert.",
+    "stage3": "image_feature_extractor.backbone.layer2.",
+    "stage4": "image_feature_extractor.backbone.layer3.",
+    "roi_head": "image_feature_extractor.roi_head_feature_extractor."}
+
+
+@contextlib.contextmanager
+def plain_e2e_training():
+    """``plain_training``, and ROIAlign's plain version: autograd through
+    its einsums gives the plain dF (K1b's plain version)."""
+    import vlbert_tpu_torch.models.fast_rcnn as fast_rcnn
+    from vlbert_tpu_torch.ops.roi_align import roi_align_plain
+
+    saved = fast_rcnn.roi_align
+    fast_rcnn.roi_align = roi_align_plain
+    try:
+        with plain_training():
+            yield
+    finally:
+        fast_rcnn.roi_align = saved
+
+
+def step_agreement(cfg, dev, task="vqa", plain=plain_training,
+                   want_launches=None, groups=None, image_rtol=None,
+                   batch=None):
+    """One fp32 optimizer step from the same weights and seed with the
+    kernels and with the plain versions (``plain``), over the config's
+    gradient accumulation; then the kernel step again, which must give
+    bit-identical parameters (cuDNN and torch held to their deterministic
+    algorithms for the three steps). ``want_launches``: the kernel step's launches (default: one
+    VQA step's); ``groups``: {name: parameter prefix} whose worst leaf is
+    reported apart, each required to have a gradient; ``image_rtol``:
+    the image path's leaves (IMAGE_LEAF_PREFIX) held to it instead of
+    STEP_RTOL's; ``batch``: the step's batch, by default the training
+    loader's first."""
     import copy
 
     import torch
-    from vlbert_tpu_torch.data.build import make_dataloader
     from vlbert_tpu_torch.models.layers import init_weights
     from vlbert_tpu_torch.models.task_modules import build_module
-    from vlbert_tpu_torch.training.loop import make_train_step, to_device
+    from vlbert_tpu_torch.training.loop import make_train_step
     from vlbert_tpu_torch.training.optim import (Optimizer,
                                                  apply_trainable_mask)
 
-    loader = make_dataloader(cfg, "vqa", "train")
-    try:
-        batch = to_device(next(iter(loader)), dev)
-    finally:
-        loader.shutdown()
-    model = build_module(cfg, "vqa", dtype=torch.float32, device=dev)
+    want_launches = want_launches or train_launches(1, 0)
+    if batch is None:
+        batch = first_train_batch(cfg, task, dev)
+    model = build_module(cfg, task, dtype=torch.float32, device=dev)
     init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
     apply_trainable_mask(model, cfg)
     twin, again = copy.deepcopy(model), copy.deepcopy(model)
+    accum = max(int(cfg.TRAIN.GRAD_ACCUMULATE_STEPS), 1)
     results, leaf_grads = [], []
-    for m, ctx in ((model, contextlib.nullcontext()),
-                   (twin, plain_training()),
-                   (again, contextlib.nullcontext())):
-        opt = Optimizer(cfg, m, 4)
-        lr = opt.lr()
-        kept, opt_step = {}, opt.step
+    # cuDNN's deterministic algorithms, and torch's where it has them
+    # (gather's backward, which VCR's object-tag gather runs, otherwise
+    # sums with atomics); warn_only: torch raises nowhere on an op that
+    # has none
+    saved_modes = (torch.backends.cudnn.deterministic,
+                   torch.are_deterministic_algorithms_enabled(),
+                   torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for m, ctx in ((model, contextlib.nullcontext()), (twin, plain()),
+                       (again, contextlib.nullcontext())):
+            opt = Optimizer(cfg, m, 4)
+            lr = opt.lr()
+            kept, opt_step = {}, opt.step
 
-        def step_and_keep(grads, opt=opt, kept=kept, opt_step=opt_step):
-            kept.update((n, g.detach().clone())
-                        for n, g in zip(opt.names, grads))
-            return opt_step(grads)
+            def step_and_keep(grads, opt=opt, kept=kept, opt_step=opt_step):
+                kept.update((n, g.detach().clone())
+                            for n, g in zip(opt.names, grads))
+                return opt_step(grads)
 
-        opt.step = step_and_keep
-        _zero_counts()
-        with ctx:
-            loss, dm = make_train_step(m, opt, "vqa", cfg)(batch, SEED + 5)
-        results.append((float(loss), float(dm["grad_total_norm"][0]),
-                        _launch_counts()))
-        leaf_grads.append(kept)
+            opt.step = step_and_keep
+            _zero_counts()
+            with ctx:
+                loss, dm = make_train_step(m, opt, task, cfg, accum)(
+                    batch, SEED + 5)
+            results.append((float(loss), float(dm["grad_total_norm"][0]),
+                            _launch_counts()))
+            leaf_grads.append(kept)
+    finally:
+        torch.backends.cudnn.deterministic = saved_modes[0]
+        torch.use_deterministic_algorithms(saved_modes[1],
+                                           warn_only=saved_modes[2])
     (l1, n1, c1), (l2, n2, c2), _ = results
     g1, g2 = leaf_grads[:2]
     if g1.keys() != g2.keys() or not g1:
@@ -1299,17 +1538,29 @@ def step_agreement(cfg, dev):
     floor = LEAF_FLOOR * max(leaf_max.values())
     leaf_gap = {k: _maxerr(g1[k], g2[k]) / max(leaf_max[k], floor)
                 for k in g2}
-    worst_leaf = max(leaf_gap, key=leaf_gap.get)
+    image = {k for k in g2 if image_rtol and k.startswith(IMAGE_LEAF_PREFIX)}
+    worst_leaf = max((k for k in g2 if k not in image), key=leaf_gap.get)
+    by_group = {}
+    for name, prefix in (groups or {}).items():
+        keys = [k for k in g2 if k.startswith(prefix) and leaf_max[k] > 0]
+        if not keys:
+            raise AssertionError(f"fp32 step: no gradient reached {name} "
+                                 f"({prefix}*)")
+        by_group[name] = max(leaf_gap[k] for k in keys)
     # the same seed and batch give a bit-identical step
     p3 = dict(again.named_parameters())
     repeat_equal = all(torch.equal(p, p3[k])
                        for k, p in model.named_parameters())
     if not repeat_equal:
-        raise AssertionError("fp32 step: a repeat from the same weights and "
-                             "seed gave different parameters")
+        gap = max((p - p3[k]).abs().max().item()
+                  for k, p in model.named_parameters())
+        raise AssertionError(f"fp32 step: a repeat from the same weights and "
+                             f"seed gave different parameters (max abs "
+                             f"difference {gap:.3e})")
     # the kernel step ran the kernels, the plain step none of them
-    if c1 != train_launches(1, 0) or any(c2.values()):
-        raise AssertionError(f"fp32 step launches: kernels {c1}, plain {c2}")
+    if c1 != want_launches or any(c2.values()):
+        raise AssertionError(f"fp32 step launches: kernels {c1} (want "
+                             f"{want_launches}), plain {c2}")
     p2 = dict(twin.named_parameters())
     dparam = max((p - p2[k]).abs().max().item()
                  for k, p in model.named_parameters())
@@ -1317,13 +1568,17 @@ def step_agreement(cfg, dev):
               "grad_norm": (abs(n1 - n2) / n2, STEP_RTOL["grad_norm"]),
               "leaf_grad": (leaf_gap[worst_leaf], STEP_RTOL["leaf_grad"]),
               "param_per_lr": (dparam / lr, STEP_RTOL["param_per_lr"])}
+    if image:
+        worst_image = max(image, key=leaf_gap.get)
+        checks["image_leaf_grad"] = (leaf_gap[worst_image], image_rtol)
     bad = {k: v for k, v in checks.items() if not v[0] <= v[1]}
     if bad:
         raise AssertionError(f"fp32 step: (err, tol) {checks}; worst leaf "
                              f"gradient {worst_leaf}")
     return {"loss": (l1, l2), "grad_norm": (n1, n2), "checks": checks,
             "launches": (c1, c2), "n_leaves": len(g2),
-            "worst_leaf": worst_leaf, "max_param_diff": dparam, "lr": lr}
+            "worst_leaf": worst_leaf, "max_param_diff": dparam, "lr": lr,
+            "by_group": by_group}
 
 
 # the answer head of a pretrain checkpoint: the VQA classifier's transform
@@ -1698,13 +1953,15 @@ VCR_IMAGES = (((640, 480), 107), ((800, 600), 40), ((1000, 562), 12),
               ((562, 1000), 7), ((540, 720), 90))
 
 
-def write_vcr_fixture(root, per_image=2):
+def write_vcr_fixture(root, per_image=2, n_train=0):
     """A synthetic VCR split in the dataset's on-disk form under ``root``:
     JPEGs (VCR_IMAGES), one metadata json per image with [x1, y1, x2, y2,
     score] boxes and polygon segms, and ``val.jsonl`` (labels) and
     ``test.jsonl`` (none) with ``per_image`` questions an image: mixed
     questions, 4 answers and 4 rationales whose [obj, ...] references tag
-    the image's objects. Returns (data dir, val rows)."""
+    the image's objects; and ``n_train`` more such questions over the same
+    images in ``train.jsonl`` (drawn after the others, which stay as they
+    are). Returns (data dir, val rows)."""
     import numpy as np
     from PIL import Image
 
@@ -1721,7 +1978,20 @@ def write_vcr_fixture(root, per_image=2):
             toks.insert(int(rng.integers(0, len(toks) + 1)), refs)
         return [t if isinstance(t, list) else str(t) for t in toks] + ["?"]
 
-    rows = []
+    def question(i, names, split, n):
+        n_obj = len(names)
+        return {
+            "annot_id": f"{split}-{n}", "img_fn": f"img/{i}.jpg",
+            "metadata_fn": f"{i}.json", "objects": names,
+            "question": sentence(n_obj, int(rng.integers(4, 12))),
+            "answer_choices": [sentence(n_obj, int(rng.integers(3, 14)))
+                               for _ in range(4)],
+            "rationale_choices": [sentence(n_obj, int(rng.integers(6, 22)))
+                                  for _ in range(4)],
+            "answer_label": int(rng.integers(0, 4)),
+            "rationale_label": int(rng.integers(0, 4))}
+
+    rows, image_names = [], []
     for i, ((w, h), n_obj) in enumerate(VCR_IMAGES):
         img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
         Image.fromarray(img).save(os.path.join(d, "img", f"{i}.jpg"),
@@ -1741,21 +2011,12 @@ def write_vcr_fixture(root, per_image=2):
                                       1).round(1).tolist())
             segms.append(polys)
         names = [str(rng.choice(VCR_OBJECTS)) for _ in range(n_obj)]
+        image_names.append(names)
         with open(os.path.join(d, f"{i}.json"), "w") as f:
             json.dump({"boxes": boxes, "segms": segms, "names": names,
                        "width": w, "height": h}, f)
         for j in range(per_image):
-            rows.append({
-                "annot_id": f"val-{len(rows)}", "img_fn": f"img/{i}.jpg",
-                "metadata_fn": f"{i}.json", "objects": names,
-                "question": sentence(n_obj, int(rng.integers(4, 12))),
-                "answer_choices": [sentence(n_obj, int(rng.integers(3, 14)))
-                                   for _ in range(4)],
-                "rationale_choices": [
-                    sentence(n_obj, int(rng.integers(6, 22)))
-                    for _ in range(4)],
-                "answer_label": int(rng.integers(0, 4)),
-                "rationale_label": int(rng.integers(0, 4))})
+            rows.append(question(i, names, "val", len(rows)))
     with open(os.path.join(d, "val.jsonl"), "w") as f:
         f.write("\n".join(json.dumps(r) for r in rows) + "\n")
     with open(os.path.join(d, "test.jsonl"), "w") as f:
@@ -1763,6 +2024,10 @@ def write_vcr_fixture(root, per_image=2):
             r = {k: v for k, v in r.items() if not k.endswith("_label")}
             r["annot_id"] = r["annot_id"].replace("val", "test")
             f.write(json.dumps(r) + "\n")
+    train = [question(k % len(VCR_IMAGES), image_names[k % len(VCR_IMAGES)],
+                      "train", k) for k in range(n_train)]
+    with open(os.path.join(d, "train.jsonl"), "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in train))
     return d, rows
 
 
@@ -1919,6 +2184,272 @@ def vcr_phase(root, vocab_dir):
                                                     b.argmax(1))),
                    "min_margin": float((top2[:, 1] - top2[:, 0]).min()),
                    "shape": tuple(a.shape)}
+    return res
+
+
+# Phase 13: training from pixels. VCR: 64 training questions over phase
+# 12's 8 images, 16 a step (4 images x 4 micro-steps), 2 epochs = 8
+# optimizer steps; RefCOCO+: phase 11's 16 expressions, 8 a step (4 x 2),
+# 4 epochs = 8 steps
+VCR_TRAIN_QUESTIONS = 64
+# per micro-step, the K5 sites of each model: the embeddings', 2 a layer,
+# FastRCNN's before obj_downsample, and VCR's classifier's (RefCOCO+'s
+# CLASSIFIER_DROPOUT is 0, its CNN_REG_DROPOUT 0); every one on a tensor
+# that requires grad, so each also runs backward
+E2E_K5_SITES = {"vcr": 1 + 2 * 12 + 1 + 1, "refcoco": 1 + 2 * 12 + 1}
+
+
+def e2e_launches(task, micro_steps=0, val_batches=0):
+    """Launches of ``micro_steps`` training micro-steps from pixels and
+    ``val_batches`` validation batches at full width: per micro-step K1
+    and K1b once, K3 and K4 once a layer, K5 at each of E2E_K5_SITES
+    forward and backward; per validation batch K1 once and K2 once a
+    layer."""
+    k5 = E2E_K5_SITES[task] * micro_steps
+    return {"K1": micro_steps + val_batches, "K1b": micro_steps,
+            "K2": 12 * val_batches, "K3": 12 * micro_steps,
+            "K4": 12 * micro_steps, "K5_fwd": k5, "K5_bwd": k5}
+
+
+@contextlib.contextmanager
+def launches_per_call():
+    """Records the launches of each optimizer step and of each validation
+    run of train_net: the counts before and after each call of the train
+    step and of the validation function (host counters, no sync). Yields
+    {"steps": [...], "val": [...], "batch": the first step's batch}."""
+    import vlbert_tpu_torch.engine.train as t_train
+    import vlbert_tpu_torch.training.loop as loop
+
+    rec = {"steps": [], "val": [], "batch": None}
+    saved = loop.make_train_step, t_train.make_validation_fn
+
+    def counted(fn, key):
+        def run(*a, **kw):
+            if key == "steps" and rec["batch"] is None:
+                rec["batch"] = a[0]
+            before = _launch_counts()
+            out = fn(*a, **kw)
+            after = _launch_counts()
+            rec[key].append({k: after[k] - before[k] for k in after})
+            return out
+        return run
+
+    loop.make_train_step = lambda *a, **kw: counted(saved[0](*a, **kw),
+                                                    "steps")
+    t_train.make_validation_fn = lambda *a, **kw: counted(
+        saved[1](*a, **kw), "val")
+    try:
+        yield rec
+    finally:
+        loop.make_train_step, t_train.make_validation_fn = saved
+
+
+@contextlib.contextmanager
+def kept_train_net():
+    """``python -m vlbert_tpu_torch.engine.train``'s main returns its exit
+    code; this keeps what its train_net returned. Yields {"model",
+    "history"}."""
+    import vlbert_tpu_torch.engine.train as t_train
+
+    kept, saved = {}, t_train.train_net
+
+    def keep(args, config, task):
+        kept["model"], kept["history"] = saved(args, config, task)
+        return kept["model"], kept["history"]
+
+    t_train.train_net = keep
+    try:
+        yield kept
+    finally:
+        t_train.train_net = saved
+
+
+def write_train_yaml(src, path, overrides):
+    """The shipped config ``src`` with ``overrides`` (dotted paths) set,
+    written to ``path``."""
+    import yaml
+
+    with open(src) as f:
+        raw = yaml.safe_load(f)
+    for key, value in overrides.items():
+        node = raw
+        *parents, leaf = key.split(".")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = value
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def e2e_overrides(root, data_dir, vocab_dir):
+    """What phase 13 changes in both shipped configs: its data and
+    vocabulary, no warm-start files (none is in the repo: random seed-0
+    weights), visual LN scales 1.0 (the configs' 0.0 would zero every
+    gradient into the image path at random weights), no warm-up (the
+    configs' 1000 and 3750 steps from LR 0 would leave a few steps flat),
+    and each epoch's checkpoint written between epochs, not beside the
+    timed steps."""
+    return {"DATASET.DATASET_PATH": data_dir, "DATASET.ROOT_PATH": root,
+            "NETWORK.BERT_MODEL_NAME": vocab_dir,
+            "NETWORK.PARTIAL_PRETRAIN": "", "NETWORK.IMAGE_PRETRAINED": "",
+            "NETWORK.VLBERT.visual_scale_text_init": 1.0,
+            "NETWORK.VLBERT.visual_scale_object_init": 1.0,
+            "OUTPUT_PATH": os.path.join(root, "out"), "RNG_SEED": SEED,
+            "TRAIN.WARMUP": False, "TPU.ASYNC_CHECKPOINT": False}
+
+
+def e2e_train_run(task, yaml_path, record_writes=False):
+    """``python -m vlbert_tpu_torch.engine.train --task <task> --cfg
+    <yaml>`` (its main) with the launches of each step and validation run
+    recorded; ``record_writes``: the checkpoint writes recorded, not made.
+    Returns results."""
+    import torch
+    import vlbert_tpu_torch.engine.train as t_train
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    writes = checkpoint_writes_recorded() if record_writes \
+        else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with launches_per_call() as rec, kept_train_net() as kept, \
+            writes as saves:
+        rc = t_train.main(["--task", task, "--cfg", yaml_path])
+    return {"rc": rc, "wall_s": time.perf_counter() - t0,
+            "model": kept["model"], "history": kept["history"],
+            "steps": rec["steps"], "val": rec["val"], "batch": rec["batch"],
+            "total": _launch_counts(), "saves": saves,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _falls(loss, k):
+    """The mean of the last ``k`` losses is below that of the first k."""
+    return all(map(math.isfinite, loss)) and len(loss) >= 2 * k \
+        and sum(loss[-k:]) < sum(loss[:k])
+
+
+def vcr_train_phase(root, vocab_dir):
+    """Phase 13a: VCR Q2A from pixels at full width from the shipped base
+    config (python -m vlbert_tpu_torch.engine.train --task vcr): exact
+    launches per step and per validation run, a falling loss, the epochs'
+    checkpoints, then AUTO_RESUME finding the last; a profiler window; an
+    fp32 step with the kernels and with the plain versions. Returns
+    results."""
+    import torch
+    from vlbert_tpu_torch.utils.config import load_config
+
+    data_dir, rows = write_vcr_fixture(root, n_train=VCR_TRAIN_QUESTIONS)
+    overrides = {**e2e_overrides(root, data_dir, vocab_dir),
+                 "DATASET.TRAIN_ANNOTATION_FILE": "train.jsonl",
+                 "DATASET.VAL_ANNOTATION_FILE": "val.jsonl",
+                 "TRAIN.END_EPOCH": 2, "LOG_FREQUENT": 4,
+                 # base LR 16 x 6.25e-4 = 0.01 (SGD, momentum 0.9)
+                 "TRAIN.LR": 6.25e-4}
+    path = write_train_yaml(VCR_CFGS["Q2A"],
+                            os.path.join(root, "vcr_train.yaml"), overrides)
+    cfg = load_config("vcr", path)
+    run = e2e_train_run("vcr", path)
+    res = {k: run[k] for k in ("rc", "wall_s", "steps", "val", "total",
+                               "peak_gib")}
+    hist, model = run["history"], run["model"]
+    accum = cfg.TRAIN.GRAD_ACCUMULATE_STEPS
+    micro = cfg.TRAIN.BATCH_IMAGES
+    n_val = -(-len(rows) // cfg.VAL.BATCH_IMAGES)
+    out = os.path.join(cfg.OUTPUT_PATH, "vcr_train")
+    prefix = cfg.MODEL_PREFIX
+    res.update(
+        overrides={k: v for k, v in overrides.items()
+                   if not k.startswith(("DATASET.", "NETWORK.BERT"))},
+        loss=hist["loss"], val_acc=[v["Acc"] for v in hist["val"]],
+        step_ms=hist["step_ms"], accum=accum, micro=micro, n_val=n_val,
+        n_params=sum(p.numel() for p in model.parameters()),
+        files=sorted(os.listdir(out)),
+        want_step=e2e_launches("vcr", accum),
+        want_val=e2e_launches("vcr", 0, n_val),
+        samples=len(hist["loss"]) * accum * micro)
+    res["checks"] = {
+        "rc": run["rc"] == 0,
+        "steps": len(run["steps"]) == VCR_TRAIN_QUESTIONS // (accum * micro)
+        * cfg.TRAIN.END_EPOCH and all(c == res["want_step"]
+                                      for c in run["steps"]),
+        "val": len(run["val"]) == cfg.TRAIN.END_EPOCH
+        and all(c == res["want_val"] for c in run["val"]),
+        "loss falls": _falls(hist["loss"], 2),
+        "files": {f"{prefix}-0000.model", f"{prefix}-0001.model",
+                  f"{prefix}-best.model"} <= set(res["files"])}
+    # the device's busy share over a fixed batch (no loader waits)
+    batch = run["batch"]
+    res["profile"] = profile_steps(model, cfg, "vcr", n=2, batch=batch)
+    del model, run, hist
+    torch.cuda.empty_cache()
+    # AUTO_RESUME (on in the shipped config) finds the last epoch's file
+    again = e2e_train_run("vcr", path)
+    h2 = again["history"]
+    res["resume"] = {"begin_epoch": h2["begin_epoch"],
+                     "count": h2["resumed_count"], "steps": len(h2["loss"]),
+                     "wall_s": again["wall_s"]}
+    res["checks"]["auto resume"] = (again["rc"], h2["begin_epoch"],
+                                    h2["resumed_count"], h2["loss"]) == (
+        0, cfg.TRAIN.END_EPOCH, len(res["loss"]), [])
+    del again, h2
+    torch.cuda.empty_cache()
+    # fp32: one optimizer step with the kernels and with the plain versions
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    res["fp32"] = step_agreement(cfg, "cuda", "vcr", plain_e2e_training,
+                                 e2e_launches("vcr", accum), E2E_LEAF_GROUPS,
+                                 IMAGE_LEAF_RTOL, batch)
+    torch.cuda.empty_cache()
+    return res
+
+
+def refcoco_train_phase(root, vocab_dir):
+    """Phase 13b: RefCOCO+ from pixels at full width from the shipped
+    config (python -m vlbert_tpu_torch.engine.train --task refcoco) on
+    phase 11's expressions: exact launches per step and per validation
+    run, a falling loss, RefAcc from validation; the checkpoint writes
+    recorded, not made (phase 13a writes and resumes). Returns results."""
+    import torch
+    from vlbert_tpu_torch.utils.config import load_config
+
+    data_dir, rows = write_refcoco_fixture(root)
+    overrides = {**e2e_overrides(root, data_dir, vocab_dir),
+                 "DATASET.TRAIN_ANNOTATION_FILE": "ann.jsonl",
+                 "DATASET.VAL_ANNOTATION_FILE": "ann.jsonl",
+                 # 4 epochs of 2 steps, validated after the last
+                 "TRAIN.END_EPOCH": 4, "VAL_FREQUENT": 4, "LOG_FREQUENT": 2,
+                 # base LR 8 x 2.5e-5 = 2e-4 (AdamW, triangle to 0 at
+                 # the last step)
+                 "TRAIN.LR": 2.5e-5}
+    path = write_train_yaml(CFG, os.path.join(root, "refcoco_train.yaml"),
+                            overrides)
+    cfg = load_config("refcoco", path)
+    run = e2e_train_run("refcoco", path, record_writes=True)
+    hist = run["history"]
+    accum = cfg.TRAIN.GRAD_ACCUMULATE_STEPS
+    micro = cfg.TRAIN.BATCH_IMAGES
+    n_val = -(-len(rows) // cfg.VAL.BATCH_IMAGES)
+    res = {k: run[k] for k in ("rc", "wall_s", "steps", "val", "total",
+                               "peak_gib", "saves")}
+    res.update(
+        overrides={k: v for k, v in overrides.items()
+                   if not k.startswith(("DATASET.", "NETWORK.BERT"))},
+        loss=hist["loss"], ref_acc=[v["RefAcc"] for v in hist["val"]],
+        step_ms=hist["step_ms"], accum=accum, micro=micro, n_val=n_val,
+        want_step=e2e_launches("refcoco", accum),
+        want_val=e2e_launches("refcoco", 0, n_val),
+        samples=len(hist["loss"]) * accum * micro)
+    res["checks"] = {
+        "rc": run["rc"] == 0,
+        "steps": len(run["steps"]) == len(rows) // (accum * micro)
+        * cfg.TRAIN.END_EPOCH and all(c == res["want_step"]
+                                      for c in run["steps"]),
+        "val": len(run["val"]) == cfg.TRAIN.END_EPOCH // cfg.VAL_FREQUENT
+        and all(c == res["want_val"] for c in run["val"]),
+        "loss falls": _falls(hist["loss"], 2),
+        "RefAcc": len(res["ref_acc"]) == len(run["val"])
+        and all(0.0 <= v <= 1.0 for v in res["ref_acc"])}
+    del run, hist
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2221,8 +2752,8 @@ def main():
               f"{r9['load_s']:.2f} s to the card ({card})", flush=True)
 
         r10 = vqa_serve_phase(cfg9, r9["best"])
-        per_query = {"K1": 0, "K2": 12, "K3": 0, "K4": 0, "K5_fwd": 0,
-                     "K5_bwd": 0}
+        per_query = {"K1": 0, "K1b": 0, "K2": 12, "K3": 0, "K4": 0,
+                     "K5_fwd": 0, "K5_bwd": 0}
         if not (all(c == per_query for c in r10["per_query"])
                 and r10["fp32_finite"] and r10["fp32_err"] <= E2E_ATOL
                 and r10["fp32_argmax"][0] == r10["fp32_argmax"][1]):
@@ -2274,7 +2805,7 @@ def main():
 
         # --- 12: VCR inference at full width ---
         r12 = vcr_phase(root, cfg9.NETWORK.BERT_MODEL_NAME)
-        none = dict.fromkeys(("K3", "K4", "K5_fwd", "K5_bwd"), 0)
+        none = dict.fromkeys(("K1b", "K3", "K4", "K5_fwd", "K5_bwd"), 0)
         n_b = r12["n"] // r12["batch"]
         want12 = {"Q2A_val": dict(none, K1=n_b, K2=12 * n_b),
                   "Q2A_test": dict(none, K1=n_b, K2=12 * n_b),
@@ -2336,6 +2867,94 @@ def main():
               f"logit err {r12['fp32']['err']:.3e} (atol {E2E_ATOL}), the same "
               f"argmax for each question (smallest top-2 margin "
               f"{r12['fp32']['min_margin']:.3e}) ({card})", flush=True)
+
+        # --- 13: training from pixels: K1b, then VCR and RefCOCO+ ---
+        k1b_errs = k1b_parity(dev)
+        k1b_t = k1b_times(dev)
+        k1b_lib = k1b_library(dev)
+        worst_k1b = max(k1b_errs, key=k1b_errs.get)
+        print(f"[13 parity K1b roi_align backward] {len(k1b_errs)} cases "
+              f"(case/g->dF/sampling ratio, the K1 cases; padded slots' g "
+              f"1e6) against roi_align_bwd_plain: largest error "
+              f"{k1b_errs[worst_k1b]:.3e} of the case's largest |dF| "
+              f"({worst_k1b}; fp32 within {K1B_RTOL}, bf16 within one bf16 "
+              f"step more), every repeat bit-identical; VCR's training "
+              f"shape (bf16 g [4,108,14,14,1024], bf16 dF [4,38,75,1024], "
+              f"sampling 1), device ms by kernel (call ms): "
+              + "; ".join(f"{k} {t['ms']:.4f} ({t['call_ms']:.4f}), "
+                          f"{t['live']} live slots, bound "
+                          f"{t['bound'][0]:.4f} ({t['bound'][1]})"
+                          for k, t in k1b_t.items() if k != "plain")
+              + f"; plain {k1b_t['plain'][0]:.4f} ({k1b_t['plain'][1]:.4f}); "
+              f"library: the backward of F.grid_sample over the bin centres "
+              f"({k1b_lib[2]}) {k1b_lib[0]:.4f} ms "
+              f"({', '.join(n[:48] for n in k1b_lib[1])}), fp32 max abs err "
+              f"{k1b_lib[3]:.2e} against the plain dF on the boxes inside "
+              f"the map ({card})", flush=True)
+        root13 = os.path.join(root, "p13")
+        os.makedirs(root13)
+        vocab13 = cfg9.NETWORK.BERT_MODEL_NAME
+        r13 = vcr_train_phase(root13, vocab13)
+        if not all(r13["checks"].values()):
+            raise AssertionError(f"VCR training: {r13['checks']}; {r13}")
+        p50_13 = step_p50(r13["step_ms"])
+        wall13, busy13, top13 = r13["profile"]
+        agree13 = r13["fp32"]
+        step_samples = r13["accum"] * r13["micro"]
+        print(f"[13 train VCR] python -m vlbert_tpu_torch.engine.train "
+              f"--task vcr from {VCR_CFGS['Q2A']} at full width (ResNet-101 "
+              f"C4, dilated conv5, VL-BERT 768 x 12 x 12, "
+              f"{r13['n_params'] / 1e6:.1f}M params, bf16, SGD) with "
+              f"overrides {json.dumps(r13['overrides'])}, on "
+              f"{VCR_TRAIN_QUESTIONS} synthetic questions over phase 12's 8 "
+              f"JPEGs: {len(r13['loss'])} optimizer steps of "
+              f"{r13['accum']} micro-steps x {r13['micro']} images x 4 "
+              f"choices, loss {[round(x, 4) for x in r13['loss']]}; val Acc "
+              f"{r13['val_acc']} (random weights); launches per step "
+              f"{r13['want_step']} and per validation run "
+              f"{r13['want_val']}, on every one, total {r13['total']}; files "
+              f"{r13['files']}; AUTO_RESUME: begin_epoch "
+              f"{r13['resume']['begin_epoch']}, optimizer count "
+              f"{r13['resume']['count']}, {r13['resume']['steps']} steps; "
+              f"step p50 {p50_13:.2f} ms (CUDA events, steps "
+              f"3..{len(r13['loss'])}), {step_samples * 1e3 / p50_13:.1f} "
+              f"samples/s; {r13['samples']} samples in {r13['wall_s']:.2f} "
+              f"s of main (setup, loader, validation and checkpoint writes "
+              f"included); peak device memory {r13['peak_gib']:.2f} GiB; "
+              f"profiled window (fixed batch): wall {wall13:.2f} ms/step "
+              f"unprofiled, device busy {busy13:.2f} ms/step, idle share "
+              f"{1 - busy13 / wall13:.3f}; top device time ms/step "
+              f"{[(k, round(v, 3)) for k, v in top13]} ({card})", flush=True)
+        print(f"[13 step fp32 VCR] kernels vs plain versions (plain Philox, "
+              f"plain ROIAlign and its autograd dF), one optimizer step of "
+              f"{r13['accum']} micro-steps from the same weights and seed: "
+              f"loss {agree13['loss'][0]:.6f} vs {agree13['loss'][1]:.6f}, "
+              f"grad norm {agree13['grad_norm'][0]:.6f} vs "
+              f"{agree13['grad_norm'][1]:.6f}, (rel err, rtol) "
+              f"{agree13['checks']}, worst of {agree13['n_leaves']} leaves "
+              f"{agree13['worst_leaf']}, worst by group "
+              f"{ {k: f'{v:.2e}' for k, v in agree13['by_group'].items()} }; "
+              f"launches kernels {agree13['launches'][0]}, plain "
+              f"{agree13['launches'][1]}; a repeat of the kernel step is "
+              f"bit-identical ({card})", flush=True)
+        r13r = refcoco_train_phase(root13, vocab13)
+        if not all(r13r["checks"].values()):
+            raise AssertionError(f"RefCOCO+ training: {r13r['checks']}; "
+                                 f"{r13r}")
+        p50_13r = step_p50(r13r["step_ms"])
+        print(f"[13 train RefCOCO+] python -m vlbert_tpu_torch.engine.train "
+              f"--task refcoco from {CFG} at full width (bf16, AdamW, "
+              f"triangle) with overrides {json.dumps(r13r['overrides'])}, "
+              f"on phase 11's 16 expressions: {len(r13r['loss'])} optimizer "
+              f"steps of {r13r['accum']} x {r13r['micro']} images, loss "
+              f"{[round(x, 4) for x in r13r['loss']]}; val RefAcc "
+              f"{r13r['ref_acc']} (random weights); launches per step "
+              f"{r13r['want_step']} and per validation run "
+              f"{r13r['want_val']}, on every one; checkpoint writes recorded "
+              f"{r13r['saves']}; step p50 {p50_13r:.2f} ms (steps "
+              f"3..{len(r13r['loss'])}), peak device memory "
+              f"{r13r['peak_gib']:.2f} GiB, {r13r['wall_s']:.2f} s of main "
+              f"({card})", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2376,7 +2995,32 @@ def main():
                      "stored the compute dtype (bool mask to uint8, fp32-out "
                      "K1, cast to bf16), timed in this run with this K1"},
          "launches_vcr": {k: v["launches"]["K1"]
-                          for k, v in r12["runs"].items()}},
+                          for k, v in r12["runs"].items()},
+         "launches_train": {"vcr": r13["total"]["K1"],
+                            "refcoco": r13r["total"]["K1"]}},
+        {"name": "roi_align_bwd", "route": "cuda",
+         "source": "vlbert_tpu_torch/csrc/roi_align_bwd.cu",
+         "replaces": "vlbert_tpu/ops/roi_align.py:186",
+         "launches": r13["total"]["K1b"],
+         "launches_refcoco": r13r["total"]["K1b"],
+         "max_abs_err": max(k1b_errs.values()),
+         "err_is_relative_to": "max(1, max |plain dF|) of each case",
+         "ms": k1b_t["vcr"]["ms"], "plain_ms": k1b_t["plain"][0],
+         "bound_ms": k1b_t["vcr"]["bound"][0],
+         "bound_by": k1b_t["vcr"]["bound"][1], "library_ms": k1b_lib[0],
+         "library_kernels": k1b_lib[1],
+         "library_note": f"the backward of one F.grid_sample (bilinear, "
+                         f"border, align_corners) over the 14x14 bin "
+                         f"centres, {k1b_lib[2]}; fp32 max abs err "
+                         f"{k1b_lib[3]:.2e} against the plain dF on the "
+                         f"boxes inside the map",
+         "call_ms": k1b_t["vcr"]["call_ms"],
+         "plain_call_ms": k1b_t["plain"][1],
+         "shape": "g [4,108,14,14,1024] bf16 (live slots "
+                  f"{k1b_t['vcr']['live']}), dF [4,38,75,1024] bf16",
+         "all_live": {"ms": k1b_t["vcr_all_live"]["ms"],
+                      "bound_ms": k1b_t["vcr_all_live"]["bound"][0],
+                      "bound_by": k1b_t["vcr_all_live"]["bound"][1]}},
         {"name": "attention_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
          "fp32_source": "vlbert_tpu_torch/csrc/attention.cu",
@@ -2429,7 +3073,11 @@ def main():
          "source": "vlbert_tpu_torch/csrc/dropout.cu",
          "replaces": "vlbert_tpu/ops/dropout.py:83",
          "launches": launches7["K5_fwd"],
+         "launches_e2e": {"vcr": r13["total"]["K5_fwd"],
+                          "refcoco": r13r["total"]["K5_fwd"]},
          "bwd_launches": launches7["K5_bwd"],
+         "bwd_launches_e2e": {"vcr": r13["total"]["K5_bwd"],
+                              "refcoco": r13r["total"]["K5_bwd"]},
          "max_abs_err": max(k5_errs.values()), "ms": k5_ms[0][0],
          "plain_ms": k5_ms[1][0],
          **dict(zip(("bound_ms", "bound_by"),
@@ -2443,6 +3091,8 @@ def main():
          "fp32_source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "vlbert_tpu/ops/attention.py:300",
          "launches": launches7["K3"],
+         "launches_e2e": {"vcr": r13["total"]["K3"],
+                          "refcoco": r13r["total"]["K3"]},
          "max_abs_err": max(k34_errs["K3"].values()), "ms": k3_ms[0][0],
          "plain_ms": k3_ms[1][0],
          **dict(zip(("bound_ms", "bound_by"),
@@ -2463,6 +3113,8 @@ def main():
          "fp32_source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
          "replaces": "vlbert_tpu/ops/attention.py:326",
          "launches": launches7["K4"],
+         "launches_e2e": {"vcr": r13["total"]["K4"],
+                          "refcoco": r13r["total"]["K4"]},
          "max_abs_err": max(k34_errs["K4"].values()),
          "err_is_relative_to": "max(1, max |plain|)", "ms": k4_ms[0][0],
          "plain_ms": k4_ms[1][0],

@@ -511,3 +511,30 @@ def test_checkpoint_formats_and_blob_loads_match(tmp_path):
                  j_convert.load_npz_checkpoint(str(tmp_path / "conv.npz")))
     with pytest.raises(ValueError, match="'native'"):
         t_convert.load_state_dict_file(str(tmp_path / "native.model"), None)
+
+
+def test_stack_batch_pads_a_batch_of_mixed_canvases():
+    """The one repair in the collate copy: a batch of a landscape and a
+    portrait image (FixPadding's transposed canvases) is padded with
+    zeros to the common largest canvas, each image at its top left; the
+    original cannot stack it. A batch the original stacks is stacked the
+    same."""
+    rng = np.random.default_rng(0)
+    land = rng.integers(1, 256, (4, 6, 3)).astype(np.uint8)
+    port = rng.integers(1, 256, (6, 4, 3)).astype(np.uint8)
+    same = [{"image": land, "boxes": np.ones((2, 4), np.float32),
+             "label": None}, {"image": land[::-1].copy(),
+                              "boxes": np.zeros((2, 4), np.float32),
+                              "label": None}]
+    _assert_same(t_collate.stack_batch(same), j_collate.stack_batch(same))
+    mixed = [dict(same[0]), dict(same[1], image=port)]
+    with pytest.raises(ValueError, match="same shape"):
+        j_collate.stack_batch(mixed)
+    got = t_collate.stack_batch(mixed)
+    assert got["image"].shape == (2, 6, 6, 3) and got["label"] is None
+    assert got["image"].dtype == np.uint8
+    np.testing.assert_array_equal(got["image"][0, :4, :6], land)
+    np.testing.assert_array_equal(got["image"][1, :6, :4], port)
+    assert not got["image"][0, 4:].any() and not got["image"][1, :, 4:].any()
+    np.testing.assert_array_equal(got["boxes"],
+                                  np.stack([s["boxes"] for s in mixed]))

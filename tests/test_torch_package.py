@@ -160,7 +160,8 @@ def test_convert_round_trip(fused_qkv):
 
 def test_nvcc_command_targets_sm90a_and_repo_sources(tmp_path):
     srcs = build.sources()
-    assert {s.name for s in srcs} >= {"roi_align.cu", "attention.cu",
+    assert {s.name for s in srcs} >= {"roi_align.cu", "roi_align_bwd.cu",
+                                      "attention.cu",
                                       "dropout.cu", "attention_dropout.cu",
                                       "attention_dropout_mma.cu"}
     objs = [tmp_path / f"{s.stem}.o" for s in srcs]
@@ -184,7 +185,8 @@ def test_every_source_and_header_is_in_the_digest(tmp_path, monkeypatch):
         assert build._digest(srcs[:i] + srcs[i + 1:]) != full
     # each header counts too: a copy of csrc with one header changed
     headers = sorted(p.name for p in build.CSRC_DIR.glob("*.cuh"))
-    assert {"common.cuh", "attention_dropout.cuh"} <= set(headers)
+    assert {"common.cuh", "attention_dropout.cuh",
+            "roi_align.cuh"} <= set(headers)
     for name in headers:
         copy = tmp_path / name.replace(".", "_")
         copy.mkdir()
@@ -215,7 +217,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
             found[m.group(1)] = [ctype(p) for p in m.group(2).split(",")]
     assert set(found) == set(build.SIGNATURES)
-    assert {"roi_align_fwd", "attention_fwd_f32", "attention_fwd_bf16",
+    assert {"roi_align_fwd", "roi_align_bwd", "attention_fwd_f32",
+            "attention_fwd_bf16",
             "attention_dropout_fwd_f32", "attention_dropout_bwd_f32",
             "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16"} \
         <= set(found)
@@ -224,6 +227,9 @@ def test_ctypes_signatures_match_the_c_entry_points():
     # feat, feat_is_bf16, boxes, box_mask, out, out_is_bf16, ...
     assert found["roi_align_fwd"][4:6] == [ctypes.c_void_p, ctypes.c_int]
     assert len(found["roi_align_fwd"]) == 17
+    # g, g_is_bf16, boxes, box_mask, dfeat, dfeat_is_bf16, ...: K1b takes
+    # K1's arguments in K1's order, g and dF in place of map and output
+    assert found["roi_align_bwd"] == found["roi_align_fwd"]
 
 
 def test_no_fallback_without_nvcc_and_cpu_counters(tmp_path, monkeypatch):

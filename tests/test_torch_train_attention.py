@@ -328,17 +328,43 @@ def test_train_mode_draws_attention_prob_dropout(rng, monkeypatch):
 
 
 def test_roi_align_refuses_a_gradient_on_cuda(monkeypatch):
-    """F3: the CUDA route has no backward yet; asking for one raises."""
+    """F3, repaired with K1b: on CUDA a map that requires grad goes
+    through the autograd Function (K1 forward, K1b backward) and gets the
+    plain dF; the only gradient refused is the boxes' (they come from
+    data), before any launch. Without grad the route launches K1 alone."""
     launched = []
+
+    def fwd(*a):
+        launched.append("K1")
+        return troi.roi_align_plain(a[0], a[1], a[2], pooled_h=a[3],
+                                    pooled_w=a[4], spatial_scale=a[5],
+                                    sampling_ratio=a[6], out_dtype=a[7])
+
+    def bwd(g, boxes, mask, shape, dtype, *a):
+        launched.append("K1b")
+        return troi.roi_align_bwd_plain(
+            torch.empty(shape, dtype=dtype), boxes, mask, g, pooled_h=a[0],
+            pooled_w=a[1], spatial_scale=a[2], sampling_ratio=a[3])
+
     monkeypatch.setattr(ops, "device_kind", lambda t: "cuda")
-    monkeypatch.setattr(troi, "_roi_align_cuda",
-                        lambda *a: launched.append(a) or "launched")
+    monkeypatch.setattr(troi, "_roi_align_cuda", fwd)
+    monkeypatch.setattr(troi, "_roi_align_bwd_cuda", bwd)
     f = torch.randn(1, 6, 7, 8, requires_grad=True)
     boxes = torch.tensor([[[0.0, 0.0, 50.0, 40.0]]])
     mask = torch.ones(1, 1, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="K1b"):
-        troi.roi_align(f, boxes, mask)
-    assert launched == []
+    out = troi.roi_align(f, boxes, mask)
+    assert launched == ["K1"] and out.grad_fn is not None
+    g = torch.randn(out.shape)
+    out.backward(g)
+    assert launched == ["K1", "K1b"]
+    torch.testing.assert_close(
+        f.grad, troi.roi_align_bwd_plain(f.detach(), boxes, mask, g),
+        rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="no gradient for boxes"):
+        troi.roi_align(f, boxes.clone().requires_grad_(), mask)
+    assert launched == ["K1", "K1b"]
+    launched.clear()
     with torch.no_grad():
-        assert troi.roi_align(f, boxes, mask) == "launched"
-    assert troi.roi_align(f.detach(), boxes, mask) == "launched"
+        assert troi.roi_align(f, boxes, mask).grad_fn is None
+    assert troi.roi_align(f.detach(), boxes, mask).grad_fn is None
+    assert launched == ["K1", "K1"]

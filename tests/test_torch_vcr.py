@@ -442,17 +442,25 @@ def test_vcr_val_pairs_the_two_models_as_jax_does(tmp_path, monkeypatch):
     assert vcr_val.paired_accuracies(a, r, db) == (0.5, 0.5, 0.0)
 
 
-def test_vcr_training_on_the_card_is_refused_before_a_step():
-    """End-to-end VCR training needs K1b (the ROIAlign backward): on CUDA
-    check_unported refuses it, naming K1b and queue 1 #5; on the CPU, or
-    with precomputed features, it passes."""
-    from vlbert_tpu_torch.engine.train import check_unported
+def test_vcr_training_on_the_card_is_refused_before_a_step(tmp_path):
+    """With K1b (the ROIAlign backward) VCR trains from pixels on the card:
+    check_unported accepts it, and train_net on a machine without a card
+    gets past it to the device check, which refuses without falling back
+    to the CPU. What stays refused before a step is TRAIN.FP16 with
+    TPU.FP16_PARITY_MODE."""
+    import types
+
+    from vlbert_tpu_torch.engine.train import check_unported, train_net
 
     cfg = _cfg()
     cfg.NETWORK.IMAGE_FEAT_PRECOMPUTED = False
-    with pytest.raises(NotImplementedError, match="K1b.*queue 1 #5"):
-        check_unported(cfg, "vcr", torch.device("cuda"))
-    check_unported(cfg, "vcr", "cpu")
-    check_unported(cfg, "vqa", "cuda")
-    cfg.NETWORK.IMAGE_FEAT_PRECOMPUTED = True
-    check_unported(cfg, "vcr", "cuda")
+    check_unported(cfg)
+    if not torch.cuda.is_available():
+        args = types.SimpleNamespace(model_dir=str(tmp_path), device="cuda")
+        with pytest.raises(RuntimeError, match="cuda is not available"):
+            train_net(args, cfg, "vcr")
+    cfg.TRAIN.FP16 = True
+    check_unported(cfg)
+    cfg.TPU.FP16_PARITY_MODE = True
+    with pytest.raises(NotImplementedError, match="FP16_PARITY_MODE"):
+        check_unported(cfg)

@@ -51,49 +51,23 @@
 // thread reuses them across its channels. sampling_ratio == 1 (the main
 // path) is a compile-time instance with exactly 4 taps a pixel and no grid
 // loops; 0 (adaptive, up to 8x8 samples a bin) and 2-8 share a general
-// instance. Padded slots take no tap arithmetic, only zero stores.
+// instance. Padded slots take no tap arithmetic, only zero stores. The
+// sampling rules and the 16-byte moves live in roi_align.cuh, shared with
+// the dF backward (K1b, roi_align_bwd.cu).
 
 #include <algorithm>
 #include <cstdint>
 
-#include "common.cuh"
+#include "roi_align.cuh"
 
 namespace {
 
+using roi::kMaxGrid;
+using roi::Tap;
+
 constexpr int kThreads = 256;
 constexpr int kAlign = 16;   // bytes per vector load
-constexpr int kMaxGrid = 8;  // == vlbert_tpu_torch.ops.roi_align.MAX_GRID
 constexpr int kMaxPix = 32;  // pixels a block takes at most (small C)
-
-struct Tap {
-  int lo, hi;
-  float wlo, whi;
-};
-
-// One bilinear sample along one axis (ROIAlign_cuda.cu:15-62 rules).
-__device__ Tap make_tap(float y, int size, float contrib) {
-  Tap t;
-  if (y < -1.0f || y > (float)size) {
-    t.lo = t.hi = 0;
-    t.wlo = t.whi = 0.0f;
-    return t;
-  }
-  const float yc = fmaxf(y, 0.0f);
-  int lo = (int)floorf(yc);
-  float l;
-  if (lo >= size - 1) {
-    lo = size - 1;
-    t.hi = size - 1;
-    l = 0.0f;
-  } else {
-    t.hi = lo + 1;
-    l = yc - (float)lo;
-  }
-  t.lo = lo;
-  t.wlo = contrib * (1.0f - l);
-  t.whi = contrib * l;
-  return t;
-}
 
 // The taps of one output pixel; kG samples per axis (0: up to kMaxGrid,
 // counted in gh, gw).
@@ -104,51 +78,6 @@ struct PixelTaps {
   long long image;  // offset of the pixel's image in the map
   int gh, gw, live;
 };
-
-// V channels of one pixel of the map, widened to fp32
-template <int V>
-__device__ __forceinline__ void load_chunk(const float* p, float (&v)[V]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-}
-
-template <int V>
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
-                                           float (&v)[V]) {
-  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {  // bf16 -> fp32 is exact: a 16-bit shift
-    v[2 * k] = __uint_as_float(w[k] << 16);
-    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_chunk(float* o, const float (&a)[V]) {
-#pragma unroll
-  for (int k = 0; k < V / 4; ++k)
-    reinterpret_cast<float4*>(o)[k] =
-        make_float4(a[4 * k], a[4 * k + 1], a[4 * k + 2], a[4 * k + 3]);
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-template <int V>
-__device__ __forceinline__ void store_chunk(__nv_bfloat16* o,
-                                            const float (&a)[V]) {
-  if constexpr (V == 8) {
-    *reinterpret_cast<uint4*>(o) =
-        make_uint4(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
-                   pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7]));
-  } else {
-    *reinterpret_cast<uint2*>(o) =
-        make_uint2(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]));
-  }
-}
 
 template <typename Tin, typename Tout, int kG>
 __global__ void __launch_bounds__(kThreads)
@@ -180,27 +109,14 @@ __global__ void __launch_bounds__(kThreads)
       s.image = bo / O * H * W * (long long)C;
     }
     if (!live) continue;
-    const float* bx = boxes + bo * 4;
-    // the plain version's arithmetic, unfused (no contraction to fma)
-    const float x1 = __fmul_rn(bx[0], scale), y1 = __fmul_rn(bx[1], scale);
-    const float x2 = __fmul_rn(bx[2], scale), y2 = __fmul_rn(bx[3], scale);
-    const float roi = axis == 0 ? fmaxf(__fsub_rn(y2, y1), 1.0f)
-                                : fmaxf(__fsub_rn(x2, x1), 1.0f);
+    const roi::AxisRoi ar = roi::axis_roi(boxes + bo * 4, axis, scale);
     const int pooled = axis == 0 ? P : Q;
-    const int n = kG > 0 ? kG
-                  : sampling_ratio > 0
-                      ? sampling_ratio
-                      : min((int)ceilf(__fdiv_rn(roi, (float)pooled)),
-                            max_grid);
+    const int n = roi::axis_grid<kG>(ar, pooled, sampling_ratio, max_grid);
     if (k == 0) *(axis == 0 ? &s.gh : &s.gw) = n;
     if (k >= n) continue;
-    const float bin = __fdiv_rn(roi, (float)pooled);
-    const float start = axis == 0 ? y1 : x1;
-    const float c = __fadd_rn(
-        __fadd_rn(start, __fmul_rn((float)(axis == 0 ? p : q), bin)),
-        __fdiv_rn(__fmul_rn((float)k + 0.5f, bin), (float)n));
     Tap* taps = axis == 0 ? s.y : s.x;
-    taps[k] = make_tap(c, axis == 0 ? H : W, __fdiv_rn(1.0f, (float)n));
+    taps[k] = roi::axis_tap(ar, pooled, axis == 0 ? p : q, k, n,
+                            axis == 0 ? H : W);
   }
   __syncthreads();
 
@@ -225,10 +141,10 @@ __global__ void __launch_bounds__(kThreads)
         for (int ix = 0; ix < gw; ++ix) {
           const Tap tx = s.x[ix];
           float a[V], b[V], c[V], d[V];
-          load_chunk<V>(rlo + (long long)tx.lo * C, a);
-          load_chunk<V>(rlo + (long long)tx.hi * C, b);
-          load_chunk<V>(rhi + (long long)tx.lo * C, c);
-          load_chunk<V>(rhi + (long long)tx.hi * C, d);
+          roi::load_chunk<V>(rlo + (long long)tx.lo * C, a);
+          roi::load_chunk<V>(rlo + (long long)tx.hi * C, b);
+          roi::load_chunk<V>(rhi + (long long)tx.lo * C, c);
+          roi::load_chunk<V>(rhi + (long long)tx.hi * C, d);
 #pragma unroll
           for (int e = 0; e < V; ++e) {
             const float lo = tx.wlo * a[e] + tx.whi * b[e];
@@ -238,7 +154,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    store_chunk<V>(out + pix * C + c0, acc);
+    roi::store_chunk<V>(out + pix * C + c0, acc);
   }
 }
 

@@ -12,9 +12,14 @@ vqa/modules/resnet_vlbert_for_vqa.py:141-167,
 refcoco/modules/resnet_vlbert_for_refcoco.py:100-108) is pure data movement,
 so it lives here on the host.
 
-Port copy of ``vlbert_tpu/data/collate.py``, unchanged but for its imports:
-the port imports nothing of the JAX package.
-``tests/test_torch_host_copies.py`` holds it to the original.
+Port copy of ``vlbert_tpu/data/collate.py``, unchanged but for its imports
+and one repair: ``stack_batch`` pads a batch whose images differ in shape
+(FixPadding gives landscape and portrait images transposed canvases) to
+their common largest canvas, as the reference pads every batch to its
+largest image; the original cannot stack such a batch, which VCR training
+(shuffled, with no aspect grouping) produces. The port imports nothing of
+the JAX package. ``tests/test_torch_host_copies.py`` holds it to the
+original on every batch the original can stack.
 """
 
 from __future__ import annotations
@@ -119,8 +124,23 @@ def assemble_expression_text(expr_ids, max_len, cls_id, sep_id):
     return ids, mask
 
 
+def _stack(arrays):
+    """np.stack; arrays of one rank but different shapes (the canvases of
+    landscape and portrait images) are first zero-padded at their ends to
+    the largest extent of each axis (the padding FixPadding uses; im_info
+    keeps each image's valid region)."""
+    shape = np.max([a.shape for a in arrays], axis=0)
+    if all(a.shape == tuple(shape) for a in arrays):
+        return np.stack(arrays)
+    out = np.zeros((len(arrays), *shape), arrays[0].dtype)
+    for i, a in enumerate(arrays):
+        out[(i, *map(slice, a.shape))] = a
+    return out
+
+
 def stack_batch(samples):
-    """Stack a list of per-example dicts of fixed-shape arrays."""
+    """Stack a list of per-example dicts of fixed-shape arrays; images of
+    different canvases are padded to the largest (``_stack``)."""
     keys = samples[0].keys()
-    return {k: (np.stack([s[k] for s in samples])
+    return {k: (_stack([s[k] for s in samples])
                 if samples[0][k] is not None else None) for k in keys}

@@ -25,7 +25,8 @@ def parse_args(task=None, description="VL-BERT (PyTorch + CUDA)",
     parser = argparse.ArgumentParser(description=description)
     if task is None:
         parser.add_argument("--task", type=str, required=True,
-                            help="vqa (the only task ported for training)")
+                            choices=("vqa", "vcr", "refcoco"),
+                            help="the task to train")
     parser.add_argument("--cfg", type=str, required=True,
                         help="path to experiment yaml")
     parser.add_argument("--model-dir", type=str, default="",

@@ -4,6 +4,13 @@ with per-epoch validation and checkpoints.
 
     python -m vlbert_tpu_torch.engine.train --task vqa \\
         --cfg cfgs/vqa/base_v5e_bf16.yaml [--do-test]
+    python -m vlbert_tpu_torch.engine.train --task vcr \\
+        --cfg cfgs/vcr/base_q2a_4x16G_fp32.yaml
+    python -m vlbert_tpu_torch.engine.train --task refcoco \\
+        --cfg cfgs/refcoco/base_gt_boxes_4x16G.yaml
+
+VCR and RefCOCO+ train from pixels: the ResNet's unfrozen stages and the
+conv5 RoI head take gradients through ROIAlign (kernels K1 and K1b).
 
 Weights start random (init from RNG_SEED), then take the language (BERT)
 and image (ResNet) warm starts and NETWORK.PARTIAL_PRETRAIN, all on
@@ -52,17 +59,11 @@ def setup_logger(output_path, rank=0):
         force=True)
 
 
-def check_unported(config, task=None, device=None):
+def check_unported(config):
     """Raise on what the config asks for that the port does not do, before
-    anything is built. ``device``: where the run trains."""
-    if task == "vcr" and not config.NETWORK.IMAGE_FEAT_PRECOMPUTED \
-            and torch.device(device or "cpu").type == "cuda":
-        raise NotImplementedError(
-            "VCR training on the end-to-end visual path needs the ROIAlign "
-            "backward (K1b, the dF of vlbert_tpu/ops/roi_align.py::_sep_bwd) "
-            "and the ResNet backward on CUDA, which are not ported yet; see "
-            "ROADMAP.md queue 1 #5. VCR inference runs: python -m "
-            "vlbert_tpu_torch.engine.test --task vcr")
+    anything is built. Every task the port trains, trains on the CPU and
+    on the card, from precomputed features and from pixels; what is
+    refused is the float16 parity mode."""
     if config.TRAIN.FP16 and config.TPU.get("FP16_PARITY_MODE", False):
         raise NotImplementedError(
             "TRAIN.FP16 with TPU.FP16_PARITY_MODE asks for float16 compute "
@@ -202,7 +203,7 @@ def train_net(args, config, task):
     logger.info("config: %s", dict(config))
     model_prefix = model_prefix_of(config, output_path)
     device = torch.device(getattr(args, "device", "cuda"))
-    check_unported(config, task, device)
+    check_unported(config)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but torch.cuda is not "
                            "available")

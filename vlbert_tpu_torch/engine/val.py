@@ -10,7 +10,8 @@ from vlbert_tpu_torch.training import metrics as metrics_lib
 from vlbert_tpu_torch.training.loop import make_eval_step, to_device
 
 # which trailing batch entries are labels, and the output key each feeds
-TASK_LABELS = {"vcr": {"label": -1}, "vqa": {"label": -1}}
+TASK_LABELS = {"vcr": {"label": -1}, "vqa": {"label": -1},
+               "refcoco": {"label": -1}}
 
 
 def label_map_of(config, task):

@@ -56,6 +56,10 @@ SIGNATURES = {
     # O, P, Q, spatial_scale, sampling_ratio, max_grid, stream
     "roi_align_fwd": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _F, _I, _I, _P),
+    # g, g_is_bf16, boxes, box_mask, dfeat, dfeat_is_bf16, B, H, W, C, O,
+    # P, Q, spatial_scale, sampling_ratio, max_grid, stream
+    "roi_align_bwd": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _F, _I, _I, _P),
     # attention without dropout in fp32 (CUDA cores) and bf16 (tensor
     # cores): q, k, v, bias, out, B, L, H, D, q strides (b, l, h), k
     # strides, v strides, scale, stream

@@ -15,6 +15,13 @@ Then for both: the optional 128-d class embedding (``image_semantic``,
 coordinate embeddings before them, and ``obj_downsample`` (Dropout(0.1) +
 Linear) + ReLU. Masked box slots are zeroed at the end.
 
+Training from pixels: ROIAlign's map gradient is kernel K1b on CUDA, and
+frozen stages are parameters without ``requires_grad``, so no gradient
+reaches stages 1-2 or the image. As in the JAX package, a frozen conv5
+head (stage 5) still passes the gradient through to stages 3-4; only when
+stages 1-5 are all frozen is the pooled feature detached, and nothing
+flows into the backbone.
+
 Everything stays in the padded [B, O, ...] layout with a box validity
 mask. Not ported yet: MVRC feature masking (``mvrc_ops``, pretraining,
 ROADMAP.md queue 1 #8).
@@ -43,10 +50,12 @@ class FastRCNN(nn.Module):
                  enable_cnn_reg_loss=False, image_semantic=False,
                  roi_sampling_ratio=1,
                  pixel_means=(102.9801, 115.9465, 122.7717),
-                 pixel_stds=(1.0, 1.0, 1.0), visual_feat_dim=2048, *,
-                 dtype=torch.float32, device=None):
+                 pixel_stds=(1.0, 1.0, 1.0), visual_feat_dim=2048,
+                 frozen_stages=(), *, dtype=torch.float32, device=None):
         super().__init__()
         self.image_feat_precomputed = image_feat_precomputed
+        # stages 1-5 all frozen: no gradient into the backbone
+        self.frozen_backbone = {1, 2, 3, 4, 5} <= set(frozen_stages)
         # the regularizing classifier reads the pooled RoI features, which
         # the precomputed mode does not compute
         self.enable_cnn_reg_loss = enable_cnn_reg_loss \
@@ -129,6 +138,8 @@ class FastRCNN(nn.Module):
             # the mean in fp32 over the compute-dtype map, with no fp32
             # copy of the map
             post_roialign = feat.mean(dim=(2, 3), dtype=torch.float32)
+            if self.frozen_backbone:
+                post_roialign = post_roialign.detach()
 
         outputs = {}
         if self.enable_cnn_reg_loss:

@@ -1,12 +1,11 @@
 """Task modules (port of vlbert_tpu/models/task_modules.py).
 
-Ported so far: the RefCOCO+ grounding model, eval branch
+Ported: the RefCOCO+ grounding model, train and eval
 (``ResNetVLBERTForRefCOCO``); the VQA model, train and eval
 (``ResNetVLBERTForVQA`` with its ``1fc`` / ``2fc`` / ``mlm`` classifiers);
 the VCR models, train and eval (``ResNetVLBERTForVCR`` for Q2A and QA2R,
-``ResNetVLBERTForVCRQ2AR`` for the single-model Q2AR with its second head;
-their training on the CUDA end-to-end visual path waits for the ROIAlign
-backward, see ``engine/train.py::check_unported``). Text arrives
+``ResNetVLBERTForVCRQ2AR`` for the single-model Q2AR with its second
+head), each from precomputed features or from pixels. Text arrives
 pre-assembled by the host; boxes stay in the static [B, O] layout with a
 mask. A module in training mode returns (outputs, loss) and in eval mode
 its outputs. ``build_module`` raises NotImplementedError, naming the
@@ -132,12 +131,14 @@ def _fast_rcnn_from_cfg(cfg, vl_cfg, device=None, with_classes=False,
         pixel_means=tuple(n.PIXEL_MEANS or (102.9801, 115.9465, 122.7717)),
         pixel_stds=tuple(n.PIXEL_STDS or (1.0, 1.0, 1.0)),
         visual_feat_dim=cfg.DATASET.get("PRECOMPUTED_FEAT_DIM", 2048),
+        frozen_stages=tuple(n.IMAGE_FROZEN_BACKBONE_STAGES),
         dtype=vl_cfg.dtype, device=device)
 
 
 class ResNetVLBERTForRefCOCO(nn.Module):
-    """RefCOCO+ grounding model, inference: per-box logits and the argmax
-    box in original image coordinates."""
+    """RefCOCO+ grounding model: per-box logits; in eval mode also the
+    argmax box in original image coordinates. Training loss: BCE over the
+    live box slots against the IoU > 0.5 labels."""
 
     def __init__(self, config, vl_config, *, device=None):
         super().__init__()
@@ -153,11 +154,7 @@ class ResNetVLBERTForRefCOCO(nn.Module):
             Linear(vl.hidden_size, 1, **kw))
 
     def forward(self, image, boxes, box_mask, im_info, text_input_ids,
-                text_mask, label=None, train=False):
-        if train:
-            raise NotImplementedError(
-                "RefCOCO+ training is not ported yet; see ROADMAP.md "
-                "queue 1 (training)")
+                text_mask, label=None):
         B, O = box_mask.shape
         obj_reps = self.image_feature_extractor(image, boxes, box_mask,
                                                 im_info)["obj_reps"]
@@ -174,6 +171,15 @@ class ResNetVLBERTForRefCOCO(nn.Module):
         # invalid slots pushed to -10000
         logits = torch.where(box_mask.bool(), logits,
                              torch.full_like(logits, -10000.0))
+        if self.training:
+            if label is None:
+                raise ValueError("ResNetVLBERTForRefCOCO in training mode "
+                                 "needs label")
+            cls_loss = losses.bce_with_logits_masked(logits, label, box_mask)
+            return {"label_logits": logits, "cls_loss": cls_loss,
+                    "label": torch.where(box_mask.bool(), label.to(
+                        torch.float32), torch.full_like(logits, -1.0))}, \
+                cls_loss
 
         # argmax box, rescaled to original image coords
         best = logits.argmax(dim=1)

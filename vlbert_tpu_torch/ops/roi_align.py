@@ -7,12 +7,17 @@ grid of bilinear samples (gh = ceil(roi_h / P) when ``sampling_ratio`` is 0),
 samples with y < -1 or y > H contribute 0, y is clamped to 0 from below and
 y_low = y_high = H-1 at the top edge. Computed in fp32.
 
-Two versions of one function:
+Two versions of the forward and of the map's gradient:
   * ``roi_align_plain``: the separable formulation of the JAX package
     (row weights Ry[B,O,P,H] and column weights Cx[B,O,Q,W], two einsums) in
-    plain PyTorch. It is exact, and it is the oracle for the kernel.
-  * kernel K1 (``csrc/roi_align.cu``), launched by ``roi_align`` for CUDA
-    tensors.
+    plain PyTorch. It is exact, and it is the oracle for kernel K1
+    (``csrc/roi_align.cu``), launched by ``roi_align`` for CUDA tensors.
+  * ``roi_align_bwd_plain``: the map's gradient, the dF half of the JAX
+    package's ``_sep_bwd`` (two einsums), the oracle for kernel K1b
+    (``csrc/roi_align_bwd.cu``, deterministic). ``roi_align`` on a CUDA
+    map that requires grad runs K1 forward and K1b backward in one
+    ``torch.autograd.Function``. Boxes come from data: they get no
+    gradient, and asking for one on CUDA raises.
 
 Both take ``out_dtype`` (fp32, the JAX kernel's contract, or bf16): the
 fp32 result rounded once to it, so a caller that computes in bf16 gets its
@@ -36,6 +41,10 @@ OUT_DTYPES = (torch.float32, torch.bfloat16)
 # the kernel moves 16 bytes of channels a thread: C must be a multiple of
 # this many elements, and the map must start on a 16-byte boundary
 VECTOR_ELEMENTS = {torch.float32: 4, torch.bfloat16: 8}
+# K1b keeps one roi pass's weights in shared memory for pooled sizes up to
+# this, and gives a thread at most two 16-byte chunks of a pixel's channels
+MAX_POOLED = 16
+MAX_BWD_CHUNKS = 512
 
 
 def _interp_weights(start, roi_size, grid_n, pooled_size, fm_size):
@@ -154,9 +163,9 @@ def roi_align(features, boxes, box_mask, *, pooled_h=14, pooled_w=14,
     Returns:
       [B, O, pooled_h, pooled_w, C] in ``out_dtype``
 
-    A CPU tensor takes ``roi_align_plain``; a CUDA tensor launches the
-    kernel or raises. The kernel has no backward yet (ROADMAP.md queue 2,
-    K1b): asking it for a gradient raises instead of cutting the graph.
+    A CPU tensor takes ``roi_align_plain`` (autograd differentiates it);
+    a CUDA tensor launches the kernel or raises. A CUDA map that requires
+    grad goes through ``_RoIAlign``: K1 forward, K1b backward.
     """
     _check_out_dtype(out_dtype)
     kind = ops.device_kind(features)
@@ -167,12 +176,75 @@ def roi_align(features, boxes, box_mask, *, pooled_h=14, pooled_w=14,
                                out_dtype=out_dtype)
     if kind != "cuda":
         raise ValueError(f"roi_align: unsupported device {features.device}")
-    if torch.is_grad_enabled() and features.requires_grad:
+    if torch.is_grad_enabled() and boxes.requires_grad:
         raise NotImplementedError(
-            "roi_align on CUDA has no backward yet: the ROIAlign dF kernel "
-            "is ROADMAP.md queue 2, K1b")
+            "roi_align on CUDA gives no gradient for boxes (they come from "
+            "data): detach them")
+    if torch.is_grad_enabled() and features.requires_grad:
+        return _RoIAlign.apply(features, boxes, box_mask, pooled_h, pooled_w,
+                               spatial_scale, sampling_ratio, out_dtype)
     return _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
                            spatial_scale, sampling_ratio, out_dtype)
+
+
+class _RoIAlign(torch.autograd.Function):
+    """K1 forward, K1b backward; the gradient reaches the map only."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, box_mask, pooled_h, pooled_w,
+                spatial_scale, sampling_ratio, out_dtype):
+        ctx.save_for_backward(boxes, box_mask)
+        ctx.args = (tuple(features.shape), features.dtype, pooled_h,
+                    pooled_w, spatial_scale, sampling_ratio)
+        return _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
+                               spatial_scale, sampling_ratio, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        boxes, box_mask = ctx.saved_tensors
+        df = _roi_align_bwd_cuda(g, boxes, box_mask, *ctx.args)
+        roi_align.bwd_launches += 1
+        return df, None, None, None, None, None, None, None
+
+
+def roi_align_bwd_plain(features, boxes, box_mask, g, *, pooled_h=14,
+                        pooled_w=14, spatial_scale=1.0 / 16,
+                        sampling_ratio=0):
+    """Plain PyTorch dF of ``roi_align``: the first two einsums of the JAX
+    package's ``_sep_bwd`` in fp32, cast to the features' dtype.
+
+    features [B, H, W, C] (its shape and dtype only), boxes [B, O, 4],
+    box_mask [B, O], g [B, O, pooled_h, pooled_w, C] (any float) ->
+    [B, H, W, C]; padded slots contribute nothing.
+    """
+    _, H, W, _ = features.shape
+    ry, cx = roi_align_weights(boxes, H, W, pooled_h, pooled_w,
+                               spatial_scale, sampling_ratio)
+    mask = box_mask.to(torch.float32)[..., None, None]
+    g = g.to(torch.float32)
+    gy = torch.einsum("boqw,bopqc->bopwc", cx * mask, g)
+    df = torch.einsum("boph,bopwc->bhwc", ry * mask, gy)
+    return df.to(features.dtype)
+
+
+def _check_boxes(B, boxes, box_mask, dev):
+    """Boxes [B,O,4] and mask [B,O] on ``dev``, as the kernels read them:
+    fp32 boxes, the mask as bytes (a bool is read in place: a conversion
+    would be a launch of its own on every call)."""
+    if boxes.shape[:1] != (B,) or boxes.dim() != 3 or boxes.shape[2] != 4:
+        raise ValueError(f"roi_align: boxes must be [B,O,4], got "
+                         f"{tuple(boxes.shape)}")
+    O = boxes.shape[1]
+    if tuple(box_mask.shape) != (B, O):
+        raise ValueError(f"roi_align: box_mask must be [B,O]=({B},{O}), got "
+                         f"{tuple(box_mask.shape)}")
+    for name, t in (("boxes", boxes), ("box_mask", box_mask)):
+        if t.device != dev:
+            raise ValueError(f"roi_align: {name} on {t.device}, features on "
+                             f"{dev}")
+    mask = (box_mask.view(torch.uint8) if box_mask.dtype == torch.bool
+            else box_mask.to(torch.uint8)).contiguous()
+    return boxes.to(torch.float32).contiguous(), mask, O
 
 
 def _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
@@ -184,13 +256,6 @@ def _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
         raise ValueError(f"roi_align: features must be [B,H,W,C], got "
                          f"{tuple(features.shape)}")
     B, H, W, C = features.shape
-    if boxes.shape[:1] != (B,) or boxes.dim() != 3 or boxes.shape[2] != 4:
-        raise ValueError(f"roi_align: boxes must be [B,O,4], got "
-                         f"{tuple(boxes.shape)}")
-    O = boxes.shape[1]
-    if tuple(box_mask.shape) != (B, O):
-        raise ValueError(f"roi_align: box_mask must be [B,O]=({B},{O}), got "
-                         f"{tuple(box_mask.shape)}")
     if features.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"roi_align kernel takes fp32 or bf16 features, got "
                         f"{features.dtype}")
@@ -205,15 +270,7 @@ def _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
         raise ValueError("roi_align kernel needs features that start on a "
                          "16-byte boundary")
     dev = features.device
-    for name, t in (("boxes", boxes), ("box_mask", box_mask)):
-        if t.device != dev:
-            raise ValueError(f"roi_align: {name} on {t.device}, features on "
-                             f"{dev}")
-    boxes = boxes.to(torch.float32).contiguous()
-    # a bool is one byte, 0 or 1: read it in place (a conversion would be a
-    # launch of its own on every call)
-    mask = (box_mask.view(torch.uint8) if box_mask.dtype == torch.bool
-            else box_mask.to(torch.uint8)).contiguous()
+    boxes, mask, O = _check_boxes(B, boxes, box_mask, dev)
     out = torch.empty((B, O, pooled_h, pooled_w, C), dtype=out_dtype,
                       device=dev)
     lib = build.load()
@@ -228,4 +285,43 @@ def _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
     return out
 
 
-roi_align.launches = 0
+def _roi_align_bwd_cuda(g, boxes, box_mask, shape, dtype, pooled_h,
+                        pooled_w, spatial_scale, sampling_ratio):
+    """K1b: dF [B, H, W, C] in ``dtype`` from g [B, O, P, Q, C]."""
+    from vlbert_tpu_torch.kernels import build
+
+    B, H, W, C = shape
+    dev = g.device
+    boxes, mask, O = _check_boxes(B, boxes, box_mask, dev)
+    if tuple(g.shape) != (B, O, pooled_h, pooled_w, C):
+        raise ValueError(f"roi_align backward: g must be "
+                         f"{(B, O, pooled_h, pooled_w, C)}, got "
+                         f"{tuple(g.shape)}")
+    if g.dtype not in OUT_DTYPES or dtype not in OUT_DTYPES:
+        raise TypeError(f"roi_align backward kernel takes and gives fp32 or "
+                        f"bf16, got g {g.dtype}, features {dtype}")
+    if max(pooled_h, pooled_w) > MAX_POOLED:
+        raise ValueError(f"roi_align backward kernel takes pooled sizes up "
+                         f"to {MAX_POOLED}, got {pooled_h}x{pooled_w}")
+    vec = VECTOR_ELEMENTS[g.dtype]
+    if C % vec or C // vec > MAX_BWD_CHUNKS:
+        raise ValueError(f"roi_align backward kernel moves 16 bytes of "
+                         f"channels a thread, at most {MAX_BWD_CHUNKS} a "
+                         f"pixel: C={C} ({g.dtype})")
+    g = g.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    df = torch.empty(shape, dtype=dtype, device=dev)
+    lib = build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.roi_align_bwd(
+        g.data_ptr(), int(g.dtype == torch.bfloat16), boxes.data_ptr(),
+        mask.data_ptr(), df.data_ptr(), int(dtype == torch.bfloat16), B, H,
+        W, C, O, pooled_h, pooled_w, float(spatial_scale),
+        int(sampling_ratio), MAX_GRID, stream)
+    build.check(err, "roi_align_bwd")
+    return df
+
+
+roi_align.launches = 0        # K1 launches
+roi_align.bwd_launches = 0    # K1b launches

@@ -3,8 +3,8 @@
 Each metric is computed on the device from a step's outputs and stays
 there as a tensor; the host accumulates them into Python floats only at
 log points (``HostAccumulator``), so a step does not wait on the device.
-Ported so far: the VQA and VCR metrics; the RefCOCO+ and pretraining ones
-are ROADMAP.md queue 1 #5 and #8.
+Ported: the VQA, VCR and RefCOCO+ metrics; the pretraining ones are
+ROADMAP.md queue 1 #8.
 """
 
 from __future__ import annotations
@@ -60,16 +60,63 @@ def vqa_soft_accuracy(outputs):
     return (score if vf is None else score * vf).sum(), n
 
 
+def refcoco_accuracy(outputs):
+    """The argmax region is a positive one (IoU > 0.5 with the referent)."""
+    logits, label = outputs["label_logits"], outputs["label"]
+    vf, n = _sample_valid(outputs, logits.shape[0])
+    idx = logits.argmax(dim=1)
+    hit = torch.gather(label, 1, idx[:, None])[:, 0] > 0.5
+    return _correct_sum(hit, vf), n
+
+
+def _region_masks(outputs):
+    """(valid, positive) [B, O] region masks: label >= 0 marks a live slot
+    (padded slots carry -1), label > 0.5 a positive one; wrap-padded
+    samples drop out."""
+    label = outputs["label"]
+    valid, pos = label >= 0, label > 0.5
+    vf, _ = _sample_valid(outputs, label.shape[0])
+    if vf is not None:
+        keep = vf[:, None] > 0
+        valid, pos = valid & keep, pos & keep
+    return valid, pos
+
+
+def refcoco_cls_accuracy(outputs):
+    """Per-region binary accuracy (logit > 0 against label > 0.5) over the
+    live slots."""
+    valid, pos = _region_masks(outputs)
+    correct = ((outputs["label_logits"] > 0) == pos) & valid
+    return correct.to(torch.float32).sum(), valid.to(torch.float32).sum()
+
+
+def refcoco_cls_pos_accuracy(outputs):
+    """Binary accuracy over the positive regions only."""
+    _, pos = _region_masks(outputs)
+    correct = (outputs["label_logits"] > 0) & pos
+    return correct.to(torch.float32).sum(), pos.to(torch.float32).sum()
+
+
+def refcoco_cls_pos_fraction(outputs):
+    """The fraction of live regions that are positive."""
+    valid, pos = _region_masks(outputs)
+    return pos.to(torch.float32).sum(), valid.to(torch.float32).sum()
+
+
 def loss_logger(outputs, key):
     """Running mean of a loss output."""
     return outputs[key].detach().to(torch.float32).sum(), 1
 
 
 # the named host metric of each task's ValidationMonitor
-HOST_METRIC_NAME = {"vcr": "Acc", "vqa": "SoftAcc"}
+HOST_METRIC_NAME = {"vcr": "Acc", "vqa": "SoftAcc", "refcoco": "RefAcc"}
 
 TASK_METRICS = {"vcr": {"Acc": vcr_accuracy},
-                "vqa": {"SoftAcc": vqa_soft_accuracy}}
+                "vqa": {"SoftAcc": vqa_soft_accuracy},
+                "refcoco": {"RefAcc": refcoco_accuracy,
+                            "ClsAcc": refcoco_cls_accuracy,
+                            "ClsPosAcc": refcoco_cls_pos_accuracy,
+                            "ClsPosFrac": refcoco_cls_pos_fraction}}
 
 
 def device_metrics(task, config, outputs):
