@@ -13,12 +13,13 @@ its own line:
      output, sampling ratio 1, 0 and 2) at the serve shape, at B=2 with 37
      slots, at the RefCOCO+ test driver's B=4 with 108 slots, at VCR's
      B=4 on 600x1200 canvases with 108 slots, on the portrait map of a
-     640x480 query and at an odd C, and attention (K2; bf16 on the tensor
-     cores, fp32 on the CUDA cores) at L = 1, 41, 63, 64, 65, 128 (B=16
+     640x480 query and at an odd C, and attention (K2 on the tensor cores;
+     fp32 by a three-product TF32 split) at L = 1, 41, 63, 64, 65, 128 (B=16
      and test_net_vqa's B=64) and 173 (B=1, test_net_refcoco's B=4 and
      VCR's 4 questions x 4 choices, B=16) against their plain PyTorch
      versions, with device times (profiler) and per-call CUDA-event times
-     for both; K1 also timed by kernel name with its kernels per call, and
+     for both (K2 in bf16 and fp32 at L = 41, 128 and 173); K1 also timed
+     by kernel name with its kernels per call, and
      the three ops the main path ran before K1 stored the compute dtype
      (the mask's conversion, the fp32-out K1, the cast);
   4. serve: ResNetVLBERTForRefCOCO from cfgs/refcoco/base_gt_boxes_4x16G.yaml
@@ -27,23 +28,25 @@ its own line:
      port's RefCOCOServer; answers 8 distinct queries and checks that each
      launched K1 once and K2 twelve times;
   5. end-to-end agreement: the same weights in fp32, one query, with the
-     kernels and with their plain versions;
+     kernels (K1 once, the fp32 K2 12 times) and with their plain versions;
   6. training-kernel parity at the VQA training shapes, fp32 and bf16:
      dropout (K5) forward and backward, also at odd sizes and on views
      that start off a 16-byte boundary, attention with prob dropout
-     forward (K3) and backward (K4; bf16 on the tensor cores, fp32 on the
-     CUDA cores) at L = 128, 41 and 173, and K2's backward, each against
-     its plain version in explicit-bits and Philox mode (timed in bf16 and,
-     at B=16 L=128, on the fp32 route); the kernels' keep
-     masks are read back exactly in both dtypes and must equal the plain
-     Philox's bit for bit, the backward must replay the forward's mask, the
-     keep fraction must lie within 5 sigma of 1 - rate and two seeds must
-     differ; a bf16 K4 repeated on the same inputs must give bit-identical
-     gradients. Then the yardsticks: one PyTorch library call per kernel
-     that computes the same function (scaled_dot_product_attention, also
-     in fp32 with dropout and its backward beside the fp32 K3 and K4,
-     dropout), timed and never used by the port, and the SASS instructions
-     of one Philox evaluation, for each kernel's Philox floor;
+     forward (K3; bf16 on the tensor cores, fp32 on the CUDA cores) and
+     backward (K4 on the tensor cores; fp32 by the TF32 split) at L = 128,
+     41 and 173, and K2's backward, each against its plain version in
+     explicit-bits and Philox mode (timed in bf16 and, at B=16 L=128, on
+     the fp32 route; the fp32 K4 also at VCR's B=16 L=173); the kernels'
+     keep masks are read back exactly in both dtypes and must equal the
+     plain Philox's bit for bit, the backward must replay the forward's
+     mask, the keep fraction must lie within 5 sigma of 1 - rate and two
+     seeds must differ; a K4 repeated on the same inputs must give
+     bit-identical gradients in both dtypes. Then the yardsticks: one
+     PyTorch library call per kernel that computes the same function
+     (scaled_dot_product_attention, also in fp32 at K2's timed shapes,
+     with dropout and its backward beside the fp32 K3 and K4, dropout),
+     timed and never used by the port, and the SASS instructions of one
+     Philox evaluation, for each kernel's Philox floor;
   7. train: train_net (python -m vlbert_tpu_torch.engine.train) on a
      synthetic VQA set in the dataset's on-disk format, from
      cfgs/vqa/base_v5e_bf16.yaml at full width (VL-BERT 768 x 12 x 12,
@@ -58,7 +61,8 @@ its own line:
      with the kernels and with the plain versions (plain Philox, so the
      same masks): loss, gradient norm, every gradient leaf and the updated
      weights; and a repeat of the kernel step that must give
-     bit-identical parameters;
+     bit-identical parameters; the kernel step's attention device ms by
+     kernel name (profiler);
   9. train -> checkpoint -> resume: train_net from the same config on
      phase 7's set, warm-started through NETWORK.PARTIAL_PRETRAIN from a
      reference-layout pretrain checkpoint the script writes (``module.``
@@ -71,7 +75,8 @@ its own line:
   10. VQA server: phase 9's -best.model in VQAServer (bucket 64 text + 108
      boxes, L = 173), bf16, 8 distinct questions, each launching K2 12
      times and no other kernel; latency p50 / p90; then fp32 logits with
-     the kernels and with the plain versions on one query;
+     the kernels (K2 12 launches) and with the plain versions on one
+     query;
   11. test drivers: test_net_vqa on a 64-question test split from phase
      9's checkpoint (K2 12 launches a batch), and ``python -m
      vlbert_tpu_torch.engine.test --task refcoco`` (its ``main``) from
@@ -111,7 +116,8 @@ its own line:
      AUTO_RESUMEs past the last; step p50, peak memory and a profiler
      window's idle share; an fp32 optimizer step with the kernels and with
      the plain versions (plain ROIAlign too), every gradient leaf held,
-     stages 3-4 and the RoI head apart; then ``--task refcoco`` from the
+     stages 3-4 and the RoI head apart, and its attention device ms by
+     kernel name; then ``--task refcoco`` from the
      shipped RefCOCO+ config on phase 11's expressions: 8 AdamW steps with
      exact launches, a falling loss, RefAcc from validation.
 
@@ -128,7 +134,8 @@ sampling ratio 1 for boxes inside the map; for K1b that call's
 backward), and bound_ms: the larger of the bytes it must move over 3.35 TB/s and its
 operations over the H100's peak for its dtype (bound_by says which; K1's
 for its main-path route, bf16 in and out, with the fp32-out route beside
-it);
+it; attention's fp32 products at the faster of the CUDA cores and three
+TF32 products on the tensor cores);
 K3, K4 and K5 also carry philox_floor_ms, their Philox evaluations times
 the instructions of one over the card's integer issue rate.
 """
@@ -198,7 +205,7 @@ IMAGE_LEAF_PREFIX = "image_feature_extractor."
 # 700 W power limit): the roofline that bound_ms is reckoned against. Each
 # input byte is counted read once and each output byte written once.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 494.7e12}
 # int32 ALU lanes per SM and clock on Hopper: the integer issue rate that
 # a Philox evaluation's instructions are reckoned against
 INT_LANES_PER_SM = 64
@@ -216,12 +223,23 @@ def attention_bound(B, L, H, D, dtype, backward=False):
     """Roofline of attention over [B, L, H, D] q, k, v and a [B,1,1,L] fp32
     bias. Forward: reads q, k, v, bias, writes out; 2 products of 2·L²·D
     per (b, h). Backward: reads q, k, v, g, bias, writes dq, dk, dv and
-    dbias; 5 products (S again, dP, dV, dQ, dK)."""
+    dbias; 5 products (S again, dP, dV, dQ, dK). In fp32 the products run
+    on the CUDA cores or, as three TF32 products (the split that keeps
+    fp32 accuracy), on the tensor cores, whichever is faster; bound_by
+    names the route: "operations (fp32)" or "operations (tf32 x3)"."""
     es = 2 if dtype == "bfloat16" else 4
     t = B * L * H * D * es
     if backward:
-        return roofline(7 * t + 2 * B * L * 4, 10 * B * H * L * L * D, dtype)
-    return roofline(4 * t + B * L * 4, 4 * B * H * L * L * D, dtype)
+        nbytes, ops = 7 * t + 2 * B * L * 4, 10 * B * H * L * L * D
+    else:
+        nbytes, ops = 4 * t + B * L * 4, 4 * B * H * L * L * D
+    if dtype != "float32":
+        return roofline(nbytes, ops, dtype)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = min((ops / PEAK_OPS_PER_S["float32"] * 1e3, "operations (fp32)"),
+                (3 * ops / PEAK_OPS_PER_S["tf32"] * 1e3,
+                 "operations (tf32 x3)"))
+    return (t_bytes, "bytes") if t_bytes >= t_ops[0] else t_ops
 
 
 # Philox4x32-10 evaluations per call of each kernel that draws a mask, at
@@ -647,16 +665,16 @@ K2_TIMED = ((1, 41), (16, 128), (1, 173), (16, 173))
 
 
 def k2_parity(dev):
-    """Attention kernel vs plain, bf16 (tensor cores) and fp32 (CUDA
-    cores), H=12, D=64, at the (B, L) of K2_CASES: L = 41 is the serve
+    """Attention kernel vs plain, bf16 and fp32 (both on the tensor cores,
+    fp32 by a three-product TF32 split), H=12, D=64, at the (B, L) of
+    K2_CASES: L = 41 is the serve
     shape (24 text + 16 boxes + END), 128 the VQA validation (B=16) and
     test_net_vqa (B=64) shape, 173 the VQA server's (B=1) and
     test_net_refcoco's (B=4) bucket, and 1, 63, 64, 65 the ragged edges
     of one 64-row tile, and B=16 L=173 VCR's 4 questions x 4 choices. 5
     keys masked (at L=1 the only key, a fully masked row); q, k, v are
-    strided views of one fused projection. Device times in bf16 at the
-    cases of K2_TIMED, keyed "B{B}_L{L}", and of the fp32 route (CUDA
-    cores) at B=16 L=128 under "B16_L128_fp32"."""
+    strided views of one fused projection. Device times at the cases of
+    K2_TIMED, keyed "B{B}_L{L}" (bf16) and "B{B}_L{L}_fp32"."""
     import torch
     from vlbert_tpu_torch.ops.attention import fused_attention, plain_attention
 
@@ -680,11 +698,15 @@ def k2_parity(dev):
                                      f"{err} > {tol}")
             errs[f"B{B}_L{L}/{str(dtype)[6:]}"] = err
             key = f"B{B}_L{L}" + ("" if dtype == torch.bfloat16 else "_fp32")
-            if (B, L) in K2_TIMED and (dtype == torch.bfloat16
-                                       or (B, L) == (16, 128)):
+            if (B, L) in K2_TIMED:
                 timing[key] = (cuda_ms(lambda: fused_attention(q, k, v, bias)),
                                cuda_ms(lambda: plain_attention(q, k, v, bias)))
     return errs, timing
+
+
+def ms_by_name(ms):
+    """{name: ms} rounded for a log line."""
+    return {k: round(v, 4) for k, v in ms.items()}
 
 
 def _maxerr(a, b):
@@ -830,9 +852,13 @@ def _attention_masks(dev, seed, dtype, B=16, H=12, L=128, D=64):
 def k34_parity(dev):
     """K3/K4 vs plain at B=16 H=12 L=128 D=64 and at B=4 with L = 41 and
     173 (7 padded keys, one all-masked batch row), explicit bits and
-    Philox, fp32 (CUDA cores) and bf16 (tensor cores); masks read back bit
-    for bit in both dtypes; a bf16 backward repeated bit for bit; K2's
-    backward; timings in bf16 and of the fp32 route at B=16 L=128."""
+    Philox, fp32 (K3 on the CUDA cores, K4 on the tensor cores by the TF32
+    split) and bf16 (tensor cores); masks read back bit for bit in both
+    dtypes; a backward repeated bit for bit in both dtypes; K2's backward;
+    timings in bf16 and of the fp32 route at B=16 L=128 (K4 also at VCR's
+    B=16 L=173), with K4's device time by kernel. Returns (errs, mask
+    stats, bf16 K3 and K4 (kernel, plain) times, bf16 K4 by kernel, the
+    fp32 route's {"k3", "k4", "k4_L173", "k4_split"})."""
     import torch
     from vlbert_tpu_torch.ops.attention import (
         attention_bits, fused_attention, fused_attention_dropout,
@@ -865,15 +891,14 @@ def k34_parity(dev):
                 errs["K4"][key] = e4
             if L != 128:
                 continue
-            if dtype == torch.bfloat16:
-                a = fused_attention_dropout(q, k, v, bias, DROP_RATE,
-                                            seed=SEED + 13)
-                g1, g2 = (torch.autograd.grad(a, (qkv, bias), gy,
-                                              retain_graph=True)
-                          for _ in range(2))
-                if not all(map(torch.equal, g1, g2)):
-                    raise AssertionError("K4 bf16: two calls on the same "
-                                         "inputs gave different gradients")
+            a = fused_attention_dropout(q, k, v, bias, DROP_RATE,
+                                        seed=SEED + 13)
+            g1, g2 = (torch.autograd.grad(a, (qkv, bias), gy,
+                                          retain_graph=True)
+                      for _ in range(2))
+            if not all(map(torch.equal, g1, g2)):
+                raise AssertionError(f"K4 {dn}: two calls on the same "
+                                     f"inputs gave different gradients")
             a = fused_attention(q, k, v, bias)
             ga = torch.autograd.grad(a, (qkv, bias), gy)
             gb = torch.autograd.grad(plain_attention(q, k, v, bias),
@@ -903,9 +928,26 @@ def k34_parity(dev):
     if torch.equal(fwd_masks[0], fwd_masks[1]):
         raise AssertionError("K3: two seeds gave the same mask")
 
-    # timings, Philox: K3 on the fused-projection views; K4 as the
-    # backward of one forward (separate leaves); bf16 (the main path), then
-    # the fp32 route (csrc/attention_dropout.cu) with its plain version
+    def k4_times(dtype, L):
+        """K4 as the backward of one forward (separate leaves), and its
+        plain autograd: ((kernel, plain) cuda_ms, K4's device ms by kernel:
+        its two passes and the sum over heads)."""
+        _, (q, k, v), bias = _train_qkv(g, dev, dtype, L=L)
+        leaves = [t.detach().contiguous().requires_grad_()
+                  for t in (q, k, v)]
+        bias = bias.detach()
+        gy = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+        outs = (fused_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED),
+                plain_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED))
+        times = tuple(cuda_ms(lambda o=o: torch.autograd.grad(
+            o, leaves, gy, retain_graph=True)) for o in outs)
+        split = {name: us / 1e3 / 50 for name, us in device_us_by_name(
+            lambda: torch.autograd.grad(outs[0], leaves, gy,
+                                        retain_graph=True), 50).items()}
+        return times, split
+
+    # timings, Philox: K3 on the fused-projection views, K4 by k4_times;
+    # bf16 (the main path), then the fp32 route with its plain version
     times = {}
     for dtype in (torch.bfloat16, torch.float32):
         with torch.no_grad():
@@ -915,24 +957,13 @@ def k34_parity(dev):
                       q, k, v, bias, DROP_RATE, seed=SEED)),
                   cuda_ms(lambda: plain_attention_dropout(
                       q, k, v, bias, DROP_RATE, seed=SEED)))
-        leaves = [t.detach().contiguous().requires_grad_()
-                  for t in (q, k, v)]
-        gy = torch.randn(q.shape, generator=g, device=dev).to(dtype)
-        outs = (fused_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED),
-                plain_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED))
-        k4 = tuple(cuda_ms(lambda o=o: torch.autograd.grad(
-            o, leaves, gy, retain_graph=True)) for o in outs)
-        times[str(dtype)[6:]] = (k3, k4)
-        if dtype == torch.bfloat16:
-            # K4's device time by kernel: its two passes and the sum over
-            # heads
-            k4_split = {name: us / 1e3 / 50 for name, us in
-                        device_us_by_name(lambda: torch.autograd.grad(
-                            outs[0], leaves, gy, retain_graph=True),
-                            50).items()}
-    k3, k4 = times["bfloat16"]
+        times[str(dtype)[6:]] = (k3, *k4_times(dtype, 128))
+    k3, k4, k4_split = times["bfloat16"]
+    k3_32, k4_32, k4_split_32 = times["float32"]
+    f32 = {"k3": k3_32, "k4": k4_32, "k4_split": k4_split_32,
+           "k4_L173": k4_times(torch.float32, 173)[0]}
     return (errs, {"keep_fraction": frac, "sigma": sigma}, k3, k4, k4_split,
-            times["float32"])
+            f32)
 
 
 def library_ms(fn, iters=50, warmup=5):
@@ -1011,10 +1042,10 @@ def k1_library(dev):
 def library_yardsticks(dev):
     """One PyTorch call per kernel that computes the same function, at the
     main path's shapes, bf16: scaled_dot_product_attention for K2 (B=1
-    L=41, B=1 L=173, B=16 L=173, B=16 L=128, and B=16 L=128 in fp32
-    beside the fp32 K2), with dropout_p=rate for K3 (its masks are its
-    own; the work is the same), autograd through that call for K4 (both
-    also in fp32 at B=16 L=128 beside the fp32 routes),
+    L=41, B=1 L=173, B=16 L=173, B=16 L=128, each also in fp32 beside the
+    fp32 K2), with dropout_p=rate for K3 (its masks are its own; the work
+    is the same), autograd through that call for K4 (both also in fp32 at
+    B=16 L=128 beside the fp32 routes, K4 also at B=16 L=173),
     torch.nn.functional.dropout for K5 and grid_sample for K1
     (``k1_library``). Returns {name: (ms, kernel names)}."""
     import torch
@@ -1023,16 +1054,18 @@ def library_yardsticks(dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
     out = {}
     for B, L in ((1, 41), (1, 173), (16, 173)):
-        qkv = torch.randn(B, L, 3 * 768, generator=g, device=dev) \
-            .to(torch.bfloat16)
-        q, k, v = (t.view(B, L, 12, 64) for t in qkv.split(768, dim=-1))
-        m = torch.ones(B, L, device=dev)
-        m[:, -5:] = 0
-        bias = ((1.0 - m) * -10000.0)[:, None, None, :].contiguous()
-        a = _sdpa_args(q, k, v, bias)
-        out[f"K2_L{L}" if B == 1 else f"K2_B{B}_L{L}"] = library_ms(
-            lambda a=a: F.scaled_dot_product_attention(*a[:3],
-                                                       attn_mask=a[3]))
+        for dtype, suffix in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+            qkv = torch.randn(B, L, 3 * 768, generator=g, device=dev) \
+                .to(dtype)
+            q, k, v = (t.view(B, L, 12, 64) for t in qkv.split(768, dim=-1))
+            m = torch.ones(B, L, device=dev)
+            m[:, -5:] = 0
+            bias = ((1.0 - m) * -10000.0)[:, None, None, :].contiguous()
+            a = _sdpa_args(q, k, v, bias)
+            key = f"K2_L{L}" if B == 1 else f"K2_B{B}_L{L}"
+            out[key + suffix] = library_ms(
+                lambda a=a: F.scaled_dot_product_attention(*a[:3],
+                                                           attn_mask=a[3]))
     with torch.no_grad():
         _, (q, k, v), bias = _train_qkv(g, dev, torch.float32)
         a32 = _sdpa_args(q, k, v, bias.detach())
@@ -1048,6 +1081,15 @@ def library_yardsticks(dev):
     gy32 = torch.randn(o32.shape, generator=g, device=dev)
     out["K4_fp32"] = library_ms(lambda: torch.autograd.grad(
         o32, leaves32, gy32, retain_graph=True))
+    _, (q, k, v), bias = _train_qkv(g, dev, torch.float32, L=173)
+    leaves173 = [t.detach().transpose(1, 2).contiguous().requires_grad_()
+                 for t in (q, k, v)]
+    o173 = F.scaled_dot_product_attention(*leaves173,
+                                          attn_mask=bias.detach(),
+                                          dropout_p=DROP_RATE)
+    gy173 = torch.randn(o173.shape, generator=g, device=dev)
+    out["K4_fp32_L173"] = library_ms(lambda: torch.autograd.grad(
+        o173, leaves173, gy173, retain_graph=True))
     with torch.no_grad():
         _, (q, k, v), bias = _train_qkv(g, dev, torch.bfloat16)
         bias = bias.detach()
@@ -1477,10 +1519,13 @@ def step_agreement(cfg, dev, task="vqa", plain=plain_training,
     reported apart, each required to have a gradient; ``image_rtol``:
     the image path's leaves (IMAGE_LEAF_PREFIX) held to it instead of
     STEP_RTOL's; ``batch``: the step's batch, by default the training
-    loader's first."""
+    loader's first. The kernel step runs under the profiler: its
+    attention kernels' device ms by name are returned as
+    ``attention_ms``."""
     import copy
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from vlbert_tpu_torch.models.layers import init_weights
     from vlbert_tpu_torch.models.task_modules import build_module
     from vlbert_tpu_torch.training.loop import make_train_step
@@ -1506,8 +1551,12 @@ def step_agreement(cfg, dev, task="vqa", plain=plain_training,
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        for m, ctx in ((model, contextlib.nullcontext()), (twin, plain()),
-                       (again, contextlib.nullcontext())):
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        for m, ctx, window in ((model, contextlib.nullcontext(), prof),
+                               (twin, plain(), contextlib.nullcontext()),
+                               (again, contextlib.nullcontext(),
+                                contextlib.nullcontext())):
             opt = Optimizer(cfg, m, 4)
             lr = opt.lr()
             kept, opt_step = {}, opt.step
@@ -1519,9 +1568,10 @@ def step_agreement(cfg, dev, task="vqa", plain=plain_training,
 
             opt.step = step_and_keep
             _zero_counts()
-            with ctx:
+            with window, ctx:
                 loss, dm = make_train_step(m, opt, task, cfg, accum)(
                     batch, SEED + 5)
+                torch.cuda.synchronize()
             results.append((float(loss), float(dm["grad_total_norm"][0]),
                             _launch_counts()))
             leaf_grads.append(kept)
@@ -1531,6 +1581,13 @@ def step_agreement(cfg, dev, task="vqa", plain=plain_training,
                                            warn_only=saved_modes[2])
     (l1, n1, c1), (l2, n2, c2), _ = results
     g1, g2 = leaf_grads[:2]
+    attention_ms = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA" and "attn" in e.name:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0]
+            attention_ms[name] = attention_ms.get(name, 0.0) \
+                + e.device_time / 1e3
     if g1.keys() != g2.keys() or not g1:
         raise AssertionError("fp32 step: the two steps updated different "
                              "parameters")
@@ -1578,7 +1635,7 @@ def step_agreement(cfg, dev, task="vqa", plain=plain_training,
     return {"loss": (l1, l2), "grad_norm": (n1, n2), "checks": checks,
             "launches": (c1, c2), "n_leaves": len(g2),
             "worst_leaf": worst_leaf, "max_param_diff": dparam, "lr": lr,
-            "by_group": by_group}
+            "by_group": by_group, "attention_ms": attention_ms}
 
 
 # the answer head of a pretrain checkpoint: the VQA classifier's transform
@@ -1749,7 +1806,9 @@ def vqa_serve_phase(cfg, best):
         res["per_query"].append(_launch_counts())
     res["lat"] = srv.measure_latency(queries * 3, warmup=3)
     batch = srv32.preprocess(*queries[3])
+    _zero_counts()
     a = srv32.infer(batch)["label_logits"][0]
+    res["fp32_launches"] = _launch_counts()
     with plain_versions():
         b = srv32.infer(batch)["label_logits"][0]
     res["fp32_err"] = float(np.abs(a - b).max())
@@ -1928,7 +1987,9 @@ def refcoco_test_phase(root, vocab_dir):
     finally:
         loader.shutdown()
     with torch.inference_mode():
+        _zero_counts()
         a = model(*batch)
+        res["fp32_launches"] = _launch_counts()
         with plain_versions():
             b = model(*batch)
     res["fp32_boxes_equal"] = bool(torch.equal(a["pred_boxes"],
@@ -2174,7 +2235,9 @@ def vcr_phase(root, vocab_dir):
     finally:
         loader.shutdown()
     with torch.inference_mode():
+        _zero_counts()
         a = model(*batch)["label_logits"]
+        launches = _launch_counts()
         with plain_versions():
             b = model(*batch)["label_logits"]
     top2 = torch.sort(b, dim=1).values[:, -2:]
@@ -2183,7 +2246,7 @@ def vcr_phase(root, vocab_dir):
                    "argmax_equal": bool(torch.equal(a.argmax(1),
                                                     b.argmax(1))),
                    "min_margin": float((top2[:, 1] - top2[:, 0]).min()),
-                   "shape": tuple(a.shape)}
+                   "shape": tuple(a.shape), "launches": launches}
     return res
 
 
@@ -2508,12 +2571,11 @@ def main():
           flush=True)
     k2_errs, k2_ms = k2_parity(dev)
     print(f"[3 parity K2 attention] max abs err {k2_errs} (atol "
-          f"{K2_ATOL}); bf16 on the tensor cores, H=12 D=64, device ms (call "
-          f"ms): " +
+          f"{K2_ATOL}); on the tensor cores (fp32 by a three-product TF32 "
+          f"split), H=12 D=64, device ms (call ms): " +
           ", ".join(f"{key} kernel {a[0]:.4f} ({a[1]:.4f}), plain "
                     f"{b[0]:.4f} ({b[1]:.4f})"
-                    for key, (a, b) in k2_ms.items()
-                    if not key.endswith("fp32"))
+                    for key, (a, b) in k2_ms.items())
           + f" ({card})",
           flush=True)
 
@@ -2574,18 +2636,24 @@ def main():
                           build_transforms(cfg, "test"), max_text=24,
                           max_boxes=16)
     batch = srv32.preprocess(*queries[3])
+    _zero_counts()
     with_kernels = srv32.infer(batch)["label_logits"][0]
+    launches5 = _launch_counts()
     with plain_versions():
         plain = srv32.infer(batch)["label_logits"][0]
     n_live = int(batch[2].sum())
     e2e_err = float(np.abs(with_kernels - plain).max())
     top2 = np.sort(plain[:n_live])[-2:]
+    fp32_query = dict.fromkeys(launches5, 0) | {"K1": 1, "K2": 12}
     if not (np.isfinite(with_kernels).all() and e2e_err <= E2E_ATOL
-            and with_kernels.argmax() == plain.argmax()):
+            and with_kernels.argmax() == plain.argmax()
+            and launches5 == fp32_query):
         raise AssertionError(f"fp32 end to end: max abs err {e2e_err} "
                              f"(atol {E2E_ATOL}), argmax "
-                             f"{with_kernels.argmax()} vs {plain.argmax()}")
-    print(f"[5 e2e fp32] kernels vs plain versions on one query with "
+                             f"{with_kernels.argmax()} vs {plain.argmax()}, "
+                             f"launches {launches5} (want {fp32_query})")
+    print(f"[5 e2e fp32] kernels (launches {launches5}) vs plain versions "
+          f"on one query with "
           f"{n_live} live boxes: max abs logit err {e2e_err:.3e} (atol "
           f"{E2E_ATOL}), argmax {int(plain.argmax())} on both, top-2 margin "
           f"{top2[1] - top2[0]:.3e}, logit spread "
@@ -2606,10 +2674,12 @@ def main():
     k34_errs, k3_mask, k3_ms, k4_ms, k4_split, k34_f32 = k34_parity(dev)
     print(f"[6 parity K3/K4 attention dropout] H=12 D=64, q/k/v views of "
           f"one fused projection, 7 padded keys, one all-masked batch row, "
-          f"B=16 L=128 and B=4 L=41, 173; fp32 on the CUDA cores, bf16 on "
-          f"the tensor cores: K3 max abs err {k34_errs['K3']} (atol "
+          f"B=16 L=128 and B=4 L=41, 173; bf16 on the tensor cores, fp32 K3 "
+          f"on the CUDA cores and fp32 K4 on the tensor cores (three-product "
+          f"TF32 split): K3 max abs err {k34_errs['K3']} (atol "
           f"{K3_ATOL}); K4 (dq, dk, dv, dbias) rel err {k34_errs['K4']} "
-          f"(rtol {BWD_RTOL}); a bf16 K4 repeat is bit-identical; K2 "
+          f"(rtol {BWD_RTOL}); a K4 repeat is bit-identical in fp32 and "
+          f"bf16; K2 "
           f"backward rel err {k34_errs['K2_bwd']}; K3 and K4 keep masks "
           f"read back in fp32 and bf16 equal the plain Philox's bit for bit "
           f"for two seeds, keep fraction {k3_mask['keep_fraction']:.6f} "
@@ -2636,12 +2706,24 @@ def main():
           f"mask multiply left out) {k1_lib[0]:.4f} ms "
           f"({', '.join(n[:48] for n in k1_lib[1])}), fp32 max abs err "
           f"{k1_lib[3]:.2e} against the plain ROIAlign on the {k1_lib[4]} "
-          f"live boxes inside the map; fp32 routes at B=16 L=128, kernel "
-          f"(plain) ms: K2 (attention.cu) "
-          f"{k2_ms['B16_L128_fp32'][0][0]:.4f} "
-          f"({k2_ms['B16_L128_fp32'][1][0]:.4f}), K3 (attention_dropout.cu) "
-          f"{k34_f32[0][0][0]:.4f} ({k34_f32[0][1][0]:.4f}), K4 "
-          f"{k34_f32[1][0][0]:.4f} ({k34_f32[1][1][0]:.4f}) ({card})",
+          f"live boxes inside the map; fp32 routes, kernel (plain; SDPA "
+          f"fp32) ms: K2 (attention_f32_mma.cu) "
+          + ", ".join(f"B{B}_L{L} {k2_ms[f'B{B}_L{L}_fp32'][0][0]:.4f} "
+                      f"({k2_ms[f'B{B}_L{L}_fp32'][1][0]:.4f}; "
+                      f"{lib[key][0]:.4f})"
+                      for (B, L), key in zip(K2_TIMED, (
+                          "K2_L41_fp32", "K2_L128_fp32", "K2_L173_fp32",
+                          "K2_B16_L173_fp32")))
+          + f"; K3 (attention_dropout.cu) B16_L128 "
+          f"{k34_f32['k3'][0][0]:.4f} ({k34_f32['k3'][1][0]:.4f}; "
+          f"{lib['K3_fp32'][0]:.4f}); K4 (attention_f32_mma.cu) B16_L128 "
+          f"{k34_f32['k4'][0][0]:.4f} ({k34_f32['k4'][1][0]:.4f}; "
+          f"{lib['K4_fp32'][0]:.4f}), B16_L173 "
+          f"{k34_f32['k4_L173'][0][0]:.4f} "
+          f"({k34_f32['k4_L173'][1][0]:.4f}; {lib['K4_fp32_L173'][0]:.4f}), "
+          f"by kernel at B16_L128 "
+          f"{ {k[:48]: round(v, 5) for k, v in k34_f32['k4_split'].items()} } "
+          f"({card})",
           flush=True)
 
     # --- 7: VQA fine-tuning at full width; 8: fp32 step agreement ---
@@ -2705,7 +2787,10 @@ def main():
               f"{agree['launches'][0]}, plain {agree['launches'][1]}; max "
               f"abs param diff {agree['max_param_diff']:.3e} at lr "
               f"{agree['lr']:.3e}; a repeat of the kernel step is "
-              f"bit-identical", flush=True)
+              f"bit-identical; the kernel step's attention device ms by "
+              f"kernel "
+              f"{ms_by_name(agree['attention_ms'])} "
+              f"({card})", flush=True)
 
         # --- 9: train -> checkpoint -> resume; 10: VQA server; 11: test ---
         cfg9, r9 = resume_phase(root, overrides)
@@ -2755,6 +2840,7 @@ def main():
         per_query = {"K1": 0, "K1b": 0, "K2": 12, "K3": 0, "K4": 0,
                      "K5_fwd": 0, "K5_bwd": 0}
         if not (all(c == per_query for c in r10["per_query"])
+                and r10["fp32_launches"] == per_query
                 and r10["fp32_finite"] and r10["fp32_err"] <= E2E_ATOL
                 and r10["fp32_argmax"][0] == r10["fp32_argmax"][1]):
             raise AssertionError(f"VQA server: {r10}")
@@ -2764,7 +2850,8 @@ def main():
               f"answered {r10['answers']}; launches per query "
               f"{per_query} on each; latency p50 {vqa_lat['p50_ms']:.2f} ms, "
               f"p90 {vqa_lat['p90_ms']:.2f} ms over n={vqa_lat['n']}; fp32 "
-              f"kernels vs plain versions on one query: max abs logit err "
+              f"kernels (K2 {r10['fp32_launches']['K2']} launches) vs plain "
+              f"versions on one query: max abs logit err "
               f"{r10['fp32_err']:.3e} (atol {E2E_ATOL}), argmax "
               f"{r10['fp32_argmax'][0]} on both ({card})", flush=True)
 
@@ -2777,8 +2864,10 @@ def main():
         r11r = refcoco_test_phase(root, cfg9.NETWORK.BERT_MODEL_NAME)
         want_r = dict(per_query, K1=16 // r11r["batch"],
                       K2=12 * 16 // r11r["batch"])
+        fp32_batch = dict(per_query, K1=1, K2=12)
         if not (r11r["rc"] == 0 and r11r["loaded_all"]
                 and r11r["launches"] == want_r and r11r["n_rows"] == 16
+                and r11r["fp32_launches"] == fp32_batch
                 and r11r["finite"] and r11r["fp32_boxes_equal"]
                 and r11r["fp32_logit_err"] <= E2E_ATOL):
             raise AssertionError(f"test_net_refcoco: {r11r} (launches want "
@@ -2797,7 +2886,8 @@ def main():
               f"{r11r['slots']} box slots, L = {r11r['L']}, launches "
               f"{r11r['launches']}, {r11r['wall_s']:.2f} s end to end, "
               f"inference loop {r11r['n'] / r11r['loop_s']:.1f} samples/s "
-              f"({r11r['n']} in {r11r['loop_s']:.3f} s); fp32 kernels vs "
+              f"({r11r['n']} in {r11r['loop_s']:.3f} s); fp32 kernels "
+              f"(launches {r11r['fp32_launches']}) vs "
               f"plain versions on one batch: identical predicted boxes, max "
               f"abs logit err {r11r['fp32_logit_err']:.3e} (atol {E2E_ATOL}) "
               f"({card})",
@@ -2830,6 +2920,7 @@ def main():
             and r12["q2ar"]["JointAcc"] <= min(r12["q2ar"]["Acc"],
                                                r12["q2ar"]["RationaleAcc"]),
             "fp32": r12["fp32"]["finite"] and r12["fp32"]["argmax_equal"]
+            and r12["fp32"]["launches"] == dict(none, K1=1, K2=12)
             and r12["fp32"]["err"] <= E2E_ATOL
             and r12["fp32"]["shape"] == (r12["batch"], 4)}
         if not all(checks12.values()):
@@ -2863,7 +2954,8 @@ def main():
                           f" in {v['loop_s']:.3f} s, device busy "
                           f"{v['busy_s']:.3f} s, idle share {v['idle']:.3f})"
                           for k, v in loops12.items())
-              + f"; fp32 kernels vs plain versions on one Q2A batch: max abs "
+              + f"; fp32 kernels (K1 1, K2 12 launches) vs plain versions on "
+              f"one Q2A batch: max abs "
               f"logit err {r12['fp32']['err']:.3e} (atol {E2E_ATOL}), the same "
               f"argmax for each question (smallest top-2 margin "
               f"{r12['fp32']['min_margin']:.3e}) ({card})", flush=True)
@@ -2936,7 +3028,10 @@ def main():
               f"{ {k: f'{v:.2e}' for k, v in agree13['by_group'].items()} }; "
               f"launches kernels {agree13['launches'][0]}, plain "
               f"{agree13['launches'][1]}; a repeat of the kernel step is "
-              f"bit-identical ({card})", flush=True)
+              f"bit-identical; the kernel step's attention device ms by "
+              f"kernel "
+              f"{ms_by_name(agree13['attention_ms'])} "
+              f"({card})", flush=True)
         r13r = refcoco_train_phase(root13, vocab13)
         if not all(r13r["checks"].values()):
             raise AssertionError(f"RefCOCO+ training: {r13r['checks']}; "
@@ -2971,6 +3066,26 @@ def main():
                f"ROIAlign on the {k1_lib[4]} live boxes inside the map")
     k1_main, k1_f32, k1_old = (k1_t[k] for k in ("bf16_out", "fp32_out",
                                                   "old_route"))
+
+    def k2_fp32(B_, L_, lib_key):
+        """The fp32 K2 at one timed shape, beside SDPA fp32."""
+        kern, plain = k2_ms[f"B{B_}_L{L_}_fp32"]
+        return {"ms": kern[0], "plain_ms": plain[0],
+                **dict(zip(("bound_ms", "bound_by"),
+                           attention_bound(B_, L_, H, D, "float32"))),
+                "library_ms": lib[lib_key][0],
+                "library_kernels": lib[lib_key][1], "call_ms": kern[1],
+                "plain_call_ms": plain[1]}
+
+    # launches of the fp32 K2 and K4 on the fp32 paths: one query or
+    # model pass (phases 5, 10-12), one optimizer step (phases 8, 13)
+    k2_fp32_launches = {
+        "phase5_refcoco_query": launches5["K2"],
+        "phase10_vqa_query": r10["fp32_launches"]["K2"],
+        "phase11_refcoco_test_batch": r11r["fp32_launches"]["K2"],
+        "phase12_vcr_q2a_batch": r12["fp32"]["launches"]["K2"]}
+    k4_fp32_launches = {"phase8_vqa_step": agree["launches"][0]["K4"],
+                        "phase13_vcr_step": agree13["launches"][0]["K4"]}
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/roi_align.cu",
@@ -3023,7 +3138,7 @@ def main():
                       "bound_by": k1b_t["vcr_all_live"]["bound"][1]}},
         {"name": "attention_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
-         "fp32_source": "vlbert_tpu_torch/csrc/attention.cu",
+         "fp32_source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
          "replaces": "vlbert_tpu/ops/attention.py:127",
          "launches": launches["fused_attention"],
          "max_abs_err": max(k2_errs.values()), "ms": k2_ms["B1_L41"][0][0],
@@ -3061,14 +3176,11 @@ def main():
              "call_ms": k2_ms["B16_L173"][0][1],
              "launches_vcr": {k: v["launches"]["K2"]
                               for k, v in r12["runs"].items()}},
-         "fp32_at_B16_L128": {
-             "source": "vlbert_tpu_torch/csrc/attention.cu",
-             "ms": k2_ms["B16_L128_fp32"][0][0],
-             "plain_ms": k2_ms["B16_L128_fp32"][1][0],
-             **dict(zip(("bound_ms", "bound_by"),
-                        attention_bound(B, L, H, D, "float32"))),
-             "library_ms": lib["K2_L128_fp32"][0],
-             "library_kernels": lib["K2_L128_fp32"][1]}},
+         "fp32_launches": k2_fp32_launches,
+         "fp32_at_B1_L41": k2_fp32(1, 41, "K2_L41_fp32"),
+         "fp32_at_B16_L128": k2_fp32(16, 128, "K2_L128_fp32"),
+         "fp32_at_B1_L173": k2_fp32(1, 173, "K2_L173_fp32"),
+         "fp32_at_B16_L173": k2_fp32(16, 173, "K2_B16_L173_fp32")},
         {"name": "dropout", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/dropout.cu",
          "replaces": "vlbert_tpu/ops/dropout.py:83",
@@ -3103,14 +3215,17 @@ def main():
          "call_ms": k3_ms[0][1], "plain_call_ms": k3_ms[1][1],
          "fp32_at_B16_L128": {
              "source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
-             "ms": k34_f32[0][0][0], "plain_ms": k34_f32[0][1][0],
+             "launches": {"phase8_vqa_step": agree["launches"][0]["K3"],
+                          "phase13_vcr_step":
+                              agree13["launches"][0]["K3"]},
+             "ms": k34_f32["k3"][0][0], "plain_ms": k34_f32["k3"][1][0],
              **dict(zip(("bound_ms", "bound_by"),
                         attention_bound(B, L, H, D, "float32"))),
              "library_ms": lib["K3_fp32"][0],
              "library_kernels": lib["K3_fp32"][1]}},
         {"name": "attention_dropout_bwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
-         "fp32_source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
+         "fp32_source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
          "replaces": "vlbert_tpu/ops/attention.py:326",
          "launches": launches7["K4"],
          "launches_e2e": {"vcr": r13["total"]["K4"],
@@ -3125,14 +3240,27 @@ def main():
          "library_ms": lib["K4"][0], "library_kernels": lib["K4"][1],
          "per_kernel_ms": k4_split, "call_ms": k4_ms[0][1],
          "plain_call_ms": k4_ms[1][1],
+         "fp32_launches": k4_fp32_launches,
          "fp32_at_B16_L128": {
-             "source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
-             "ms": k34_f32[1][0][0], "plain_ms": k34_f32[1][1][0],
+             "source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
+             "ms": k34_f32["k4"][0][0], "plain_ms": k34_f32["k4"][1][0],
              **dict(zip(("bound_ms", "bound_by"),
                         attention_bound(B, L, H, D, "float32",
                                         backward=True))),
              "library_ms": lib["K4_fp32"][0],
-             "library_kernels": lib["K4_fp32"][1]}},
+             "library_kernels": lib["K4_fp32"][1],
+             "per_kernel_ms": k34_f32["k4_split"],
+             "call_ms": k34_f32["k4"][0][1],
+             "plain_call_ms": k34_f32["k4"][1][1]},
+         "fp32_at_B16_L173": {
+             "source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
+             "ms": k34_f32["k4_L173"][0][0],
+             "plain_ms": k34_f32["k4_L173"][1][0],
+             **dict(zip(("bound_ms", "bound_by"),
+                        attention_bound(16, 173, H, D, "float32",
+                                        backward=True))),
+             "library_ms": lib["K4_fp32_L173"][0],
+             "library_kernels": lib["K4_fp32_L173"][1]}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

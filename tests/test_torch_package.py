@@ -161,9 +161,10 @@ def test_convert_round_trip(fused_qkv):
 def test_nvcc_command_targets_sm90a_and_repo_sources(tmp_path):
     srcs = build.sources()
     assert {s.name for s in srcs} >= {"roi_align.cu", "roi_align_bwd.cu",
-                                      "attention.cu",
+                                      "attention_f32_mma.cu",
                                       "dropout.cu", "attention_dropout.cu",
                                       "attention_dropout_mma.cu"}
+    assert "attention.cu" not in {s.name for s in srcs}
     objs = [tmp_path / f"{s.stem}.o" for s in srcs]
     for src, obj in zip(srcs, objs):
         cmd = build.compile_command("nvcc", src, obj)
@@ -211,11 +212,13 @@ def test_ctypes_signatures_match_the_c_entry_points():
                 "unsigned": ctypes.c_uint,
                 "unsigned long long": ctypes.c_ulonglong}[decl]
 
-    found = {}
+    found, where = {}, {}
     for src in build.sources():
         text = src.read_text()
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            assert m.group(1) not in found, m.group(1)
             found[m.group(1)] = [ctype(p) for p in m.group(2).split(",")]
+            where[m.group(1)] = src.name
     assert set(found) == set(build.SIGNATURES)
     assert {"roi_align_fwd", "roi_align_bwd", "attention_fwd_f32",
             "attention_fwd_bf16",
@@ -224,6 +227,13 @@ def test_ctypes_signatures_match_the_c_entry_points():
         <= set(found)
     for name, types_ in found.items():
         assert list(build.SIGNATURES[name]) == types_, name
+    # fp32 K2 and K4 live in the split-TF32 source, with the arguments of
+    # their bf16 twins
+    assert where["attention_fwd_f32"] == "attention_f32_mma.cu"
+    assert where["attention_dropout_bwd_f32"] == "attention_f32_mma.cu"
+    assert found["attention_fwd_f32"] == found["attention_fwd_bf16"]
+    assert (found["attention_dropout_bwd_f32"]
+            == found["attention_dropout_bwd_bf16"])
     # feat, feat_is_bf16, boxes, box_mask, out, out_is_bf16, ...
     assert found["roi_align_fwd"][4:6] == [ctypes.c_void_p, ctypes.c_int]
     assert len(found["roi_align_fwd"]) == 17

@@ -204,10 +204,11 @@ def test_exact_score_inputs_make_fp32_sums_order_free():
 
 
 def test_bf16_kernel_route_refuses_rows_off_16_byte_boundaries():
-    """The bf16 K3/K4 copy each row of q, k, v and g in 16-byte pieces: the
-    fused QKV projection's views pass, a view that starts 2 bytes in, or a
-    row stride that is not a multiple of 8 elements, is refused before any
-    launch."""
+    """The bf16 K3/K4 and the fp32 K4 copy each row of q, k, v and g in
+    16-byte pieces (fp32 K3 shares K4's checks): the fused QKV projection's
+    views pass in both dtypes; a view that starts 2 (bf16) or 4 (fp32)
+    bytes in, or a row stride that is not a multiple of 16 bytes, is
+    refused before any launch."""
     B, L, H = 2, 5, 2
     qkv = torch.zeros(B, L, 3 * H * 64, dtype=torch.bfloat16)
     q, k, v = qkv.view(B, L, 3, H, 64).unbind(2)
@@ -222,18 +223,27 @@ def test_bf16_kernel_route_refuses_rows_off_16_byte_boundaries():
     with pytest.raises(ValueError, match="g rows"):
         tattn._check_dropout_args(q, k, v, bias,
                                   g=shifted.view(B, L, H, 64))
-    # fp32 goes to the CUDA-core kernels, which read elements one by one
+    # fp32: K4 is on the tensor cores too
+    q32, k32, v32 = torch.zeros(B, L, 3 * H * 64).view(
+        B, L, 3, H, 64).unbind(2)
+    tattn._check_dropout_args(q32, k32, v32, bias, g=torch.zeros_like(q32))
     shifted32 = torch.zeros(B * L * H * 64 + 1)[1:].view(B, L, H, 64)
-    tattn._check_dropout_args(shifted32, k.float(), v.float(), bias)
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        tattn._check_dropout_args(shifted32, k32, v32, bias)
+    odd32 = torch.zeros(B, L, H * 64 + 2)[..., :H * 64].view(B, L, H, 64)
+    with pytest.raises(ValueError, match="k rows"):
+        tattn._check_dropout_args(q32, odd32, v32, bias)
+    with pytest.raises(ValueError, match="g rows"):
+        tattn._check_dropout_args(q32, k32, v32, bias, g=shifted32)
 
 
 def test_bf16_attention_route_refuses_rows_off_16_byte_boundaries(
         monkeypatch):
-    """K2's bf16 route is the tensor-core kernel beside K3, which copies
-    rows of q, k, v in 16-byte pieces: the serve path's fused-QKV views (row
-    stride 3*H*64) and unfused views pass; a view 2 bytes in, or a row
-    stride that is not a multiple of 8 elements, is refused on the CUDA
-    route before any launch."""
+    """K2 is on the tensor cores in bf16 and fp32, and copies rows of q, k,
+    v in 16-byte pieces: the serve path's fused-QKV views (row stride
+    3*H*64) and unfused views pass; a view 2 (bf16) or 4 (fp32) bytes in,
+    or a row stride that is not a multiple of 16 bytes, is refused on the
+    CUDA route before any launch."""
     B, L, H = 2, 5, 2
     qkv = torch.zeros(B, L, 3 * H * 64, dtype=torch.bfloat16)
     q, k, v = qkv.view(B, L, 3, H, 64).unbind(2)
@@ -252,23 +262,37 @@ def test_bf16_attention_route_refuses_rows_off_16_byte_boundaries(
     monkeypatch.setattr(build, "load", no_launch)
     shifted = torch.zeros(B * L * H * 64 + 1, dtype=torch.bfloat16)[1:]
     with pytest.raises(ValueError,
-                       match="fused_attention: the bf16 kernel needs q rows"):
+                       match="fused_attention: the kernel needs q rows"):
         tattn.fused_attention(shifted.view(B, L, H, 64), k, v, bias)
     odd = torch.zeros(B, L, H * 64 + 4, dtype=torch.bfloat16)[..., :H * 64]
     with pytest.raises(ValueError,
-                       match="fused_attention: the bf16 kernel needs v rows"):
+                       match="fused_attention: the kernel needs v rows"):
         tattn.fused_attention(q, k, odd.view(B, L, H, 64), bias)
-    assert tattn.fused_attention.launches == 0
-    # fp32 goes to the CUDA-core kernel, which reads elements one by one
+    # fp32: the same rule, 4-element steps
+    q32, k32, v32 = torch.zeros(B, L, 3 * H * 64).view(
+        B, L, 3, H, 64).unbind(2)
+    tattn._check_cuda_args(q32, k32, v32, bias, "fused_attention")
     shifted32 = torch.zeros(B * L * H * 64 + 1)[1:].view(B, L, H, 64)
-    tattn._check_cuda_args(shifted32, k.float(), v.float(), bias,
-                           "fused_attention")
+    with pytest.raises(ValueError,
+                       match="fused_attention: the kernel needs q rows"):
+        tattn.fused_attention(shifted32, k32, v32, bias)
+    odd32 = torch.zeros(B, L, H * 64 + 2)[..., :H * 64].view(B, L, H, 64)
+    with pytest.raises(ValueError,
+                       match="fused_attention: the kernel needs k rows"):
+        tattn.fused_attention(q32, odd32, v32, bias)
+    assert tattn.fused_attention.launches == 0
 
 
 def test_attention_kernels_are_chosen_by_dtype():
-    """bf16 launches the tensor-core kernels (K2 and K3/K4 in one source),
-    fp32 the CUDA-core kernels."""
+    """bf16 launches the tensor-core kernels of attention_dropout_mma.cu
+    (K2, K3, K4); fp32 launches K2 and K4 of attention_f32_mma.cu (the
+    tensor cores by a three-product TF32 split) and K3 of
+    attention_dropout.cu (the CUDA cores). Each entry point is defined in
+    that one source."""
+    import re
     import types
+
+    from vlbert_tpu_torch.kernels import build
 
     lib = types.SimpleNamespace(**{n: n for n in (
         "attention_fwd_bf16", "attention_fwd_f32",
@@ -282,6 +306,17 @@ def test_attention_kernels_are_chosen_by_dtype():
         "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16")
     assert tattn._dropout_kernels(lib, q32) == (
         "attention_dropout_fwd_f32", "attention_dropout_bwd_f32")
+    defined = {}
+    for src in build.sources():
+        for name in re.findall(r'extern "C" int (\w+)\(', src.read_text()):
+            defined.setdefault(name, []).append(src.name)
+    assert {n: defined[n] for n in vars(lib)} == {
+        "attention_fwd_bf16": ["attention_dropout_mma.cu"],
+        "attention_dropout_fwd_bf16": ["attention_dropout_mma.cu"],
+        "attention_dropout_bwd_bf16": ["attention_dropout_mma.cu"],
+        "attention_fwd_f32": ["attention_f32_mma.cu"],
+        "attention_dropout_bwd_f32": ["attention_f32_mma.cu"],
+        "attention_dropout_fwd_f32": ["attention_dropout.cu"]}
 
 
 def _tiny_vlbert(attn_rate):

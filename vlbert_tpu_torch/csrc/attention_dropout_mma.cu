@@ -8,10 +8,12 @@
 //
 // Replaces: vlbert_tpu/ops/attention.py, _fused_attention_fwd_impl (Pallas
 // kernel _attn_kernel), _fad_fwd_impl (_attn_drop_fwd_kernel) and
-// _fad_bwd_impl (_attn_drop_bwd_kernel). The fp32 instantiations stay on
-// the CUDA cores (attention.cu, attention_dropout.cu); the wrappers choose
-// by dtype. K2 is K3's kernel with the mask compiled out: one body, a
-// compile-time kDrop, so K3's code is the same with or without K2.
+// _fad_bwd_impl (_attn_drop_bwd_kernel). The fp32 routes are other
+// sources: K2 and K4 on the tensor cores by a three-product TF32 split
+// (attention_f32_mma.cu), K3 on the CUDA cores (attention_dropout.cu); the
+// wrappers choose by dtype. K2 is K3's kernel with the mask compiled out:
+// one body, a compile-time kDrop, so K3's code is the same with or without
+// K2.
 //
 // Semantics, the same as the fp32 kernels': scores, softmax, row sums and
 // every accumulator in fp32; the -10000 additive bias is kept (masked keys

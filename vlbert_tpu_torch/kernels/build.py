@@ -40,9 +40,9 @@ _STRIDES = (_L,) * 9         # q, k, v strides over (b, l, h)
 
 _ATTN_FWD = (_P, _P, _P, _P, _P, _I, _I, _I, _I, *_STRIDES, _F, _P)
 
-# attention with prob dropout takes the same arguments in fp32 (CUDA cores)
-# and bf16 (tensor cores): q, k, v, bias, out, B, L, H, D, strides, scale,
-# bits (or NULL), thresh, drop_scale, seed, stream
+# attention with prob dropout takes the same arguments in fp32 and bf16:
+# q, k, v, bias, out, B, L, H, D, strides, scale, bits (or NULL), thresh,
+# drop_scale, seed, stream
 _ATTN_DROP_FWD = (_P, _P, _P, _P, _P, _I, _I, _I, _I, *_STRIDES, _F, _P, _U,
                   _F, _Q, _P)
 # q, k, v, bias, g, dq, dk, dv, dbias_h, stats, B, L, H, D, strides, scale,
@@ -60,9 +60,8 @@ SIGNATURES = {
     # P, Q, spatial_scale, sampling_ratio, max_grid, stream
     "roi_align_bwd": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _F, _I, _I, _P),
-    # attention without dropout in fp32 (CUDA cores) and bf16 (tensor
-    # cores): q, k, v, bias, out, B, L, H, D, q strides (b, l, h), k
-    # strides, v strides, scale, stream
+    # attention without dropout in fp32 and bf16: q, k, v, bias, out, B,
+    # L, H, D, q strides (b, l, h), k strides, v strides, scale, stream
     "attention_fwd_f32": _ATTN_FWD,
     "attention_fwd_bf16": _ATTN_FWD,
     # x, out, n, is_bf16, bits (or NULL), thresh, scale, seed, stream

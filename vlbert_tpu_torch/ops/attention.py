@@ -7,9 +7,10 @@ Inference / rate 0:
   * kernel K2, launched by ``fused_attention`` for CUDA tensors inside a
     ``torch.autograd.Function`` whose backward is ``attention_bwd_plain``,
     the JAX package's recompute ``_bwd`` in plain PyTorch (JAX runs it in
-    XLA, not in Pallas): on the tensor cores for bf16, K3's kernel with the
-    mask compiled out (``csrc/attention_dropout_mma.cu``), on the CUDA
-    cores for fp32 (``csrc/attention.cu``).
+    XLA, not in Pallas): on the tensor cores, for bf16 K3's kernel with the
+    mask compiled out (``csrc/attention_dropout_mma.cu``), for fp32 a
+    three-product TF32 split that keeps fp32 accuracy
+    (``csrc/attention_f32_mma.cu``).
 
 Training (prob dropout, 0 < rate <= 1):
   * ``plain_attention_dropout``: the fp32 probs times the keep mask times
@@ -17,8 +18,16 @@ Training (prob dropout, 0 < rate <= 1):
   * kernels K3 (forward) and K4 (recompute backward), launched by
     ``fused_attention_dropout`` for CUDA tensors inside a
     ``torch.autograd.Function`` that saves only (q, k, v, bias, seed or
-    bits): on the tensor cores for bf16 (``csrc/attention_dropout_mma.cu``),
-    on the CUDA cores for fp32 (``csrc/attention_dropout.cu``).
+    bits): on the tensor cores for bf16
+    (``csrc/attention_dropout_mma.cu``); for fp32, K3 on the CUDA cores
+    (``csrc/attention_dropout.cu``) and K4 on the tensor cores by the same
+    TF32 split as K2's (``csrc/attention_f32_mma.cu``).
+
+The fp32 tensor-core kernels split each operand x into big = x rounded to
+TF32 and small = (x - big) rounded to TF32, and sum small*big + big*small
++ big*big: what they drop is about 2**-22 of each product, within the fp32
+tolerances. One TF32 pass (2**-11) would not be
+(``tests/test_torch_attention_tf32.py``).
 
 The mask's bits (``attention_bits``): one Philox4x32-10 evaluation per four
 neighbouring keys, counter (key // 4, query, b*H + h, 1) and the call's
@@ -44,7 +53,8 @@ from vlbert_tpu_torch.ops.dropout import keep_mask, philox4x32, threshold
 # the kernels loop over L without a size limit; the bound is the model's
 # position table (max_position_embeddings 512)
 MAX_L = 512
-# bytes: the bf16 K2/K3/K4 copy rows of q, k, v and g in 16-byte pieces
+# bytes: the tensor-core K2/K3/K4 copy rows of q, k, v and g in 16-byte
+# pieces
 _ALIGN = 16
 
 
@@ -201,9 +211,10 @@ class _FusedAttentionDropout(torch.autograd.Function):
 
 
 def _check_cuda_args(q, k, v, bias, name, **more):
-    """The checks of every attention kernel, and for bf16, whose tensor-core
-    kernels copy each row of q, k, v (and ``more``: g) in 16-byte pieces,
-    each view's start and (b, l, h) strides on 16-byte boundaries."""
+    """The checks of every attention kernel: the tensor-core kernels (bf16
+    K2, K3, K4; fp32 K2, K4) copy each row of q, k, v (and ``more``: g) in
+    16-byte pieces, so each view's start and (b, l, h) strides lie on
+    16-byte boundaries. K3's fp32 kernel shares K4's checks."""
     B, L, H, D = q.shape
     if D != 64:
         raise ValueError(f"{name} kernel needs head dim 64, got {D}")
@@ -228,12 +239,10 @@ def _check_cuda_args(q, k, v, bias, name, **more):
             or bias.device != q.device):
         raise ValueError(f"{name} kernel needs a contiguous fp32 bias on "
                          f"q's device")
-    if q.dtype != torch.bfloat16:
-        return
     for n, t in dict(q=q, k=k, v=v, **more).items():
         step = _ALIGN // t.element_size()
         if t.data_ptr() % _ALIGN or any(s % step for s in t.stride()[:3]):
-            raise ValueError(f"{name}: the bf16 kernel needs {n} rows on "
+            raise ValueError(f"{name}: the kernel needs {n} rows on "
                              f"{_ALIGN}-byte boundaries, got data_ptr % "
                              f"{_ALIGN} = {t.data_ptr() % _ALIGN}, strides "
                              f"{t.stride()}")
@@ -266,8 +275,9 @@ def _drop_args(q, rate, seed, bits):
 
 
 def _attention_kernel(lib, q):
-    """K2's entry point for q's dtype: the tensor-core kernel for bf16, the
-    CUDA-core kernel for fp32."""
+    """K2's entry point for q's dtype, both on the tensor cores: bf16
+    (``attention_dropout_mma.cu``) or fp32 by the TF32 split
+    (``attention_f32_mma.cu``)."""
     if q.dtype == torch.bfloat16:
         return lib.attention_fwd_bf16
     return lib.attention_fwd_f32
@@ -290,7 +300,8 @@ def _attention_launch(q, k, v, bias):
 
 def _dropout_kernels(lib, q):
     """K3 and K4's entry points for q's dtype: the tensor-core kernels for
-    bf16, the CUDA-core kernels for fp32."""
+    bf16; for fp32 K3 on the CUDA cores and K4 on the tensor cores by the
+    TF32 split."""
     if q.dtype == torch.bfloat16:
         return lib.attention_dropout_fwd_bf16, lib.attention_dropout_bwd_bf16
     return lib.attention_dropout_fwd_f32, lib.attention_dropout_bwd_f32
