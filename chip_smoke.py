@@ -32,12 +32,11 @@ its own line:
   6. training-kernel parity at the VQA training shapes, fp32 and bf16:
      dropout (K5) forward and backward, also at odd sizes and on views
      that start off a 16-byte boundary, attention with prob dropout
-     forward (K3; bf16 on the tensor cores, fp32 on the CUDA cores) and
-     backward (K4 on the tensor cores; fp32 by the TF32 split) at L = 128,
-     41 and 173, and K2's backward, each against its plain version in
-     explicit-bits and Philox mode (timed in bf16 and, at B=16 L=128, on
-     the fp32 route; the fp32 K4 also at VCR's B=16 L=173); the kernels'
-     keep masks are read back exactly in both dtypes and must equal the
+     forward (K3) and backward (K4), on the tensor cores in both dtypes
+     (fp32 by the TF32 split), at L = 128, 41 and 173, and K2's
+     backward, each against its plain version in explicit-bits and Philox
+     mode (timed in bf16 and fp32 at the VQA step's B=16 L=128 and VCR's
+     B=16 L=173); the kernels' keep masks are read back exactly in both dtypes and must equal the
      plain Philox's bit for bit, the backward must replay the forward's
      mask, the keep fraction must lie within 5 sigma of 1 - rate and two
      seeds must differ; a K4 repeated on the same inputs must give
@@ -104,9 +103,9 @@ its own line:
   13. training from pixels: the ROIAlign backward (K1b) against its plain
      version on phase 3's K1 cases (fp32 and bf16 g and dF, sampling
      ratio 1, 0 and 2; the padded slots' g must not reach dF), each call
-     repeated bit for bit, and timed at VCR's training shape beside its
-     bound, its plain version and the backward of K1's grid_sample
-     yardstick; then ``python -m vlbert_tpu_torch.engine.train --task vcr``
+     repeated bit for bit, and timed at VCR's training shape (and
+     RefCOCO+'s) beside its bound, its plain version and the backward of
+     K1's grid_sample yardstick; then ``python -m vlbert_tpu_torch.engine.train --task vcr``
      (its ``main``) from the shipped base Q2A config at full width (bf16,
      SGD, 4 micro-steps of 4 images x 4 choices) on 64 synthetic training
      questions over phase 12's JPEGs, with the printed overrides: 8
@@ -242,13 +241,15 @@ def attention_bound(B, L, H, D, dtype, backward=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops[0] else t_ops
 
 
-# Philox4x32-10 evaluations per call of each kernel that draws a mask, at
-# bf16 (the tensor-core kernels): K5 one per four elements; K3 one per
-# four (query, key) elements of each (b, h), over L padded to its 64-row
-# tiles; K4 three times K3's, its rows pass sweeping the keys twice and its
-# keys pass once
+# Philox4x32-10 evaluations per call of each kernel that draws a mask: K5
+# one per four elements; K3 one per four (query, key) elements of each
+# (b, h), over the queries padded to 64-row tiles and the keys padded to
+# the tiles they are streamed in (bf16 64, fp32 32); K4 (bf16) three times
+# K3's, its rows pass sweeping the keys twice and its keys pass once
 PHILOX_PER_CALL = {"K5": lambda n: -(-n // 4),
                    "K3": lambda B, H, L: B * H * (-(-L // 64) * 64) ** 2 // 4,
+                   "K3_fp32": lambda B, H, L: B * H * (-(-L // 64) * 64)
+                   * (-(-L // 32) * 32) // 4,
                    "K4": lambda B, H, L: 3 * B * H * (-(-L // 64) * 64) ** 2
                    // 4}
 
@@ -568,17 +569,32 @@ def k1b_parity(dev):
     return errs
 
 
-def k1b_inputs(dev, all_live=False):
-    """The main path's K1b call at VCR's training shape: the vcr_B4_O108
-    case of k1_cases (body4 [4,38,75,1024], 108 slots, 108, 60, 21 and 8
-    live, or all 108 live) with a bf16 map and a bf16 g
-    [4,108,14,14,1024]."""
+# K1b's timed calls: VCR's training shape with the padded slots of the
+# main path or every slot live, and RefCOCO+'s
+K1B_TIMED = ("vcr", "vcr_all_live", "refcoco")
+# RefCOCO+'s training batch: live slots of each of its 4 images (its
+# candidate boxes, at most 16 of the 108 slots, first)
+K1B_REFCOCO_LIVE = (16, 12, 8, 4)
+
+
+def k1b_inputs(dev, case="vcr"):
+    """A main path's K1b call, bf16 map and bf16 g [4,108,14,14,1024]:
+    "vcr", VCR's training shape, the vcr_B4_O108 case of k1_cases (body4
+    [4,38,75,1024], 108 slots, 108, 60, 21 and 8 live); "vcr_all_live",
+    the same with all 108 live; "refcoco", RefCOCO+'s training shape, the
+    B4_O108 case's boxes (body4 [4,38,63,1024]) with K1B_REFCOCO_LIVE
+    live."""
     import torch
 
-    case = {c[0]: c for c in k1_cases(dev)}["vcr_B4_O108"]
-    _, feat, boxes, mask, _ = case
-    if all_live:
+    cases = {c[0]: c for c in k1_cases(dev)}
+    _, feat, boxes, mask, _ = cases["B4_O108" if case == "refcoco"
+                                    else "vcr_B4_O108"]
+    if case == "vcr_all_live":
         mask = torch.ones_like(mask)
+    elif case == "refcoco":
+        mask = torch.zeros_like(mask)
+        for b, n in enumerate(K1B_REFCOCO_LIVE):
+            mask[b, :n] = True
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     g = torch.randn(*mask.shape, 14, 14, feat.shape[-1], generator=gen,
                     device=dev).to(torch.bfloat16)
@@ -597,14 +613,13 @@ def k1b_bound(feat, mask, g):
 
 
 def k1b_times(dev):
-    """K1b at VCR's training shape (bf16, sampling ratio 1), by kernel
-    name, with the padded slots of the main path and with every slot live;
-    and the plain version."""
+    """K1b at the K1B_TIMED calls (bf16, sampling ratio 1), by kernel
+    name; and the plain version at VCR's."""
     from vlbert_tpu_torch.ops import roi_align as troi
 
     out = {}
-    for key, all_live in (("vcr", False), ("vcr_all_live", True)):
-        feat, boxes, mask, g = k1b_inputs(dev, all_live)
+    for key in K1B_TIMED:
+        feat, boxes, mask, g = k1b_inputs(dev, key)
         args = (g, boxes, mask, feat.shape, feat.dtype, 14, 14, 1.0 / 16, 1)
         out[key] = time_calls(lambda args=args: troi._roi_align_bwd_cuda(
             *args), K1B_KERNEL)
@@ -616,9 +631,9 @@ def k1b_times(dev):
     return out
 
 
-def k1b_library(dev):
+def k1b_library(dev, case="vcr"):
     """K1b's yardstick: the backward (autograd) of phase 3's F.grid_sample
-    yardstick, at VCR's training shape: the 14x14 bin centres of the 108
+    yardstick, at a k1b_inputs call: the 14x14 bin centres of the 108
     slots of each of 4 maps (sampling ratio 1; exact for boxes inside the
     map, the padded slots' mask multiply left out), on the map as an NCHW
     view of its NHWC memory, bf16 where grid_sample takes it. Returns (ms,
@@ -628,7 +643,7 @@ def k1b_library(dev):
     import torch.nn.functional as F
     from vlbert_tpu_torch.ops.roi_align import roi_align_bwd_plain
 
-    feat, boxes, mask, g = k1b_inputs(dev)
+    feat, boxes, mask, g = k1b_inputs(dev, case)
     B, H, W, C = feat.shape
     grid, inside = k1_grid(boxes, H, W)
     kw = dict(mode="bilinear", padding_mode="border", align_corners=True)
@@ -852,13 +867,14 @@ def _attention_masks(dev, seed, dtype, B=16, H=12, L=128, D=64):
 def k34_parity(dev):
     """K3/K4 vs plain at B=16 H=12 L=128 D=64 and at B=4 with L = 41 and
     173 (7 padded keys, one all-masked batch row), explicit bits and
-    Philox, fp32 (K3 on the CUDA cores, K4 on the tensor cores by the TF32
-    split) and bf16 (tensor cores); masks read back bit for bit in both
-    dtypes; a backward repeated bit for bit in both dtypes; K2's backward;
-    timings in bf16 and of the fp32 route at B=16 L=128 (K4 also at VCR's
-    B=16 L=173), with K4's device time by kernel. Returns (errs, mask
-    stats, bf16 K3 and K4 (kernel, plain) times, bf16 K4 by kernel, the
-    fp32 route's {"k3", "k4", "k4_L173", "k4_split"})."""
+    Philox, fp32 (the tensor cores by the TF32 split) and bf16 (tensor
+    cores); masks read back bit for bit in both dtypes; a backward repeated
+    bit for bit in both dtypes; K2's backward; timings in bf16 and fp32 at
+    the VQA step's B=16 L=128 and VCR's B=16 L=173, with K4's device time
+    by kernel. Returns (errs, mask stats, bf16 K3 and K4 (kernel, plain)
+    times at L=128, bf16 K4 by kernel, the fp32 route's {"k3", "k4",
+    "k4_split", "k3_L173", "k4_L173"}, bf16 at L=173 {"k3", "k4",
+    "k4_split"})."""
     import torch
     from vlbert_tpu_torch.ops.attention import (
         attention_bits, fused_attention, fused_attention_dropout,
@@ -946,24 +962,30 @@ def k34_parity(dev):
                                         retain_graph=True), 50).items()}
         return times, split
 
-    # timings, Philox: K3 on the fused-projection views, K4 by k4_times;
-    # bf16 (the main path), then the fp32 route with its plain version
-    times = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    def k3_times(dtype, L):
+        """K3 on the fused-projection views and its plain version:
+        (kernel, plain) cuda_ms."""
         with torch.no_grad():
-            _, (q, k, v), bias = _train_qkv(g, dev, dtype)
+            _, (q, k, v), bias = _train_qkv(g, dev, dtype, L=L)
             bias = bias.detach()
-            k3 = (cuda_ms(lambda: fused_attention_dropout(
-                      q, k, v, bias, DROP_RATE, seed=SEED)),
-                  cuda_ms(lambda: plain_attention_dropout(
-                      q, k, v, bias, DROP_RATE, seed=SEED)))
-        times[str(dtype)[6:]] = (k3, *k4_times(dtype, 128))
-    k3, k4, k4_split = times["bfloat16"]
-    k3_32, k4_32, k4_split_32 = times["float32"]
+            return (cuda_ms(lambda: fused_attention_dropout(
+                        q, k, v, bias, DROP_RATE, seed=SEED)),
+                    cuda_ms(lambda: plain_attention_dropout(
+                        q, k, v, bias, DROP_RATE, seed=SEED)))
+
+    # timings, Philox: bf16 (the main path), then the fp32 route, at the
+    # VQA step's L=128 and VCR's L=173
+    times = {(str(dtype)[6:], L): (k3_times(dtype, L), *k4_times(dtype, L))
+             for L in (128, 173) for dtype in (torch.bfloat16, torch.float32)}
+    k3, k4, k4_split = times["bfloat16", 128]
+    k3_32, k4_32, k4_split_32 = times["float32", 128]
     f32 = {"k3": k3_32, "k4": k4_32, "k4_split": k4_split_32,
-           "k4_L173": k4_times(torch.float32, 173)[0]}
+           "k3_L173": times["float32", 173][0],
+           "k4_L173": times["float32", 173][1]}
+    k3_173, k4_173, k4_split_173 = times["bfloat16", 173]
+    bf16_173 = {"k3": k3_173, "k4": k4_173, "k4_split": k4_split_173}
     return (errs, {"keep_fraction": frac, "sigma": sigma}, k3, k4, k4_split,
-            f32)
+            f32, bf16_173)
 
 
 def library_ms(fn, iters=50, warmup=5):
@@ -1045,9 +1067,10 @@ def library_yardsticks(dev):
     L=41, B=1 L=173, B=16 L=173, B=16 L=128, each also in fp32 beside the
     fp32 K2), with dropout_p=rate for K3 (its masks are its own; the work
     is the same), autograd through that call for K4 (both also in fp32 at
-    B=16 L=128 beside the fp32 routes, K4 also at B=16 L=173),
-    torch.nn.functional.dropout for K5 and grid_sample for K1
-    (``k1_library``). Returns {name: (ms, kernel names)}."""
+    B=16 L=128 beside the fp32 routes), K3 and K4 also at VCR's B=16
+    L=173 in both dtypes, torch.nn.functional.dropout for K5 and
+    grid_sample for K1 (``k1_library``). Returns {name: (ms, kernel
+    names)}."""
     import torch
     import torch.nn.functional as F
 
@@ -1081,15 +1104,22 @@ def library_yardsticks(dev):
     gy32 = torch.randn(o32.shape, generator=g, device=dev)
     out["K4_fp32"] = library_ms(lambda: torch.autograd.grad(
         o32, leaves32, gy32, retain_graph=True))
-    _, (q, k, v), bias = _train_qkv(g, dev, torch.float32, L=173)
-    leaves173 = [t.detach().transpose(1, 2).contiguous().requires_grad_()
-                 for t in (q, k, v)]
-    o173 = F.scaled_dot_product_attention(*leaves173,
-                                          attn_mask=bias.detach(),
-                                          dropout_p=DROP_RATE)
-    gy173 = torch.randn(o173.shape, generator=g, device=dev)
-    out["K4_fp32_L173"] = library_ms(lambda: torch.autograd.grad(
-        o173, leaves173, gy173, retain_graph=True))
+    for dtype, suffix in ((torch.float32, "_fp32"), (torch.bfloat16, "")):
+        _, (q, k, v), bias = _train_qkv(g, dev, dtype, L=173)
+        with torch.no_grad():
+            a173 = _sdpa_args(q, k, v, bias.detach())
+            out[f"K3{suffix}_L173"] = library_ms(
+                lambda a=a173: F.scaled_dot_product_attention(
+                    *a[:3], attn_mask=a[3], dropout_p=DROP_RATE))
+        leaves173 = [t.detach().transpose(1, 2).contiguous()
+                     .requires_grad_() for t in (q, k, v)]
+        o173 = F.scaled_dot_product_attention(*leaves173,
+                                              attn_mask=a173[3],
+                                              dropout_p=DROP_RATE)
+        gy173 = torch.randn(o173.shape, generator=g, device=dev).to(dtype)
+        out[f"K4{suffix}_L173"] = library_ms(
+            lambda o=o173, x=leaves173, y=gy173: torch.autograd.grad(
+                o, x, y, retain_graph=True))
     with torch.no_grad():
         _, (q, k, v), bias = _train_qkv(g, dev, torch.bfloat16)
         bias = bias.detach()
@@ -2671,12 +2701,12 @@ def main():
           f"device ms (call ms): kernel {k5_ms[0][0]:.4f} "
           f"({k5_ms[0][1]:.4f}), plain {k5_ms[1][0]:.4f} ({k5_ms[1][1]:.4f}) "
           f"({card})", flush=True)
-    k34_errs, k3_mask, k3_ms, k4_ms, k4_split, k34_f32 = k34_parity(dev)
+    (k34_errs, k3_mask, k3_ms, k4_ms, k4_split, k34_f32,
+     k34_173) = k34_parity(dev)
     print(f"[6 parity K3/K4 attention dropout] H=12 D=64, q/k/v views of "
           f"one fused projection, 7 padded keys, one all-masked batch row, "
-          f"B=16 L=128 and B=4 L=41, 173; bf16 on the tensor cores, fp32 K3 "
-          f"on the CUDA cores and fp32 K4 on the tensor cores (three-product "
-          f"TF32 split): K3 max abs err {k34_errs['K3']} (atol "
+          f"B=16 L=128 and B=4 L=41, 173; on the tensor cores, bf16 and fp32 "
+          f"(three-product TF32 split): K3 max abs err {k34_errs['K3']} (atol "
           f"{K3_ATOL}); K4 (dq, dk, dv, dbias) rel err {k34_errs['K4']} "
           f"(rtol {BWD_RTOL}); a K4 repeat is bit-identical in fp32 and "
           f"bf16; K2 "
@@ -2688,8 +2718,11 @@ def main():
           f"{k3_ms[1][0]:.4f} ({k3_ms[1][1]:.4f}); K4 {k4_ms[0][0]:.4f} "
           f"({k4_ms[0][1]:.4f}) vs plain autograd {k4_ms[1][0]:.4f} "
           f"({k4_ms[1][1]:.4f}); K4 by kernel "
-          f"{ {k[:48]: round(v, 5) for k, v in k4_split.items()} } "
-          f"({card})", flush=True)
+          f"{ {k[:48]: round(v, 5) for k, v in k4_split.items()} }; B=16 "
+          f"L=173 bf16: K3 {k34_173['k3'][0][0]:.4f} "
+          f"({k34_173['k3'][0][1]:.4f}) vs plain {k34_173['k3'][1][0]:.4f}; "
+          f"K4 {k34_173['k4'][0][0]:.4f} ({k34_173['k4'][0][1]:.4f}) vs "
+          f"plain autograd {k34_173['k4'][1][0]:.4f} ({card})", flush=True)
 
     lib = library_yardsticks(dev)
     k1_lib = k1_library(dev)
@@ -2714,9 +2747,12 @@ def main():
                       for (B, L), key in zip(K2_TIMED, (
                           "K2_L41_fp32", "K2_L128_fp32", "K2_L173_fp32",
                           "K2_B16_L173_fp32")))
-          + f"; K3 (attention_dropout.cu) B16_L128 "
+          + f"; K3 (attention_f32_mma.cu) B16_L128 "
           f"{k34_f32['k3'][0][0]:.4f} ({k34_f32['k3'][1][0]:.4f}; "
-          f"{lib['K3_fp32'][0]:.4f}); K4 (attention_f32_mma.cu) B16_L128 "
+          f"{lib['K3_fp32'][0]:.4f}), B16_L173 "
+          f"{k34_f32['k3_L173'][0][0]:.4f} "
+          f"({k34_f32['k3_L173'][1][0]:.4f}; {lib['K3_fp32_L173'][0]:.4f}); "
+          f"K4 (attention_f32_mma.cu) B16_L128 "
           f"{k34_f32['k4'][0][0]:.4f} ({k34_f32['k4'][1][0]:.4f}; "
           f"{lib['K4_fp32'][0]:.4f}), B16_L173 "
           f"{k34_f32['k4_L173'][0][0]:.4f} "
@@ -2964,15 +3000,18 @@ def main():
         k1b_errs = k1b_parity(dev)
         k1b_t = k1b_times(dev)
         k1b_lib = k1b_library(dev)
+        k1b_lib_rc = k1b_library(dev, "refcoco")
         worst_k1b = max(k1b_errs, key=k1b_errs.get)
         print(f"[13 parity K1b roi_align backward] {len(k1b_errs)} cases "
               f"(case/g->dF/sampling ratio, the K1 cases; padded slots' g "
               f"1e6) against roi_align_bwd_plain: largest error "
               f"{k1b_errs[worst_k1b]:.3e} of the case's largest |dF| "
               f"({worst_k1b}; fp32 within {K1B_RTOL}, bf16 within one bf16 "
-              f"step more), every repeat bit-identical; VCR's training "
-              f"shape (bf16 g [4,108,14,14,1024], bf16 dF [4,38,75,1024], "
-              f"sampling 1), device ms by kernel (call ms): "
+              f"step more), every repeat bit-identical; bf16 g "
+              f"[4,108,14,14,1024] and dF at VCR's training shape "
+              f"[4,38,75,1024] and RefCOCO+'s [4,38,63,1024] (live "
+              f"{list(K1B_REFCOCO_LIVE)}), sampling 1, device ms by kernel "
+              f"(call ms): "
               + "; ".join(f"{k} {t['ms']:.4f} ({t['call_ms']:.4f}), "
                           f"{t['live']} live slots, bound "
                           f"{t['bound'][0]:.4f} ({t['bound'][1]})"
@@ -2982,7 +3021,8 @@ def main():
               f"({k1b_lib[2]}) {k1b_lib[0]:.4f} ms "
               f"({', '.join(n[:48] for n in k1b_lib[1])}), fp32 max abs err "
               f"{k1b_lib[3]:.2e} against the plain dF on the boxes inside "
-              f"the map ({card})", flush=True)
+              f"the map; at RefCOCO+'s {k1b_lib_rc[0]:.4f} ms ({card})",
+              flush=True)
         root13 = os.path.join(root, "p13")
         os.makedirs(root13)
         vocab13 = cfg9.NETWORK.BERT_MODEL_NAME
@@ -3077,6 +3117,20 @@ def main():
                 "library_kernels": lib[lib_key][1], "call_ms": kern[1],
                 "plain_call_ms": plain[1]}
 
+    def k34_at_173(key, lib_key, philox_key, backward=False):
+        """bf16 K3 or K4 at VCR's training shape, B=16 L=173, beside SDPA
+        (with its backward for K4)."""
+        kern, plain = k34_173[key]
+        return {"ms": kern[0], "plain_ms": plain[0],
+                **dict(zip(("bound_ms", "bound_by"),
+                           attention_bound(16, 173, H, D, "bfloat16",
+                                           backward=backward))),
+                "philox_floor_ms": philox_floor_ms(
+                    PHILOX_PER_CALL[philox_key](16, H, 173), philox4_instr),
+                "library_ms": lib[lib_key][0],
+                "library_kernels": lib[lib_key][1], "call_ms": kern[1],
+                "plain_call_ms": plain[1]}
+
     # launches of the fp32 K2 and K4 on the fp32 paths: one query or
     # model pass (phases 5, 10-12), one optimizer step (phases 8, 13)
     k2_fp32_launches = {
@@ -3135,7 +3189,16 @@ def main():
                   f"{k1b_t['vcr']['live']}), dF [4,38,75,1024] bf16",
          "all_live": {"ms": k1b_t["vcr_all_live"]["ms"],
                       "bound_ms": k1b_t["vcr_all_live"]["bound"][0],
-                      "bound_by": k1b_t["vcr_all_live"]["bound"][1]}},
+                      "bound_by": k1b_t["vcr_all_live"]["bound"][1]},
+         "refcoco": {"shape": "g [4,108,14,14,1024] bf16 (live slots "
+                              f"{k1b_t['refcoco']['live']}), dF "
+                              "[4,38,63,1024] bf16",
+                     "ms": k1b_t["refcoco"]["ms"],
+                     "call_ms": k1b_t["refcoco"]["call_ms"],
+                     "bound_ms": k1b_t["refcoco"]["bound"][0],
+                     "bound_by": k1b_t["refcoco"]["bound"][1],
+                     "library_ms": k1b_lib_rc[0],
+                     "library_kernels": k1b_lib_rc[1]}},
         {"name": "attention_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
          "fp32_source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
@@ -3200,7 +3263,7 @@ def main():
          "call_ms": k5_ms[0][1], "plain_call_ms": k5_ms[1][1]},
         {"name": "attention_dropout_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
-         "fp32_source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
+         "fp32_source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
          "replaces": "vlbert_tpu/ops/attention.py:300",
          "launches": launches7["K3"],
          "launches_e2e": {"vcr": r13["total"]["K3"],
@@ -3213,16 +3276,32 @@ def main():
              PHILOX_PER_CALL["K3"](B, H, L), philox4_instr),
          "library_ms": lib["K3"][0], "library_kernels": lib["K3"][1],
          "call_ms": k3_ms[0][1], "plain_call_ms": k3_ms[1][1],
+         "at_B16_L173": k34_at_173("k3", "K3_L173", "K3"),
          "fp32_at_B16_L128": {
-             "source": "vlbert_tpu_torch/csrc/attention_dropout.cu",
+             "source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
              "launches": {"phase8_vqa_step": agree["launches"][0]["K3"],
                           "phase13_vcr_step":
                               agree13["launches"][0]["K3"]},
              "ms": k34_f32["k3"][0][0], "plain_ms": k34_f32["k3"][1][0],
              **dict(zip(("bound_ms", "bound_by"),
                         attention_bound(B, L, H, D, "float32"))),
+             "philox_floor_ms": philox_floor_ms(
+                 PHILOX_PER_CALL["K3_fp32"](B, H, L), philox4_instr),
              "library_ms": lib["K3_fp32"][0],
-             "library_kernels": lib["K3_fp32"][1]}},
+             "library_kernels": lib["K3_fp32"][1],
+             "call_ms": k34_f32["k3"][0][1],
+             "plain_call_ms": k34_f32["k3"][1][1]},
+         "fp32_at_B16_L173": {
+             "source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
+             "ms": k34_f32["k3_L173"][0][0],
+             "plain_ms": k34_f32["k3_L173"][1][0],
+             **dict(zip(("bound_ms", "bound_by"),
+                        attention_bound(16, 173, H, D, "float32"))),
+             "philox_floor_ms": philox_floor_ms(
+                 PHILOX_PER_CALL["K3_fp32"](16, H, 173), philox4_instr),
+             "library_ms": lib["K3_fp32_L173"][0],
+             "library_kernels": lib["K3_fp32_L173"][1],
+             "call_ms": k34_f32["k3_L173"][0][1]}},
         {"name": "attention_dropout_bwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
          "fp32_source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
@@ -3240,6 +3319,8 @@ def main():
          "library_ms": lib["K4"][0], "library_kernels": lib["K4"][1],
          "per_kernel_ms": k4_split, "call_ms": k4_ms[0][1],
          "plain_call_ms": k4_ms[1][1],
+         "at_B16_L173": {**k34_at_173("k4", "K4_L173", "K4", backward=True),
+                         "per_kernel_ms": k34_173["k4_split"]},
          "fp32_launches": k4_fp32_launches,
          "fp32_at_B16_L128": {
              "source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",

@@ -1,7 +1,8 @@
-"""The arithmetic of the fp32 tensor-core attention kernels (K2 forward, K4
-backward; ``vlbert_tpu_torch/csrc/attention_f32_mma.cu``), emulated in
-plain PyTorch on the CPU and held to the tolerances chip_smoke.py holds
-the kernels to on the card.
+"""The arithmetic of the fp32 tensor-core attention kernels (K2 forward, K3
+forward with prob dropout, K4 backward;
+``vlbert_tpu_torch/csrc/attention_f32_mma.cu``), emulated in plain PyTorch
+on the CPU and held to the tolerances chip_smoke.py holds the kernels to
+on the card.
 
 Each fp32 operand x splits into big = x rounded to TF32 (round to
 nearest, ties away from zero, the 13 low bits of the fp32 word cleared:
@@ -11,27 +12,35 @@ small*big + big*small + big*big. The emulation adds each MMA's eight exact
 products (fp64) to the fp32 accumulator and rounds once per MMA; the
 tensor core's own adder is not modelled further. Scores, softmax, dS and
 the scaling follow the kernels: s = fmaf(q.k, 1/8, bias), p = exp(s - m),
-out = (e V) / l.
+out = (e V) / l; K3 keeps l over every key and takes out = (keep e V) *
+(drop_scale / l).
 
 The inputs are chip_smoke.py's fp32 parity inputs at a smaller batch:
 randn q, k, v (views of one fused projection) with 5 masked keys
 (``k2_parity``), and ``_train_qkv``'s q, k on a 2**-6 grid with 7 padded
-keys and a batch row whose keys are all masked (``k34_parity``); K4 with
-the Philox mask at rate 0.1. The split stays within K2_ATOL (1e-5) and
-BWD_RTOL (1e-4, of max(1, max |reference|)); one TF32 pass misses both,
-which is why the kernels take three.
+keys and a batch row whose keys are all masked (``k34_parity``); K3 and
+K4 with the Philox mask at rate 0.1, K3 also with explicit bits (the JAX
+package's 'bits16' rule, drawn by jax.random.bits). The split stays
+within K2_ATOL and K3_ATOL (1e-5) and BWD_RTOL (1e-4, of max(1, max
+|reference|)); one TF32 pass misses them, which is why the kernels take
+three.
 """
 
 import math
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_train_attention import _jax_bits16_attention
 from vlbert_tpu_torch.ops import attention as tattn
 from vlbert_tpu_torch.ops.dropout import keep_mask
 
 K2_ATOL = 1e-5      # chip_smoke.py K2_ATOL["float32"]
+K3_ATOL = 1e-5      # chip_smoke.py K3_ATOL["float32"]
+JAX_ATOL = 1e-4     # the port against the JAX package's fp32 XLA path
 BWD_RTOL = 1e-4     # chip_smoke.py BWD_RTOL["float32"]
 RATE = 0.1          # chip_smoke.py DROP_RATE
 H, D = 12, 64
@@ -86,6 +95,17 @@ def emulated_k2(q, k, v, bias, passes=3):
     qh, kh, vh = _heads(q, k, v)
     e, l = _scores(qh, kh, bias, passes)
     return _heads(mma_product(e, vh, passes) / l)[0]
+
+
+def emulated_k3(q, k, v, bias, keep, passes=3):
+    """K3: K2's sweep with the keep mask on the exponentials that enter
+    P V; the row sum l still counts every key; out = (keep e V) *
+    (drop_scale / l)."""
+    drop_scale = torch.tensor(1.0 / (1.0 - RATE), dtype=torch.float32)
+    qh, kh, vh = _heads(q, k, v)
+    e, l = _scores(qh, kh, bias, passes)
+    pv = mma_product(torch.where(keep, e, 0.0), vh, passes)
+    return _heads(pv * (drop_scale / l))[0]
 
 
 def emulated_k4(q, k, v, bias, g, keep, passes=3):
@@ -197,3 +217,37 @@ def test_split_k4_is_within_the_fp32_tolerance(kind, L):
     assert max(errs) <= BWD_RTOL / 10, errs
     one = emulated_k4(q, k, v, bias, g, keep, passes=1)
     assert max(_rel_err(a, b) for a, b in zip(one, want)) > BWD_RTOL
+
+
+@pytest.mark.parametrize("mode", ["philox", "bits"])
+@pytest.mark.parametrize("L", [41, 128, 173])
+def test_split_k3_is_within_the_fp32_tolerance(mode, L):
+    """K3 on the split, on k34_parity's inputs (q, k on the 2**-6 grid, 7
+    padded keys, an all-masked batch row), against plain_attention_dropout
+    with the same mask: Philox from a seed, or explicit bits; in bits mode
+    also against the JAX package's fp32 training attention under
+    'bits16' with the same bits (its XLA path: the Pallas kernel averages
+    an all-masked row over its padded length)."""
+    _, (q, k, v), bias = parity_inputs("grid", L=L)
+    B = q.shape[0]
+    if mode == "philox":
+        kw = dict(seed=12)
+        keep = keep_mask(tattn.attention_bits(B, H, L, 12), RATE, False)
+    else:
+        key = jax.random.PRNGKey(L)
+        bits = np.asarray(jax.random.bits(key, (B, H, L, L), jnp.uint16))
+        kw = dict(bits=torch.from_numpy(bits.astype(np.int32)))
+        keep = keep_mask(kw["bits"].long(), RATE, True)
+    want = tattn.plain_attention_dropout(q, k, v, bias, RATE, **kw)
+    got = emulated_k3(q, k, v, bias, keep)
+    err = (got - want).abs().max().item()
+    assert err <= K3_ATOL / 4, err
+    # the mask drops about a tenth of every row's probs
+    assert abs((~keep).float().mean().item() - RATE) < 0.01
+    if mode == "bits":
+        jx = _jax_bits16_attention(*(jnp.asarray(t.contiguous().numpy())
+                                     for t in (q, k, v, bias)), key, RATE)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jx), rtol=0,
+                                   atol=JAX_ATOL)
+    one = (emulated_k3(q, k, v, bias, keep, passes=1) - want).abs().max()
+    assert one.item() > 10 * K3_ATOL, one.item()

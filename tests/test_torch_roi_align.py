@@ -368,3 +368,163 @@ def test_k1b_refuses_what_the_kernel_cannot_take(monkeypatch, case, exc,
                                  shape or (1, 5, 6, C), torch.float32, P, P,
                                  1.0 / 16, 1)
     assert lib.calls == []
+
+
+# ------------------------------- K1b's design: the rois that touch a row
+
+K1B_TILE = 4       # pixels of a map row a K1b block takes (C = 1024, bf16)
+
+
+def _axis_roi(boxes, axis, scale=1.0 / 16):
+    """roi::axis_roi in fp32: the roi's start and extent (at least 1) in
+    map units along rows (axis 0) or columns (axis 1)."""
+    a = boxes[..., 1 - axis] * np.float32(scale)
+    b = boxes[..., 3 - axis] * np.float32(scale)
+    return a, np.maximum(b - a, np.float32(1.0))
+
+
+def _may_touch(start, size, lo, hi):
+    """roi::may_touch: the kernel's test of whether a roi's samples may
+    reach pixels lo..hi of one axis, from the box alone."""
+    return (np.float32(hi) + 2 >= start) & (np.float32(lo) - 2
+                                            <= start + size)
+
+
+def k1b_model(shape, boxes, mask, g, sampling_ratio=1, tile=K1B_TILE):
+    """K1b's gather as its kernel orders it, in plain PyTorch: for each map
+    row h and tile of ``tile`` pixels, the live slots that may touch the
+    row and the tile (_may_touch), compacted in roi order; then for each
+    pixel, roi by roi, Ry[o,p,h] * sum_q Cx[o,q,w] g[o,p,q], skipping zero
+    weights. Also returns how many (block, roi) pairs the compaction
+    kept, of the B * H * tiles * O it tested."""
+    B, H, W, C = shape
+    O = boxes.shape[1]
+    bt = T(boxes)
+    ry, cx = troi.roi_align_weights(bt, H, W, 14, 14, 1.0 / 16,
+                                    sampling_ratio)
+    ys, yl = _axis_roi(boxes, 0)
+    xs, xl = _axis_roi(boxes, 1)
+    gt = T(g).float()
+    df = torch.zeros(shape)
+    kept = 0
+    for b in range(B):
+        for h in range(H):
+            for w0 in range(0, W, tile):
+                tn = min(tile, W - w0)
+                hits = [o for o in range(O) if mask[b, o]
+                        and _may_touch(ys[b, o], yl[b, o], h, h)
+                        and _may_touch(xs[b, o], xl[b, o], w0, w0 + tn - 1)]
+                kept += len(hits)
+                for w in range(w0, w0 + tn):
+                    acc = torch.zeros(C)
+                    for o in hits:
+                        for p in torch.nonzero(ry[b, o, :, h]).flatten():
+                            row = torch.zeros(C)
+                            for q in torch.nonzero(cx[b, o, :, w]).flatten():
+                                row = row + cx[b, o, q, w] * gt[b, o, p, q]
+                            acc = acc + ry[b, o, p, h] * row
+                    df[b, h, w] = acc
+    return df, kept, B * H * -(-W // tile) * O
+
+
+def _k1b_case(rng, name):
+    """(map shape, boxes, mask) of the edge cases K1b's design must keep:
+    "edge", K1's edge boxes (past the map's edges, entirely outside,
+    sub-pixel, the far corner) in two images with padded slots; "one_row",
+    boxes whose extent is under one map row (forced to 1x1, spanning one
+    row and its neighbour's taps), on a row's boundary and inside it;
+    "padded", every slot padded; "portrait", the portrait map [1,63,38,
+    1024] with the serve boxes transposed."""
+    if name == "edge":
+        feat, boxes, mask = _edge_case(rng)
+        return feat.shape, boxes, mask
+    if name == "one_row":
+        boxes = np.array([[[0, 160, 999, 160], [10, 161, 500, 175.9],
+                           [300, 592, 700, 600], [40, 0, 900, 8],
+                           [0, -20, 999, -17], [5, 200.5, 6, 200.5]]],
+                         np.float32)
+        return (1, 38, 63, 16), boxes, np.ones((1, 6), bool)
+    if name == "padded":
+        feat, boxes, mask = _edge_case(rng)
+        return feat.shape, boxes, np.zeros_like(mask)
+    b0 = np.asarray(K1_SERVE_BOXES, np.float32)[None, :, [1, 0, 3, 2]]
+    mask = np.zeros((1, len(K1_SERVE_BOXES)), bool)
+    mask[0, :K1_SERVE_LIVE] = True
+    return (1, 63, 38, 1024), b0, mask
+
+
+@pytest.mark.parametrize("sampling_ratio", [0, 1, 2])
+def test_k1b_compaction_keeps_every_roi_that_touches_a_pixel(
+        rng, sampling_ratio):
+    """roi::may_touch is a superset of the pixels a roi's weights reach:
+    wherever Ry[o,p,h] or Cx[o,q,w] is nonzero (the plain version's
+    weights, by the forward's rules), the test holds for that row or
+    column. On K1's edge boxes, boxes under one map row, the portrait map,
+    and 4000 random boxes of every size around and across the map."""
+    sets = [_k1b_case(rng, n) for n in ("edge", "one_row", "portrait")]
+    xy = rng.uniform([-200, -200], [1200, 800], (4000, 2))
+    wh = rng.uniform(0, 1, (4000, 2)) * rng.choice([0.5, 8, 60, 600, 1500],
+                                                   (4000, 1))
+    rand = np.concatenate([xy, xy + wh], 1).astype(np.float32)[None]
+    sets.append(((1, 38, 63, 16), rand, np.ones((1, 4000), bool)))
+    for k, ((_, H, W, _), boxes, _) in enumerate(sets):
+        ry, cx = troi.roi_align_weights(T(boxes), H, W, 14, 14, 1.0 / 16,
+                                        sampling_ratio)
+        for axis, wts, n in ((0, ry, H), (1, cx, W)):
+            start, size = _axis_roi(boxes, axis)
+            touched = (wts != 0).any(-2).numpy()          # [B, O, n]
+            pix = np.arange(n, dtype=np.float32)
+            test = _may_touch(start[..., None], size[..., None], pix, pix)
+            assert not (touched & ~test).any()
+            if k == 3:
+                continue
+            # and tight enough to skip rois: on the edge cases at most
+            # three pixels past either end of a roi's footprint (random
+            # boxes across an edge with bins wider than a pixel leave
+            # wider gaps, which the test keeps)
+            first = np.where(touched.any(-1), touched.argmax(-1), 0)
+            last = np.where(touched.any(-1),
+                            n - 1 - touched[..., ::-1].argmax(-1), -1)
+            hull = (pix >= first[..., None]) & (pix <= last[..., None])
+            assert (test & ~hull).sum(-1).max() <= 6
+
+
+@pytest.mark.parametrize("case,sampling_ratio", [
+    ("edge", 1), ("edge", 0), ("edge", 2), ("one_row", 1), ("padded", 1),
+    ("portrait", 1)])
+def test_k1b_model_matches_plain(rng, case, sampling_ratio):
+    """K1b's design, modelled on the CPU (k1b_model: the per-tile
+    compaction in roi order, then the gather), against roi_align_bwd_plain
+    within K1b's fp32 tolerance on chip_smoke.py (1e-5 of the largest
+    |dF|), with the padded slots' g at 1e6; pixels no roi covers are
+    zeros."""
+    shape, boxes, mask = _k1b_case(rng, case)
+    g = rng.normal(size=(shape[0], boxes.shape[1], 14, 14, shape[3])) \
+        .astype(np.float32)
+    g[~mask] = 1e6
+    got, kept, tested = k1b_model(shape, boxes, mask, g, sampling_ratio)
+    want = troi.roi_align_bwd_plain(torch.zeros(shape), T(boxes), T(mask),
+                                    T(g), sampling_ratio=sampling_ratio)
+    scale = max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= 1e-5 * scale
+    assert kept <= tested
+    if case == "padded":
+        assert kept == 0 and not got.any()
+    else:
+        assert want.abs().max() > 1.0 and kept < tested
+        assert torch.equal(got == 0, want == 0)
+
+
+def test_k1b_model_matches_jax_vjp(rng):
+    """The same model against jax.vjp of the JAX package's roi_align
+    (impl="xla": autodiff of the separable einsums) on K1's edge boxes."""
+    import jax
+
+    feat, boxes, mask = _edge_case(rng)
+    g = rng.normal(size=(2, 16, 14, 14, 16)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x: j_roi_align(
+        x, jnp.asarray(boxes), jnp.asarray(mask), impl="xla",
+        sampling_ratio=1), jnp.asarray(feat))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got, _, _ = k1b_model(feat.shape, boxes, mask, g)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-4)

@@ -285,10 +285,9 @@ def test_bf16_attention_route_refuses_rows_off_16_byte_boundaries(
 
 def test_attention_kernels_are_chosen_by_dtype():
     """bf16 launches the tensor-core kernels of attention_dropout_mma.cu
-    (K2, K3, K4); fp32 launches K2 and K4 of attention_f32_mma.cu (the
-    tensor cores by a three-product TF32 split) and K3 of
-    attention_dropout.cu (the CUDA cores). Each entry point is defined in
-    that one source."""
+    (K2, K3, K4); fp32 launches K2, K3 and K4 of attention_f32_mma.cu (the
+    tensor cores by a three-product TF32 split). Each entry point is
+    defined in that one source."""
     import re
     import types
 
@@ -316,7 +315,7 @@ def test_attention_kernels_are_chosen_by_dtype():
         "attention_dropout_bwd_bf16": ["attention_dropout_mma.cu"],
         "attention_fwd_f32": ["attention_f32_mma.cu"],
         "attention_dropout_bwd_f32": ["attention_f32_mma.cu"],
-        "attention_dropout_fwd_f32": ["attention_dropout.cu"]}
+        "attention_dropout_fwd_f32": ["attention_f32_mma.cu"]}
 
 
 def _tiny_vlbert(attn_rate):

@@ -13,7 +13,8 @@ calls a window, in bf16 and in fp32:
   K3         fused_attention_dropout (its forward);
   K4         the backward of one fused_attention_dropout (separate leaves);
   K2_B1_L41  K2 at the serve shape, one query of L = 41;
-  K4_L173    (fp32 only) K4 at VCR's training shape, B=16 L=173.
+  K3_L173    K3 at VCR's training shape, B=16 L=173;
+  K4_L173    K4 at VCR's training shape, B=16 L=173.
 
 Each entry is chip_smoke.py's ``time_calls``: the summed device time of
 the kernels a call runs (torch.profiler), the CUDA-event time per call,
@@ -88,14 +89,19 @@ def main():
     res = {"tree": os.path.relpath(tree, REPO), "card": smi,
            "package": os.path.dirname(
                sys.modules["vlbert_tpu_torch"].__file__)}
+    def k3(q, k, v, bias):
+        return timed(lambda: fused_attention_dropout(
+            q, k, v, bias, h.DROP_RATE, seed=h.SEED))
+
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype)[6:]
         with torch.no_grad():
             _, (q, k, v), bias = h._train_qkv(g, dev, dtype)
             bias = bias.detach()
             res[f"K2/{dn}"] = timed(lambda: fused_attention(q, k, v, bias))
-            res[f"K3/{dn}"] = timed(lambda: fused_attention_dropout(
-                q, k, v, bias, h.DROP_RATE, seed=h.SEED))
+            res[f"K3/{dn}"] = k3(q, k, v, bias)
+            _, qkv173, b173 = h._train_qkv(g, dev, dtype, L=173)
+            res[f"K3_L173/{dn}"] = k3(*qkv173, b173.detach())
             qkv = torch.randn(1, 41, 3 * 768, generator=g, device=dev) \
                 .to(dtype)
             q1, k1, v1 = (t.view(1, 41, 12, 64)
@@ -104,7 +110,7 @@ def main():
             res[f"K2_B1_L41/{dn}"] = timed(
                 lambda: fused_attention(q1, k1, v1, b1))
         res[f"K4/{dn}"] = k4(dtype, 128)
-    res["K4_L173/float32"] = k4(torch.float32, 173)
+        res[f"K4_L173/{dn}"] = k4(dtype, 173)
     line = json.dumps(res)
     print(line)
     if args.json:

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""K1 (ROIAlign forward) on the card: its device time by kernel name on the
-serve path's route, and what bounds it.
+"""K1 (ROIAlign forward) and K1b (its dF backward) on the card: device
+time by kernel name on the main paths' routes, and what bounds K1.
 
     python tools/bench_k1_torch.py [--tree DIR] [--probes] [--json FILE]
 
@@ -15,7 +15,22 @@ backbone wrote it), 50 calls a window:
   fp32_out  roi_align(...) with its default fp32 output.
 
 Each is given by kernel name (torch.profiler), with the CUDA-event time per
-call and the kernels a call runs.
+call and the kernels a call runs. Then K1b (bf16 g and dF, sampling ratio
+1) at chip_smoke.py's K1B_TIMED calls:
+
+  k1b/vcr           VCR's training shape, g [4,108,14,14,1024] with 108,
+                    60, 21 and 8 live slots, dF [4,38,75,1024];
+  k1b/vcr_all_live  the same with all 432 slots live;
+  k1b/refcoco       RefCOCO+'s, dF [4,38,63,1024], at most 16 live a map;
+
+and k1b_sha256: a digest of K1b's dF on every case, dtype pair and
+sampling ratio of chip_smoke.py's k1b_parity, so that two trees' outputs
+are compared bit for bit. With --probes, also what bounds K1b:
+
+  k1b/padded        VCR's call with every slot padded: the launch, the
+                    per-block set-up and the zero stores;
+  k1b/c128          VCR's boxes with C = 128: an eighth of the g bytes,
+                    the same weights and the same chains of sums.
 
 --tree DIR times the vlbert_tpu_torch package of another checkout (an
 earlier commit unpacked with ``git archive``) with this checkout's harness,
@@ -40,6 +55,7 @@ Needs a CUDA card. Prints one JSON line; --json also writes it to FILE.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import inspect
 import json
@@ -59,6 +75,46 @@ def _harness():
     return mod
 
 
+def k1b(h, troi, dev, probes):
+    """K1b's times at the K1B_TIMED calls (and the probes) and the digests
+    of its dF."""
+    import torch
+
+    calls = {case: h.k1b_inputs(dev, case) for case in h.K1B_TIMED}
+    if probes:
+        feat, boxes, mask, g = calls["vcr"]
+        calls["padded"] = (feat, boxes, torch.zeros_like(mask), g)
+        calls["c128"] = (feat[..., :128].contiguous(), boxes, mask,
+                         g[..., :128].contiguous())
+    out = {}
+    for case, (feat, boxes, mask, g) in calls.items():
+        args = (g, boxes, mask, feat.shape, feat.dtype, 14, 14, 1.0 / 16, 1)
+        t = h.time_calls(lambda: troi._roi_align_bwd_cuda(*args),
+                         h.K1B_KERNEL)
+        out[f"k1b/{case}"] = {"ms": t["ms"], "call_ms": t["call_ms"],
+                              "live": int(mask.sum())}
+    digests = {}
+    gen = torch.Generator(device=dev).manual_seed(h.SEED + 13)
+    for name, feat, boxes, mask, ratios in h.k1_cases(dev):
+        B, _, _, C = feat.shape
+        g32 = torch.randn(B, boxes.shape[1], 14, 14, C, generator=gen,
+                          device=dev)
+        g32[~mask] = 1e6
+        for dtype in (torch.float32, torch.bfloat16):
+            for g_dtype in (torch.float32, torch.bfloat16):
+                for sr in ratios:
+                    df = troi._roi_align_bwd_cuda(
+                        g32.to(g_dtype), boxes, mask, feat.shape, dtype, 14,
+                        14, 1.0 / 16, sr)
+                    key = (f"{name}/{str(g_dtype)[6:]}->{str(dtype)[6:]}"
+                           f"/sr{sr}")
+                    digests[key] = hashlib.sha256(
+                        df.view(torch.uint8).cpu().numpy().tobytes()
+                    ).hexdigest()[:16]
+    out["k1b_sha256"] = digests
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=REPO,
@@ -74,6 +130,7 @@ def main():
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     h = _harness()
+    from vlbert_tpu_torch.ops import roi_align as troi
     from vlbert_tpu_torch.ops.roi_align import roi_align
 
     dev = torch.device("cuda", 0)
@@ -136,6 +193,8 @@ def main():
         probes["bytes"] = {"must_move": must_move, "tap_gathers": gathers,
                            "live_slots": live}
         res["probes"] = probes
+    if hasattr(troi, "_roi_align_bwd_cuda"):
+        res.update(k1b(h, troi, dev, args.probes))
     line = json.dumps(res)
     print(line)
     if args.json:

@@ -8,10 +8,9 @@
 //
 // Replaces: vlbert_tpu/ops/attention.py, _fused_attention_fwd_impl (Pallas
 // kernel _attn_kernel), _fad_fwd_impl (_attn_drop_fwd_kernel) and
-// _fad_bwd_impl (_attn_drop_bwd_kernel). The fp32 routes are other
-// sources: K2 and K4 on the tensor cores by a three-product TF32 split
-// (attention_f32_mma.cu), K3 on the CUDA cores (attention_dropout.cu); the
-// wrappers choose by dtype. K2 is K3's kernel with the mask compiled out:
+// _fad_bwd_impl (_attn_drop_bwd_kernel). The fp32 routes are
+// attention_f32_mma.cu's: K2, K3 and K4 on the tensor cores by a
+// three-product TF32 split; the wrappers choose by dtype. K2 is K3's kernel with the mask compiled out:
 // one body, a compile-time kDrop, so K3's code is the same with or without
 // K2.
 //
@@ -77,15 +76,11 @@
 //    Nothing is saved between forward and backward but (q, k, v, bias,
 //    seed or bits): the row statistics need D, and D needs g, so the rows
 //    pass recomputes them rather than K3 storing them.
-//  * The mask in registers. In a C fragment a lane holds rows g and g + 8
-//    and columns 2t, 2t + 1 of each 8-column n-tile (g = lane / 4, t =
-//    lane % 4). Where rows are queries (K3, rows pass), lanes t and t ^ 1
-//    cover the four keys of one evaluation: each evaluates one of its two
-//    rows and the pair trades two words by shuffle. Where rows are keys
-//    (keys pass), the four lanes with the same t and g / 4 need word g % 4
-//    of four evaluations (two queries x two key groups): each evaluates
-//    one and four rotating shuffles transpose the words. Either way one
-//    evaluation per four elements.
+//  * The mask in registers, one Philox evaluation per four elements of a
+//    C fragment: keep_rows_q where rows are queries (K3, rows pass),
+//    keep_rows_k where rows are keys (keys pass). They, the cp.async
+//    helpers and the quad reductions are attention_dropout.cuh's, shared
+//    with the fp32 kernels.
 
 #include <cstdint>
 
@@ -104,37 +99,10 @@ constexpr int kThreads = 128;   // 4 warps x 16 rows
 // (unbounded, ptxas takes ~240 and two blocks fit)
 constexpr int kBwdBlocksPerSM = 3;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr unsigned kFull = 0xffffffffu;
 
 typedef bf16 Tile[kT][kS];
 
-struct Strides {  // element strides of q, k, v over (b, l, h); unit on d
-  long long qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh;
-};
-
 // ---------------------------------------------------------------- PTX
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16-byte async copy to shared memory; zero-fills (reads nothing) when
-// !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile(
@@ -243,83 +211,6 @@ __device__ __forceinline__ void mma_pt(float (&acc)[8][4],
       mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
     }
   }
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-// ---------------------------------------------------------------- mask
-
-// Keep bits of a C fragment whose rows are queries: bit e of the result is
-// element e, i.e. (qa, key), (qa, key + 1), (qa + 8, key), (qa + 8, key + 1)
-// with key = the lane's first column (key % 4 is 0 on even lanes, 2 on odd
-// ones). All lanes of the warp must call it together.
-__device__ __forceinline__ unsigned keep_rows_q(const DropArgs& da, int bh,
-                                                int L, int qa, int key) {
-  unsigned m = 0;
-  if (da.bits != nullptr) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int q = qa + 8 * (e >> 1), k = key + (e & 1);
-      if (q < L && k < L &&
-          (unsigned)da.bits[((long long)bh * L + q) * L + k] >= da.thresh)
-        m |= 1u << e;
-    }
-    return m;
-  }
-  // lanes t and t ^ 1 share the evaluation of keys key & ~3 .. + 3: the
-  // even lane evaluates row qa, the odd one row qa + 8, and each passes
-  // the other the two words it needs (even: words 0, 1; odd: 2, 3)
-  const bool odd = threadIdx.x & 1;
-  const uint4 w = philox4((unsigned)key >> 2, (unsigned)(odd ? qa + 8 : qa),
-                          (unsigned)bh, 1u, da.seed);
-  const unsigned r0 = __shfl_xor_sync(kFull, odd ? w.x : w.z, 1);
-  const unsigned r1 = __shfl_xor_sync(kFull, odd ? w.y : w.w, 1);
-  const unsigned word[4] = {odd ? r0 : w.x, odd ? r1 : w.y,
-                            odd ? w.z : r0, odd ? w.w : r1};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) m |= (unsigned)(word[e] >= da.thresh) << e;
-  return m;
-}
-
-// Keep bits of a C fragment whose rows are keys: bit e is element e, i.e.
-// (ka, q), (ka, q + 1), (ka + 8, q), (ka + 8, q + 1) in (key, query) order,
-// with ka = the lane's first row (ka % 4 == g % 4, ka + 8 in the next key
-// group but one). All lanes of the warp must call it together.
-__device__ __forceinline__ unsigned keep_rows_k(const DropArgs& da, int bh,
-                                                int L, int ka, int q) {
-  unsigned m = 0;
-  if (da.bits != nullptr) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = ka + 8 * (e >> 1), qq = q + (e & 1);
-      if (qq < L && k < L &&
-          (unsigned)da.bits[((long long)bh * L + qq) * L + k] >= da.thresh)
-        m |= 1u << e;
-    }
-    return m;
-  }
-  // the four lanes with this lane's t and g / 4 need word i = g % 4 of the
-  // same four evaluations e_0..e_3 (element e's); lane i evaluates e_i and
-  // in round r passes word (i - r) % 4 to the lane that reads it
-  const int lane = threadIdx.x & 31, i = (lane >> 2) & 3;
-  const uint4 w = philox4((unsigned)(ka + 8 * (i >> 1)) >> 2,
-                          (unsigned)(q + (i & 1)), (unsigned)bh, 1u, da.seed);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int src = (i + r) & 3;
-    const unsigned v = __shfl_sync(kFull, philox_word(w, (i - r) & 3),
-                                   (lane & ~12) | (src << 2));
-    m |= (unsigned)(v >= da.thresh) << src;
-  }
-  return m;
 }
 
 // ---------------------------------------------------------------- sweeps

@@ -1,17 +1,19 @@
 // Attention in fp32 on Hopper's tensor cores, by a three-product TF32
-// split: the forward without dropout (kernel K2) and the deterministic
-// recompute backward of attention with prob dropout (kernel K4).
+// split: the forward without dropout (kernel K2), and with attention-prob
+// dropout the forward (kernel K3) and its deterministic recompute backward
+// (kernel K4).
 //
 //   P   = softmax(Q K^T / sqrt(D) + bias)           (fp32, per (b, h))
 //   Pd  = keep ? P * drop_scale : 0                 (fp32 scale; K2: Pd = P)
 //   out = Pd V
 //
 // Replaces: vlbert_tpu/ops/attention.py, _fused_attention_fwd_impl (Pallas
-// kernel _attn_kernel) and _fad_bwd_impl (_attn_drop_bwd_kernel), on
-// their fp32 route: both Pallas kernels cast their tiles to fp32, so under
-// TPU.COMPUTE_DTYPE float32 they compute in fp32 throughout. The bf16
-// routes are attention_dropout_mma.cu's; K3's fp32 forward, whose mask this
-// K4 replays, is attention_dropout.cu's. The wrappers choose by dtype.
+// kernel _attn_kernel), _fad_fwd_impl (_attn_drop_fwd_kernel) and
+// _fad_bwd_impl (_attn_drop_bwd_kernel), on their fp32 route: the Pallas
+// kernels cast their tiles to fp32, so under TPU.COMPUTE_DTYPE float32
+// they compute in fp32 throughout. The bf16 routes are
+// attention_dropout_mma.cu's; the wrappers choose by dtype. K2 is K3's
+// kernel with the mask compiled out (a compile-time kDrop), as in bf16.
 //
 // Semantics, the same as the bf16 kernels': scores, softmax, row sums and
 // every accumulator in fp32; the -10000 additive bias is kept (masked keys
@@ -43,11 +45,12 @@
 // bits, so the scores are exact in any order, as the plain version's.
 //
 // What bounds it on the H100: at the VQA training shape (B=16, H=12,
-// L=128, D=64, fp32) the forward moves 25.2 MB (7.5 us at 3.35 TB/s) and
-// does 0.81 GFLOP, 4.9 us as three TF32 products at 494.7 TFLOP/s (12 us
-// on the CUDA cores at 67); the backward moves 44.1 MB (13.2 us) and does
-// 2.01 GFLOP, 12.2 us as three TF32 products. On paper both are bound by
-// their bytes. In practice latency bounds them: each product costs about
+// L=128, D=64, fp32) the forward (K2, K3) moves 25.2 MB (7.5 us at 3.35
+// TB/s) and does 0.81 GFLOP, 4.9 us as three TF32 products at 494.7
+// TFLOP/s (12 us on the CUDA cores at 67); K3 adds one Philox evaluation
+// per four scores (2.6 us of integer issue); the backward moves 44.1 MB
+// (13.2 us) and does 2.01 GFLOP, 12.2 us as three TF32 products. On paper
+// both are bound by their bytes. In practice latency bounds them: each product costs about
 // 15 us at this shape, its MMAs issuing at roughly a third of mma.sync's
 // rate (estimated from instruction counts, not from a stall profile),
 // at 12 warps a SM; around each MMA sit the split of its
@@ -55,9 +58,11 @@
 // them) and one expf per score and pass. The backward recomputes S and
 // dP twice, so it issues 9 products where 5 are needed. Measured
 // (chip_smoke.py, H100 80GB HBM3 at 700 W): K2 0.0278 ms at B=16 L=128
-// (SDPA fp32 0.0337), 0.0605 at B=16 L=173 (0.0837); K4 0.142 ms at
-// B=16 L=128 (SDPA fp32's backward 0.139), 0.308 at B=16 L=173 (0.258).
-// At B=1 L=41 the 12 blocks (one a head) make K2 latency: 0.0073 ms.
+// (SDPA fp32 0.0337), 0.0605 at B=16 L=173 (0.0837); K3 0.0298 ms at
+// B=16 L=128 (SDPA fp32 with dropout 0.0394), 0.0655 at B=16 L=173
+// (0.1005); K4 0.142 ms at B=16 L=128 (SDPA fp32's backward 0.139), 0.308
+// at B=16 L=173 (0.258). At B=1 L=41 the 12 blocks (one a head) make K2
+// latency: 0.0073 ms.
 //
 // Design (attention_dropout_mma.cu's, in fp32, with the fragments of the
 // block's own rows read from shared memory):
@@ -83,9 +88,10 @@
 //    k slots t and t + 4 stand for rows 2 t and 2 t + 1: then P's C
 //    fragment is already its A fragment (no shuffles), and lane (g, t)
 //    reads T at [2 t (+1)][8 n + g]: bank 8 t + g (+4), conflict-free too.
-//  * K2: one block per (64 query rows, h, b); for each chunk of 32 keys
-//    S = Q K^T, scale and bias, the running max and row sum, then P V into
-//    the fp32 accumulator; out = acc / l.
+//  * K2 and K3: one block per (64 query rows, h, b); for each chunk of 32
+//    keys S = Q K^T, scale and bias, the running max and the row sum over
+//    every key (kept or not), then P * keep V into the fp32 accumulator;
+//    out = acc / l (K2) or acc * (drop_scale / l) (K3).
 //  * K4, two launches, deterministic (no atomics, every sum in a fixed
 //    order), so a training step is bit-reproducible:
 //    - rows pass, one block per 64 query rows (Q and g resident): a
@@ -106,14 +112,12 @@
 //      row sums. The wrapper sums dbias over heads.
 //    Nothing is saved between forward and backward but (q, k, v, bias,
 //    seed or bits).
-//  * The mask: K3's fp32 kernel draws through attention_keep
-//    (attention_dropout.cuh), one Philox4x32-10 evaluation at counter
-//    (key / 4, query, b*H + h, 1) whose word key % 4 decides, or explicit
-//    bits. Here the same words are drawn one evaluation per four elements
-//    of a C fragment, as attention_dropout_mma.cu does for bf16 (the
-//    m16n8k8 C layout is the m16n8k16 one): keep_rows_q and keep_rows_k
-//    below are that file's, written again here because its code stays as
-//    it is so that the bf16 routes keep their bits.
+//  * The mask: one Philox4x32-10 evaluation at counter (key / 4, query,
+//    b*H + h, 1) whose word key % 4 decides, or explicit bits, drawn one
+//    evaluation per four elements of a C fragment by attention_dropout.cuh's
+//    keep_rows_q (K3, rows pass) and keep_rows_k (keys pass), the bf16
+//    kernels' own (the m16n8k8 C layout is the m16n8k16 one): K3 and K4
+//    draw the same words in both dtypes.
 
 #include <cstdint>
 
@@ -129,40 +133,14 @@ constexpr int kThreads = 128;   // 4 warps x 16 rows
 // blocks per SM, as many as shared memory holds (52 KB, 70 KB of 227 KB);
 // the register cap that follows (128, 168 a thread) leaves no spill
 constexpr int kFwdBlocksPerSM = 4;
+constexpr int kDropFwdBlocksPerSM = 4;
 constexpr int kBwdBlocksPerSM = 3;
-constexpr unsigned kFull = 0xffffffffu;
 
 typedef float Row[kS];
 typedef Row Tile[kT];
 typedef Row Chunk[kC];
 
-struct Strides {  // element strides of q, k, v over (b, l, h); unit on d
-  long long qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh;
-};
-
 // ---------------------------------------------------------------- PTX
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16-byte async copy to shared memory; zero-fills (reads nothing) when
-// !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // x rounded to TF32 (10 stored mantissa bits; the low 13 bits of the
 // result are 0): to nearest, ties away from zero
@@ -267,83 +245,6 @@ __device__ __forceinline__ void mma_pt(float (&acc)[8][4],
   }
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-// ---------------------------------------------------------------- mask
-
-// Keep bits of a C fragment whose rows are queries: bit e of the result is
-// element e, i.e. (qa, key), (qa, key + 1), (qa + 8, key), (qa + 8, key + 1)
-// with key = the lane's first column (key % 4 is 0 on even lanes, 2 on odd
-// ones). All lanes of the warp must call it together.
-__device__ __forceinline__ unsigned keep_rows_q(const DropArgs& da, int bh,
-                                                int L, int qa, int key) {
-  unsigned m = 0;
-  if (da.bits != nullptr) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int q = qa + 8 * (e >> 1), k = key + (e & 1);
-      if (q < L && k < L &&
-          (unsigned)da.bits[((long long)bh * L + q) * L + k] >= da.thresh)
-        m |= 1u << e;
-    }
-    return m;
-  }
-  // lanes t and t ^ 1 share the evaluation of keys key & ~3 .. + 3: the
-  // even lane evaluates row qa, the odd one row qa + 8, and each passes
-  // the other the two words it needs (even: words 0, 1; odd: 2, 3)
-  const bool odd = threadIdx.x & 1;
-  const uint4 w = philox4((unsigned)key >> 2, (unsigned)(odd ? qa + 8 : qa),
-                          (unsigned)bh, 1u, da.seed);
-  const unsigned r0 = __shfl_xor_sync(kFull, odd ? w.x : w.z, 1);
-  const unsigned r1 = __shfl_xor_sync(kFull, odd ? w.y : w.w, 1);
-  const unsigned word[4] = {odd ? r0 : w.x, odd ? r1 : w.y,
-                            odd ? w.z : r0, odd ? w.w : r1};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) m |= (unsigned)(word[e] >= da.thresh) << e;
-  return m;
-}
-
-// Keep bits of a C fragment whose rows are keys: bit e is element e, i.e.
-// (ka, q), (ka, q + 1), (ka + 8, q), (ka + 8, q + 1) in (key, query) order,
-// with ka = the lane's first row (ka % 4 == g % 4, ka + 8 in the next key
-// group but one). All lanes of the warp must call it together.
-__device__ __forceinline__ unsigned keep_rows_k(const DropArgs& da, int bh,
-                                                int L, int ka, int q) {
-  unsigned m = 0;
-  if (da.bits != nullptr) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = ka + 8 * (e >> 1), qq = q + (e & 1);
-      if (qq < L && k < L &&
-          (unsigned)da.bits[((long long)bh * L + qq) * L + k] >= da.thresh)
-        m |= 1u << e;
-    }
-    return m;
-  }
-  // the four lanes with this lane's t and g / 4 need word i = g % 4 of the
-  // same four evaluations e_0..e_3 (element e's); lane i evaluates e_i and
-  // in round r passes word (i - r) % 4 to the lane that reads it
-  const int lane = threadIdx.x & 31, i = (lane >> 2) & 3;
-  const uint4 w = philox4((unsigned)(ka + 8 * (i >> 1)) >> 2,
-                          (unsigned)(q + (i & 1)), (unsigned)bh, 1u, da.seed);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int src = (i + r) & 3;
-    const unsigned v = __shfl_sync(kFull, philox_word(w, (i - r) & 3),
-                                   (lane & ~12) | (src << 2));
-    m |= (unsigned)(v >= da.thresh) << src;
-  }
-  return m;
-}
-
 // ---------------------------------------------------------------- sweeps
 
 // Key chunks double-buffered: K, V and the chunk's bias (-inf past L).
@@ -392,14 +293,18 @@ __device__ __forceinline__ void next_kv(KV& s, int j, int nc,
   __syncthreads();
 }
 
-// One warp's 16 query rows (q, in shared memory) against every key: m, the
-// running max; l, this lane's share of the row sum (the quad sums it);
-// acc = sum_j exp(s_j - m) v_j in C layout, unnormalized. Chunk 0's copies
-// must have been issued and committed.
+// One warp's 16 query rows (q, in shared memory; qa = its lane's first
+// row) against every key: m, the running max; l, this lane's share of the
+// row sum over every key, kept or not (the quad sums it); acc = sum_j
+// keep_j exp(s_j - m) v_j in C layout, unnormalized (kDrop false: every
+// keep_j is 1 and da is not read). Chunk 0's copies must have been issued
+// and committed.
+template <bool kDrop>
 __device__ __forceinline__ void forward_sweep(KV& s, const Row* q,
-                                              const Slice& sl, int L,
-                                              float scale, float (&m)[2],
-                                              float (&l)[2],
+                                              const Slice& sl, int L, int bh,
+                                              int qa, float scale,
+                                              const DropArgs& da,
+                                              float (&m)[2], float (&l)[2],
                                               float (&acc)[8][4]) {
   const int t = threadIdx.x & 3, nc = (L + kC - 1) / kC;
   m[0] = m[1] = -INFINITY;
@@ -438,12 +343,16 @@ __device__ __forceinline__ void forward_sweep(KV& s, const Row* q,
       acc[n][3] *= corr[1];
     }
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < 4; ++n) {
+      const unsigned keep =
+          kDrop ? keep_rows_q(da, bh, L, qa, j * kC + 8 * n + 2 * t) : 0xfu;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        sc[n][e] = expf(sc[n][e] - m[e >> 1]);
-        l[e >> 1] += sc[n][e];
+        const float p = expf(sc[n][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        sc[n][e] = (keep >> e) & 1 ? p : 0.0f;
       }
+    }
     mma_pt<4>(acc, sc, s.v[buf]);
     __syncthreads();
   }
@@ -456,12 +365,15 @@ struct FwdSmem {
   KV kv;
 };
 
-// K2: one block per (64 query rows, h, b).
-__global__ void __launch_bounds__(kThreads, kFwdBlocksPerSM)
+// K3 (kDrop) and K2 (no mask): one block per (64 query rows, h, b). K2's
+// out = acc / l; K3's out = acc * (drop_scale / l).
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreads,
+                                  kDrop ? kDropFwdBlocksPerSM : kFwdBlocksPerSM)
     attn_fwd_f32_mma(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ bias, float* __restrict__ out,
-                     int L, int H, Strides st, float scale) {
+                     int L, int H, Strides st, float scale, DropArgs da) {
   extern __shared__ __align__(16) unsigned char smem[];
   FwdSmem& s = *reinterpret_cast<FwdSmem*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -472,17 +384,20 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocksPerSM)
   cp_async_commit();
   const int qa = q0 + 16 * warp + (lane >> 2);
   float m[2], l[2], acc[8][4];
-  forward_sweep(s.kv, s.q + 16 * warp, sl, L, scale, m, l, acc);
+  forward_sweep<kDrop>(s.kv, s.q + 16 * warp, sl, L, b * H + h, qa, scale,
+                       da, m, l, acc);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float lsum = quad_sum(l[r]);
     const int row = qa + 8 * r;
     if (row >= L) continue;
     float* o = out + (((long long)b * L + row) * H + h) * kD + 2 * (lane & 3);
+    const float f = da.drop_scale / lsum;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
       *reinterpret_cast<float2*>(o + 8 * n) =
-          make_float2(acc[n][2 * r] / lsum, acc[n][2 * r + 1] / lsum);
+          kDrop ? make_float2(acc[n][2 * r] * f, acc[n][2 * r + 1] * f)
+                : make_float2(acc[n][2 * r] / lsum, acc[n][2 * r + 1] / lsum);
   }
 }
 
@@ -745,6 +660,23 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// K2 and K3: one block per (64 query rows, h, b)
+template <bool kDrop>
+int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
+               void* out, int B, int L, int H, int D, const Strides& st,
+               float scale, const DropArgs& da, void* stream) {
+  if (D != kD || !aligned16(q, k, v, st)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
+  const cudaError_t err = allow_smem(attn_fwd_f32_mma<kDrop>, sizeof(FwdSmem));
+  if (err) return (int)err;
+  const dim3 grid((L + kT - 1) / kT, H, B);
+  attn_fwd_f32_mma<kDrop>
+      <<<grid, kThreads, sizeof(FwdSmem), (cudaStream_t)stream>>>(
+          (const float*)q, (const float*)k, (const float*)v,
+          (const float*)bias, (float*)out, L, H, st, scale, da);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int attention_fwd_f32(const void* q, const void* k,
@@ -755,15 +687,21 @@ extern "C" int attention_fwd_f32(const void* q, const void* k,
                                  long long vsl, long long vsh, float scale,
                                  void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
-  if (D != kD || !aligned16(q, k, v, st)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
-  const cudaError_t err = allow_smem(attn_fwd_f32_mma, sizeof(FwdSmem));
-  if (err) return (int)err;
-  const dim3 grid((L + kT - 1) / kT, H, B);
-  attn_fwd_f32_mma<<<grid, kThreads, sizeof(FwdSmem), (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
-      (float*)out, L, H, st, scale);
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(q, k, v, bias, out, B, L, H, D, st, scale,
+                           DropArgs{nullptr, 0u, 1.0f, 0ull}, stream);
+}
+
+extern "C" int attention_dropout_fwd_f32(
+    const void* q, const void* k, const void* v, const void* bias, void* out,
+    int B, int L, int H, int D, long long qsb, long long qsl, long long qsh,
+    long long ksb, long long ksl, long long ksh, long long vsb,
+    long long vsl, long long vsh, float scale, const void* bits,
+    unsigned thresh, float drop_scale, unsigned long long seed,
+    void* stream) {
+  const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
+  return launch_fwd<true>(q, k, v, bias, out, B, L, H, D, st, scale,
+                          DropArgs{(const int*)bits, thresh, drop_scale, seed},
+                          stream);
 }
 
 // g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*H*L*3] fp32 scratch;

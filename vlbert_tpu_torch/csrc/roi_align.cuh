@@ -85,23 +85,37 @@ __device__ __forceinline__ Tap axis_tap(AxisRoi r, int pooled, int bin, int k,
   return make_tap(c, size, __fdiv_rn(1.0f, (float)n));
 }
 
-// V consecutive elements (16 bytes) widened to fp32
-template <int V>
-__device__ __forceinline__ void load_chunk(const float* p, float (&v)[V]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+// Whether a roi's samples along one axis may reach pixels lo..hi: a
+// superset of the pixels its weights touch, for skipping rois early. Every
+// sample lies in (start, start + size) up to rounding, and its taps are
+// floor(max(y, 0)) and the pixel after, or size - 1 at the far edge; so a
+// touched pixel x has start - 2 <= x <= start + size + 2 (a margin of one
+// pixel over the taps for the rounding). Samples outside [-1, size]
+// contribute 0 and are kept in the superset.
+__device__ __forceinline__ bool may_touch(AxisRoi r, float lo, float hi) {
+  return hi + 2.0f >= r.start && lo - 2.0f <= r.start + r.size;
 }
 
-template <int V>
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
-                                           float (&v)[V]) {
-  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {a.x, a.y, a.z, a.w};
+// 16 bytes of elements of type T, widened to fp32 (V = 16 / sizeof(T))
+template <typename T, int V>
+__device__ __forceinline__ void widen(uint4 a, float (&v)[V]) {
+  if constexpr (sizeof(T) == 4) {
+    v[0] = __uint_as_float(a.x), v[1] = __uint_as_float(a.y);
+    v[2] = __uint_as_float(a.z), v[3] = __uint_as_float(a.w);
+  } else {
+    const unsigned w[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {  // bf16 -> fp32 is exact: a 16-bit shift
-    v[2 * k] = __uint_as_float(w[k] << 16);
-    v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    for (int k = 0; k < 4; ++k) {  // bf16 -> fp32 is exact: a 16-bit shift
+      v[2 * k] = __uint_as_float(w[k] << 16);
+      v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
   }
+}
+
+// V consecutive elements (16 bytes) widened to fp32
+template <int V, typename T>
+__device__ __forceinline__ void load_chunk(const T* p, float (&v)[V]) {
+  widen<T>(__ldg(reinterpret_cast<const uint4*>(p)), v);
 }
 
 // V fp32 values stored as V elements of the output's type (rounded to

@@ -18,10 +18,10 @@ Training (prob dropout, 0 < rate <= 1):
   * kernels K3 (forward) and K4 (recompute backward), launched by
     ``fused_attention_dropout`` for CUDA tensors inside a
     ``torch.autograd.Function`` that saves only (q, k, v, bias, seed or
-    bits): on the tensor cores for bf16
-    (``csrc/attention_dropout_mma.cu``); for fp32, K3 on the CUDA cores
-    (``csrc/attention_dropout.cu``) and K4 on the tensor cores by the same
-    TF32 split as K2's (``csrc/attention_f32_mma.cu``).
+    bits): on the tensor cores, for bf16 ``csrc/attention_dropout_mma.cu``,
+    for fp32 the same TF32 split as K2's (``csrc/attention_f32_mma.cu``;
+    K3 is K2's kernel with the keep mask on the exponentials entering
+    P V).
 
 The fp32 tensor-core kernels split each operand x into big = x rounded to
 TF32 and small = (x - big) rounded to TF32, and sum small*big + big*small
@@ -211,10 +211,10 @@ class _FusedAttentionDropout(torch.autograd.Function):
 
 
 def _check_cuda_args(q, k, v, bias, name, **more):
-    """The checks of every attention kernel: the tensor-core kernels (bf16
-    K2, K3, K4; fp32 K2, K4) copy each row of q, k, v (and ``more``: g) in
+    """The checks of every attention kernel: the tensor-core kernels (K2,
+    K3, K4 in bf16 and fp32) copy each row of q, k, v (and ``more``: g) in
     16-byte pieces, so each view's start and (b, l, h) strides lie on
-    16-byte boundaries. K3's fp32 kernel shares K4's checks."""
+    16-byte boundaries. K3's checks are K4's."""
     B, L, H, D = q.shape
     if D != 64:
         raise ValueError(f"{name} kernel needs head dim 64, got {D}")
@@ -299,9 +299,9 @@ def _attention_launch(q, k, v, bias):
 
 
 def _dropout_kernels(lib, q):
-    """K3 and K4's entry points for q's dtype: the tensor-core kernels for
-    bf16; for fp32 K3 on the CUDA cores and K4 on the tensor cores by the
-    TF32 split."""
+    """K3 and K4's entry points for q's dtype, all on the tensor cores:
+    bf16 (``attention_dropout_mma.cu``) or fp32 by the TF32 split
+    (``attention_f32_mma.cu``)."""
     if q.dtype == torch.bfloat16:
         return lib.attention_dropout_fwd_bf16, lib.attention_dropout_bwd_bf16
     return lib.attention_dropout_fwd_f32, lib.attention_dropout_bwd_f32

@@ -14,7 +14,8 @@ Two versions of the forward and of the map's gradient:
     (``csrc/roi_align.cu``), launched by ``roi_align`` for CUDA tensors.
   * ``roi_align_bwd_plain``: the map's gradient, the dF half of the JAX
     package's ``_sep_bwd`` (two einsums), the oracle for kernel K1b
-    (``csrc/roi_align_bwd.cu``, deterministic). ``roi_align`` on a CUDA
+    (``csrc/roi_align_bwd.cu``: a gather per map pixel over the rois
+    that touch its row, deterministic). ``roi_align`` on a CUDA
     map that requires grad runs K1 forward and K1b backward in one
     ``torch.autograd.Function``. Boxes come from data: they get no
     gradient, and asking for one on CUDA raises.
@@ -42,7 +43,8 @@ OUT_DTYPES = (torch.float32, torch.bfloat16)
 # this many elements, and the map must start on a 16-byte boundary
 VECTOR_ELEMENTS = {torch.float32: 4, torch.bfloat16: 8}
 # K1b keeps one roi pass's weights in shared memory for pooled sizes up to
-# this, and gives a thread at most two 16-byte chunks of a pixel's channels
+# this, and gives a pixel at most the 8 warps of its block, 64 16-byte
+# chunks of its channels each
 MAX_POOLED = 16
 MAX_BWD_CHUNKS = 512
 
