@@ -118,7 +118,25 @@ its own line:
      stages 3-4 and the RoI head apart, and its attention device ms by
      kernel name; then ``--task refcoco`` from the
      shipped RefCOCO+ config on phase 11's expressions: 8 AdamW steps with
-     exact launches, a falling loss, RefAcc from validation.
+     exact launches, a falling loss, RefAcc from validation;
+  14. pretraining from pixels: ``python -m vlbert_tpu_torch.engine.train
+     --task pretrain`` (its ``main``) from the shipped
+     cfgs/pretrain/base_e2e_16x16G_fp16.yaml at full width (ResNet-101
+     C4, VL-BERT 768 x 12 x 12 with the MLM head tied to the 30522-word
+     table and the 1601-class MVRC head, bf16, AdamW) on a synthetic
+     Conceptual Captions split the script writes (32 landscape and
+     portrait JPEGs, 10-100 boxes each with softmax class scores, jsonl
+     captions) and a text corpus: 8 optimizer steps of 8 caption and 8
+     corpus rows (L = 64 + 108 + 1), each launching K1 1, K1b 1, K3 12,
+     K4 12 and K5 26 times forward and backward, no validation, a
+     falling loss with its MLM, corpus MLM and MVRC parts and the MLM /
+     MVRC accuracies logged, the epochs' checkpoints in the reference
+     layout (the tied decoder stored once, -best.model mirrored), and a
+     second ``main`` that AUTO_RESUMEs past the last; step p50, peak
+     memory and a profiler window's idle share; then one fp32 optimizer
+     step of cfgs/pretrain/base_prec_4x16G_fp32.yaml on precomputed
+     features (32 + 32 rows) with the kernels and with the plain
+     versions, every gradient leaf held.
 
 Any failure raises. Every file the phases write lives under one temporary
 directory, removed on exit. On every exit it stops the processes it
@@ -2289,7 +2307,8 @@ VCR_TRAIN_QUESTIONS = 64
 # FastRCNN's before obj_downsample, and VCR's classifier's (RefCOCO+'s
 # CLASSIFIER_DROPOUT is 0, its CNN_REG_DROPOUT 0); every one on a tensor
 # that requires grad, so each also runs backward
-E2E_K5_SITES = {"vcr": 1 + 2 * 12 + 1 + 1, "refcoco": 1 + 2 * 12 + 1}
+E2E_K5_SITES = {"vcr": 1 + 2 * 12 + 1 + 1, "refcoco": 1 + 2 * 12 + 1,
+                "pretrain": 1 + 2 * 12 + 1}
 
 
 def e2e_launches(task, micro_steps=0, val_batches=0):
@@ -2358,8 +2377,9 @@ def kept_train_net():
 
 
 def write_train_yaml(src, path, overrides):
-    """The shipped config ``src`` with ``overrides`` (dotted paths) set,
-    written to ``path``."""
+    """The shipped config ``src`` with ``overrides`` (dotted paths; an
+    integer picks an entry of a list, as of a pretraining config's
+    DATASET) set, written to ``path``."""
     import yaml
 
     with open(src) as f:
@@ -2368,7 +2388,8 @@ def write_train_yaml(src, path, overrides):
         node = raw
         *parents, leaf = key.split(".")
         for k in parents:
-            node = node.setdefault(k, {})
+            node = node[int(k)] if isinstance(node, list) \
+                else node.setdefault(k, {})
         node[leaf] = value
     with open(path, "w") as f:
         yaml.safe_dump(raw, f)
@@ -2542,6 +2563,200 @@ def refcoco_train_phase(root, vocab_dir):
         "RefAcc": len(res["ref_acc"]) == len(run["val"])
         and all(0.0 <= v <= 1.0 for v in res["ref_acc"])}
     del run, hist
+    torch.cuda.empty_cache()
+    return res
+
+
+# Phase 14: pretraining from pixels. 32 captioned JPEGs, 8 caption rows
+# and 8 corpus rows a step (no accumulation), 2 epochs = 8 optimizer
+# steps; the fp32 check takes one step of the precomputed-feature config
+# on 32 + 32 rows
+PRETRAIN_CFGS = {"e2e": os.path.join(REPO, "cfgs", "pretrain",
+                                     "base_e2e_16x16G_fp16.yaml"),
+                 "prec": os.path.join(REPO, "cfgs", "pretrain",
+                                      "base_prec_4x16G_fp32.yaml")}
+PRETRAIN_IMAGES = 32
+# (width, height) of the caption images, landscape and portrait in turn,
+# each resized by the configs' 600 / 1000 scales
+CC_SIZES = ((640, 480), (480, 640), (800, 600), (600, 800), (1000, 562),
+            (562, 1000), (1280, 720), (720, 1280))
+CC_CLASSES = 1601                 # the detector's classes, VLBERT's MVRC's
+
+
+def write_cc_fixture(root, n=PRETRAIN_IMAGES, feat_dim=2048,
+                     corpus_lines=400):
+    """A synthetic Conceptual Captions split in the dataset's on-disk form
+    under ``root`` (the real data are not in the repo), twice: ``cc/``
+    from pixels (JPEGs of CC_SIZES) and ``cc_prec/`` with ``feat_dim``
+    features a box instead. Each has ``train_frcnn.json`` (one
+    {image, frcnn, caption} row an image) and one frcnn json an image:
+    10-100 boxes, CC_CLASSES-way softmax rows and the features as base64
+    float32, the image's size. Captions are 5-20 words of FIXTURE_WORDS;
+    the text corpus ``corpus.doc`` has ``corpus_lines`` lines of 3-30.
+    Returns (pixels dir, precomputed dir, corpus path)."""
+    import base64
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 14)
+    words = FIXTURE_WORDS[:-1]
+
+    def b64(a):
+        return base64.b64encode(np.asarray(a, np.float32).tobytes()).decode()
+
+    dirs = []
+    for name, prec in (("cc", False), ("cc_prec", True)):
+        d = os.path.join(root, name)
+        os.makedirs(os.path.join(d, "frcnn"), exist_ok=True)
+        os.makedirs(os.path.join(d, "img"), exist_ok=True)
+        rows = []
+        for i in range(n):
+            w, h = CC_SIZES[i % len(CC_SIZES)]
+            if not prec:
+                Image.fromarray(rng.integers(0, 256, (h, w, 3),
+                                             dtype=np.uint8)).save(
+                    os.path.join(d, "img", f"{i}.jpg"), quality=90)
+            nb = int(rng.integers(10, 101))
+            x1, y1 = rng.uniform(0, w * 0.8, nb), rng.uniform(0, h * 0.8, nb)
+            boxes = np.stack([x1, y1,
+                              np.minimum(x1 + rng.uniform(16, w / 2, nb),
+                                         w - 1),
+                              np.minimum(y1 + rng.uniform(16, h / 2, nb),
+                                         h - 1)], 1)
+            logits = rng.normal(0, 3, (nb, CC_CLASSES))
+            scores = np.exp(logits - logits.max(1, keepdims=True))
+            frcnn = {"image_w": w, "image_h": h, "num_boxes": nb,
+                     "boxes": b64(boxes),
+                     "classes": b64(scores / scores.sum(1, keepdims=True))}
+            if prec:
+                frcnn["features"] = b64(np.abs(rng.normal(
+                    0, 1, (nb, feat_dim))))
+            with open(os.path.join(d, "frcnn", f"{i}.json"), "w") as f:
+                json.dump(frcnn, f)
+            rows.append({"image": f"img/{i}.jpg", "frcnn": f"frcnn/{i}.json",
+                         "caption": " ".join(rng.choice(
+                             words, int(rng.integers(5, 21))))})
+        with open(os.path.join(d, "train_frcnn.json"), "w") as f:
+            f.write("\n".join(json.dumps(r) for r in rows) + "\n")
+        dirs.append(d)
+    corpus = os.path.join(root, "corpus.doc")
+    with open(corpus, "w") as f:
+        f.write("\n".join(" ".join(rng.choice(words, int(rng.integers(3, 31))))
+                          for _ in range(corpus_lines)) + "\n")
+    return dirs[0], dirs[1], corpus
+
+
+def pretrain_overrides(root, data_dir, corpus, vocab_dir):
+    """What phase 14 changes in both shipped pretraining configs: phase
+    13's (its data and vocabulary, no warm-start files, visual LN scales
+    1.0, no warm-up, each epoch's checkpoint written between epochs) on
+    the list-valued DATASET's two entries."""
+    return {"DATASET.0.DATASET_PATH": data_dir, "DATASET.0.ROOT_PATH": root,
+            "DATASET.1.TRAIN_ANNOTATION_FILE": corpus,
+            **{k: v for k, v in e2e_overrides(root, "", vocab_dir).items()
+               if not k.startswith("DATASET.")}}
+
+
+def pretrain_phase(root, vocab_dir):
+    """Phase 14: ``python -m vlbert_tpu_torch.engine.train --task
+    pretrain`` from the shipped base_e2e config at full width on the
+    synthetic captions and corpus: exact launches per step, no
+    validation, a falling loss with its three parts logged and the
+    MLM / MVRC accuracies, the epochs' checkpoints in the reference
+    layout (mirrored to -best.model), AUTO_RESUME finding the last; a
+    profiler window; then one fp32 step of the shipped base_prec config
+    with the kernels and with the plain versions. Returns results."""
+    import torch
+    from vlbert_tpu_torch.data.build import make_multitask_dataloader
+    from vlbert_tpu_torch.training.loop import to_device
+    from vlbert_tpu_torch.utils.config import load_config
+
+    cc_dir, prec_dir, corpus = write_cc_fixture(root)
+    overrides = {**pretrain_overrides(root, cc_dir, corpus, vocab_dir),
+                 "TRAIN.END_EPOCH": 2, "LOG_FREQUENT": 4,
+                 # base LR (8 + 8) x 6.25e-6 = 1e-4 (AdamW, triangle to 0
+                 # at the last step)
+                 "TRAIN.LR": 6.25e-6}
+    path = write_train_yaml(PRETRAIN_CFGS["e2e"],
+                            os.path.join(root, "pretrain_e2e.yaml"),
+                            overrides)
+    cfg = load_config("pretrain", path)
+    run = e2e_train_run("pretrain", path)
+    hist, model = run["history"], run["model"]
+    micro = cfg.TRAIN.BATCH_IMAGES
+    out = os.path.join(cfg.OUTPUT_PATH, "pretrain_train")
+    prefix = cfg.MODEL_PREFIX
+    res = {k: run[k] for k in ("rc", "wall_s", "steps", "val", "total",
+                               "peak_gib")}
+    res.update(
+        overrides={k: v for k, v in overrides.items()
+                   if not k.startswith(("DATASET.", "NETWORK.BERT"))},
+        loss=hist["loss"], train=hist["train"], step_ms=hist["step_ms"],
+        micro=micro, n_params=sum(p.numel() for p in model.parameters()),
+        files=sorted(os.listdir(out)),
+        want_step=e2e_launches("pretrain", 1),
+        samples=len(hist["loss"]) * sum(micro))
+    last = torch.load(os.path.join(out, f"{prefix}-0001.model"),
+                      map_location="cpu", weights_only=True)
+    sd = last["state_dict"]
+    decoder = "vlbert.mlm_head.predictions.decoder.weight"
+    parts = ("MLMLossWVC", "MLMLossAUX", "MVRCLoss", "MLMAcc", "MLMAccAUX",
+             "MVRCAcc")
+    res["checks"] = {
+        "rc": run["rc"] == 0,
+        "steps": len(run["steps"]) == PRETRAIN_IMAGES // micro[0]
+        * cfg.TRAIN.END_EPOCH and all(c == res["want_step"]
+                                      for c in run["steps"]),
+        "no validation": run["val"] == [] and hist["val"] == [],
+        "loss falls": _falls(hist["loss"], 2),
+        "losses and accuracies logged": len(hist["train"])
+        == cfg.TRAIN.END_EPOCH and all(
+            math.isfinite(ep.get(k, math.nan))
+            for ep in hist["train"] for k in parts),
+        "files": {f"{prefix}-0000.model", f"{prefix}-0001.model",
+                  f"{prefix}-best.model"} <= set(res["files"]),
+        "reference layout": set(last) >= {"state_dict", "optimizer",
+                                          "step", "extra"}
+        and last["step"] == len(hist["loss"]) and decoder in sd
+        and sd[decoder].untyped_storage().data_ptr()
+        == sd["vlbert.word_embeddings.weight"].untyped_storage().data_ptr()
+        and set(sd) - {decoder} == set(dict(model.state_dict()))
+        - {decoder}}
+    del last, sd
+    batch = run["batch"]
+    res["profile"] = profile_steps(model, cfg, "pretrain", n=2, batch=batch)
+    del model, run, hist, batch
+    torch.cuda.empty_cache()
+    again = e2e_train_run("pretrain", path)
+    h2 = again["history"]
+    res["resume"] = {"begin_epoch": h2["begin_epoch"],
+                     "count": h2["resumed_count"], "steps": len(h2["loss"]),
+                     "wall_s": again["wall_s"]}
+    res["checks"]["auto resume"] = (again["rc"], h2["begin_epoch"],
+                                    h2["resumed_count"], h2["loss"]) == (
+        0, cfg.TRAIN.END_EPOCH, len(res["loss"]), [])
+    del again, h2
+    torch.cuda.empty_cache()
+    # fp32: one step of the precomputed-feature config, kernels vs plain
+    path = write_train_yaml(
+        PRETRAIN_CFGS["prec"], os.path.join(root, "pretrain_prec.yaml"),
+        {**pretrain_overrides(root, prec_dir, corpus, vocab_dir),
+         "TRAIN.END_EPOCH": 1})
+    cfg = load_config("pretrain", path)
+    loader = make_multitask_dataloader(cfg, "pretrain")
+    try:
+        batch = to_device(next(iter(loader)), "cuda")
+    finally:
+        for dl in loader.loaders:
+            dl.shutdown()
+    res["fp32_rows"] = (int(batch[3].shape[0]), int(batch[8].shape[0]))
+    res["fp32"] = step_agreement(
+        cfg, "cuda", "pretrain", plain_training,
+        {**e2e_launches("pretrain", 1), "K1": 0, "K1b": 0},
+        {"mlm_head": "vlbert.mlm_head.", "mvrc_head": "vlbert.mvrc_head.",
+         "encoder": "vlbert.encoder."}, batch=batch)
+    del batch
     torch.cuda.empty_cache()
     return res
 
@@ -3090,6 +3305,56 @@ def main():
               f"3..{len(r13r['loss'])}), peak device memory "
               f"{r13r['peak_gib']:.2f} GiB, {r13r['wall_s']:.2f} s of main "
               f"({card})", flush=True)
+        root14 = os.path.join(root, "p14")
+        os.makedirs(root14)
+        r14 = pretrain_phase(root14, vocab13)
+        if not all(r14["checks"].values()):
+            raise AssertionError(f"pretraining: {r14['checks']}; {r14}")
+        p50_14 = step_p50(r14["step_ms"])
+        wall14, busy14, top14 = r14["profile"]
+        agree14 = r14["fp32"]
+        print(f"[14 train pretrain] python -m vlbert_tpu_torch.engine.train "
+              f"--task pretrain from {PRETRAIN_CFGS['e2e']} at full width "
+              f"(ResNet-101 C4, dilated conv5, VL-BERT 768 x 12 x 12, MLM "
+              f"over 30522 words, MVRC over {CC_CLASSES} classes, "
+              f"{r14['n_params'] / 1e6:.1f}M params, bf16, AdamW) with "
+              f"overrides {json.dumps(r14['overrides'])}, on "
+              f"{PRETRAIN_IMAGES} synthetic captioned JPEGs and a text "
+              f"corpus: {len(r14['loss'])} optimizer steps of "
+              f"{r14['micro'][0]} caption + {r14['micro'][1]} corpus rows "
+              f"(L = 64 + 108 + 1), loss "
+              f"{[round(x, 4) for x in r14['loss']]}; per epoch "
+              f"{[{k: round(v, 4) for k, v in sorted(e.items())} for e in r14['train']]}; "
+              f"launches per step {r14['want_step']} on every one, total "
+              f"{r14['total']}; no validation; files {r14['files']} "
+              f"(reference layout, the tied decoder stored once); "
+              f"AUTO_RESUME: begin_epoch {r14['resume']['begin_epoch']}, "
+              f"optimizer count {r14['resume']['count']}, "
+              f"{r14['resume']['steps']} steps; step p50 {p50_14:.2f} ms "
+              f"(CUDA events, steps 3..{len(r14['loss'])}), "
+              f"{r14['micro'][0] * 1e3 / p50_14:.1f} images/s; "
+              f"{r14['samples']} rows in {r14['wall_s']:.2f} s of main "
+              f"(setup, loader and checkpoint writes included); peak device "
+              f"memory {r14['peak_gib']:.2f} GiB; profiled window (fixed "
+              f"batch): wall {wall14:.2f} ms/step unprofiled, device busy "
+              f"{busy14:.2f} ms/step, idle share {1 - busy14 / wall14:.3f}; "
+              f"top device time ms/step "
+              f"{[(k, round(v, 3)) for k, v in top14]} ({card})", flush=True)
+        print(f"[14 step fp32 pretrain] {PRETRAIN_CFGS['prec']} "
+              f"(precomputed features, {r14['fp32_rows'][0]} caption + "
+              f"{r14['fp32_rows'][1]} corpus rows): kernels vs plain "
+              f"versions (plain Philox), one optimizer step from the same "
+              f"weights and seed: loss {agree14['loss'][0]:.6f} vs "
+              f"{agree14['loss'][1]:.6f}, grad norm "
+              f"{agree14['grad_norm'][0]:.6f} vs {agree14['grad_norm'][1]:.6f}, "
+              f"(rel err, rtol) {agree14['checks']}, worst of "
+              f"{agree14['n_leaves']} leaves {agree14['worst_leaf']}, worst "
+              f"by group "
+              f"{ {k: f'{v:.2e}' for k, v in agree14['by_group'].items()} }; "
+              f"launches kernels {agree14['launches'][0]}, plain "
+              f"{agree14['launches'][1]}; a repeat of the kernel step is "
+              f"bit-identical; attention device ms by kernel "
+              f"{ms_by_name(agree14['attention_ms'])} ({card})", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3139,7 +3404,9 @@ def main():
         "phase11_refcoco_test_batch": r11r["fp32_launches"]["K2"],
         "phase12_vcr_q2a_batch": r12["fp32"]["launches"]["K2"]}
     k4_fp32_launches = {"phase8_vqa_step": agree["launches"][0]["K4"],
-                        "phase13_vcr_step": agree13["launches"][0]["K4"]}
+                        "phase13_vcr_step": agree13["launches"][0]["K4"],
+                        "phase14_pretrain_step":
+                            agree14["launches"][0]["K4"]}
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/roi_align.cu",
@@ -3166,12 +3433,14 @@ def main():
          "launches_vcr": {k: v["launches"]["K1"]
                           for k, v in r12["runs"].items()},
          "launches_train": {"vcr": r13["total"]["K1"],
-                            "refcoco": r13r["total"]["K1"]}},
+                            "refcoco": r13r["total"]["K1"],
+                            "pretrain": r14["total"]["K1"]}},
         {"name": "roi_align_bwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/roi_align_bwd.cu",
          "replaces": "vlbert_tpu/ops/roi_align.py:186",
          "launches": r13["total"]["K1b"],
          "launches_refcoco": r13r["total"]["K1b"],
+         "launches_pretrain": r14["total"]["K1b"],
          "max_abs_err": max(k1b_errs.values()),
          "err_is_relative_to": "max(1, max |plain dF|) of each case",
          "ms": k1b_t["vcr"]["ms"], "plain_ms": k1b_t["plain"][0],
@@ -3249,10 +3518,12 @@ def main():
          "replaces": "vlbert_tpu/ops/dropout.py:83",
          "launches": launches7["K5_fwd"],
          "launches_e2e": {"vcr": r13["total"]["K5_fwd"],
-                          "refcoco": r13r["total"]["K5_fwd"]},
+                          "refcoco": r13r["total"]["K5_fwd"],
+                          "pretrain": r14["total"]["K5_fwd"]},
          "bwd_launches": launches7["K5_bwd"],
          "bwd_launches_e2e": {"vcr": r13["total"]["K5_bwd"],
-                              "refcoco": r13r["total"]["K5_bwd"]},
+                              "refcoco": r13r["total"]["K5_bwd"],
+                              "pretrain": r14["total"]["K5_bwd"]},
          "max_abs_err": max(k5_errs.values()), "ms": k5_ms[0][0],
          "plain_ms": k5_ms[1][0],
          **dict(zip(("bound_ms", "bound_by"),
@@ -3267,7 +3538,8 @@ def main():
          "replaces": "vlbert_tpu/ops/attention.py:300",
          "launches": launches7["K3"],
          "launches_e2e": {"vcr": r13["total"]["K3"],
-                          "refcoco": r13r["total"]["K3"]},
+                          "refcoco": r13r["total"]["K3"],
+                          "pretrain": r14["total"]["K3"]},
          "max_abs_err": max(k34_errs["K3"].values()), "ms": k3_ms[0][0],
          "plain_ms": k3_ms[1][0],
          **dict(zip(("bound_ms", "bound_by"),
@@ -3281,7 +3553,9 @@ def main():
              "source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
              "launches": {"phase8_vqa_step": agree["launches"][0]["K3"],
                           "phase13_vcr_step":
-                              agree13["launches"][0]["K3"]},
+                              agree13["launches"][0]["K3"],
+                          "phase14_pretrain_step":
+                              agree14["launches"][0]["K3"]},
              "ms": k34_f32["k3"][0][0], "plain_ms": k34_f32["k3"][1][0],
              **dict(zip(("bound_ms", "bound_by"),
                         attention_bound(B, L, H, D, "float32"))),
@@ -3308,7 +3582,8 @@ def main():
          "replaces": "vlbert_tpu/ops/attention.py:326",
          "launches": launches7["K4"],
          "launches_e2e": {"vcr": r13["total"]["K4"],
-                          "refcoco": r13r["total"]["K4"]},
+                          "refcoco": r13r["total"]["K4"],
+                          "pretrain": r14["total"]["K4"]},
          "max_abs_err": max(k34_errs["K4"].values()),
          "err_is_relative_to": "max(1, max |plain|)", "ms": k4_ms[0][0],
          "plain_ms": k4_ms[1][0],

@@ -194,15 +194,20 @@ def test_vqa_dataset_collate_and_loader_give_the_same_batches(tmp_path,
     _assert_same(got, want)
 
 
-def _tiny_port_module(task):
+def _tiny_port_module(task, cfg=None):
+    """The port module of ``task`` at tiny width: from ``cfg`` (default:
+    the task's default config) with the encoder cut to 2 layers of 32."""
     from vlbert_tpu_torch.models.task_modules import build_module
 
-    cfg = t_config.default_config(task)
-    cfg.MODULE = "ResNetVLBERT"
+    if cfg is None:
+        cfg = t_config.default_config(task)
+        cfg.MODULE = ("ResNetVLBERTForPretrainingMultitask"
+                      if task == "pretrain" else "ResNetVLBERT")
     v = cfg.NETWORK.VLBERT
     v.hidden_size = 32; v.visual_size = 32; v.num_hidden_layers = 2
     v.num_attention_heads = 2; v.intermediate_size = 64; v.vocab_size = 100
     v.max_position_embeddings = 64; v.visual_ln = True
+    v.visual_region_classes = 11
     cfg.NETWORK.IMAGE_FINAL_DIM = 32
     cfg.NETWORK.IMAGE_NUM_LAYERS = 50
     if task == "vcr":        # the default: modes 1, the class embedding
@@ -238,7 +243,7 @@ REFERENCE_NAMES = [
 ]
 
 
-@pytest.mark.parametrize("task", ["refcoco", "vqa", "vcr"])
+@pytest.mark.parametrize("task", ["refcoco", "vqa", "vcr", "pretrain"])
 def test_converter_name_rules_match(task):
     names = list(_tiny_port_module(task).state_dict()) + REFERENCE_NAMES
     assert len(names) > 60
@@ -248,6 +253,31 @@ def test_converter_name_rules_match(task):
         assert tn == jn, n
         assert t_convert.map_reference_name(tn) \
             == j_convert.map_reference_name(jn), n
+
+
+PRETRAIN_YAMLS = [y for y in YAMLS if y.startswith(
+    os.path.join("cfgs", "pretrain"))
+    and not y.endswith("vis_attention_maps_coco.yaml")]
+
+
+@pytest.mark.parametrize("yaml_file", PRETRAIN_YAMLS)
+def test_every_pretrain_yaml_builds_its_port_module(yaml_file):
+    """Each shipped pretraining config's module (the attention-vis config
+    aside, which is ROADMAP.md queue 1 #11) builds in the port with no
+    refusal, at tiny width on the CPU, with its heads, its masked-region
+    embeddings and the corpus rows' embedding where the config asks."""
+    cfg = t_config.load_config("pretrain", os.path.join(REPO, yaml_file))
+    tm = _tiny_port_module("pretrain", cfg)
+    names = set(tm.state_dict())
+    net = cfg.NETWORK
+    assert tm.with_aux == cfg.MODULE.endswith("Multitask")
+    assert ("vlbert.mlm_head.predictions.bias" in names) == net.WITH_MLM_LOSS
+    assert ("vlbert.mvrc_head.region_cls_pred.weight" in names) \
+        == net.WITH_MVRC_LOSS
+    assert ("object_mask_visual_embedding.weight" in names) \
+        == (net.IMAGE_FEAT_PRECOMPUTED or not net.MASK_RAW_PIXELS)
+    assert hasattr(tm.image_feature_extractor, "backbone") \
+        != net.IMAGE_FEAT_PRECOMPUTED
 
 
 # (rows, columns) of the instance-mask grids: VCR's MASK_SIZE 14, the

@@ -346,8 +346,14 @@ def test_train_net_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="'native'"):
         train_net(args, cfg, "vqa")
     cfg.NETWORK.PARTIAL_PRETRAIN = ""
-    cfg.DATASET.DATASET = "conceptual_captions"
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
+    # what the reference refuses too, and a dataset no package has
+    cfg.NETWORK.FOR_MASK_VL_MODELING_PRETRAIN = True
+    with pytest.raises(NotImplementedError,
+                       match="FOR_MASK_VL_MODELING_PRETRAIN"):
+        train_net(args, cfg, "vqa")
+    cfg.NETWORK.FOR_MASK_VL_MODELING_PRETRAIN = False
+    cfg.DATASET.DATASET = "no_such_dataset"
+    with pytest.raises(ValueError, match="unknown dataset"):
         train_net(args, cfg, "vqa")
     # VCR trains from pixels on the card (K1b); without a card the device
     # check refuses before anything is built or loaded: no CPU fallback
@@ -376,3 +382,46 @@ def test_fp16_parity_mode_is_refused(tmp_path):
         train_net(args, cfg, "vqa")
     cfg.TRAIN.FP16 = False
     check_unported(cfg)
+
+
+def test_compute_dtype_float16_is_refused(tmp_path):
+    """TPU.COMPUTE_DTYPE float16 trains in float16 in the JAX package; the
+    port's kernels take fp32 and bf16 only, so it raises before anything
+    is built (it trained in fp32 unannounced before). Under TRAIN.FP16
+    without the parity mode the JAX package takes bfloat16, and so does
+    the port."""
+    from vlbert_tpu_torch.engine.train import check_unported, train_net
+
+    data_dir, vocab_dir = _write_vqa_fixture(tmp_path)
+    cfg = _tiny_vqa_cfg(tmp_path, data_dir, vocab_dir)
+    cfg.TPU.COMPUTE_DTYPE = "float16"
+    args = types.SimpleNamespace(model_dir="", device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="COMPUTE_DTYPE float16.*float32 and bfloat16"):
+        train_net(args, cfg, "vqa")
+    cfg.TRAIN.FP16 = True
+    check_unported(cfg)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TRAIN.FP16 = False
+    check_unported(cfg)
+
+
+def test_more_than_one_rank_is_refused_before_a_model_is_built(
+        tmp_path, monkeypatch):
+    """Under a process group of 2 ranks nothing all-reduces the gradients,
+    so train_net refuses, naming the multi-GPU item, before it builds a
+    model or a loader."""
+    import vlbert_tpu_torch.engine.train as t_train
+
+    data_dir, vocab_dir = _write_vqa_fixture(tmp_path)
+    cfg = _tiny_vqa_cfg(tmp_path, data_dir, vocab_dir)
+    built = []
+    monkeypatch.setattr(t_train, "dist_rank_world", lambda: (0, 2))
+    monkeypatch.setattr(t_train, "build_module",
+                        lambda *a, **kw: built.append(a))
+    monkeypatch.setattr(t_train, "make_dataloader",
+                        lambda *a, **kw: built.append(a))
+    args = types.SimpleNamespace(model_dir="", device="cpu")
+    with pytest.raises(NotImplementedError, match="2 ranks.*multi-GPU"):
+        t_train.train_net(args, cfg, "vqa")
+    assert built == []

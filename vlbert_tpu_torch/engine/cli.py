@@ -25,7 +25,7 @@ def parse_args(task=None, description="VL-BERT (PyTorch + CUDA)",
     parser = argparse.ArgumentParser(description=description)
     if task is None:
         parser.add_argument("--task", type=str, required=True,
-                            choices=("vqa", "vcr", "refcoco"),
+                            choices=("vqa", "vcr", "refcoco", "pretrain"),
                             help="the task to train")
     parser.add_argument("--cfg", type=str, required=True,
                         help="path to experiment yaml")

@@ -8,9 +8,14 @@ with per-epoch validation and checkpoints.
         --cfg cfgs/vcr/base_q2a_4x16G_fp32.yaml
     python -m vlbert_tpu_torch.engine.train --task refcoco \\
         --cfg cfgs/refcoco/base_gt_boxes_4x16G.yaml
+    python -m vlbert_tpu_torch.engine.train --task pretrain \\
+        --cfg cfgs/pretrain/base_e2e_16x16G_fp16.yaml
 
-VCR and RefCOCO+ train from pixels: the ResNet's unfrozen stages and the
-conv5 RoI head take gradients through ROIAlign (kernels K1 and K1b).
+VCR, RefCOCO+ and pretraining train from pixels: the ResNet's unfrozen
+stages and the conv5 RoI head take gradients through ROIAlign (kernels K1
+and K1b). A list-valued DATASET (multitask pretraining: captions and a
+text corpus) zips one loader per entry and has no validation, as in the
+JAX package; every checkpoint is then also mirrored to ``-best.model``.
 
 Weights start random (init from RNG_SEED), then take the language (BERT)
 and image (ResNet) warm starts and NETWORK.PARTIAL_PRETRAIN, all on
@@ -20,8 +25,9 @@ validation metric and the plateau detector. Every CHECKPOINT_FREQUENT
 epoch and every best-val epoch is saved as ``{prefix}-{epoch:04d}.model``
 (by a background writer under TPU.ASYNC_CHECKPOINT), the best mirrored to
 ``{prefix}-best.model``. ``--do-test`` then scores the best checkpoint
-(``engine/test.py``). One card per process; rank and world size come from
-``torch.distributed`` when it is initialised, and only rank 0 writes.
+(``engine/test.py``). One card, one process: under a process group of
+more than one rank it refuses to train, because nothing all-reduces the
+gradients yet (ROADMAP.md queue 1, multi-GPU).
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import sys
 
 import torch
 
-from vlbert_tpu_torch.data.build import dist_rank_world, make_dataloader
+from vlbert_tpu_torch.data.build import (dist_rank_world, make_dataloader,
+                                         make_multitask_dataloader)
 from vlbert_tpu_torch.data.tokenization import BertTokenizer
 from vlbert_tpu_torch.engine.val import make_validation_fn
 from vlbert_tpu_torch.models.layers import init_weights
@@ -63,13 +70,20 @@ def check_unported(config):
     """Raise on what the config asks for that the port does not do, before
     anything is built. Every task the port trains, trains on the CPU and
     on the card, from precomputed features and from pixels; what is
-    refused is the float16 parity mode."""
+    refused is float16 compute, which the JAX package trains in under
+    TRAIN.FP16 with TPU.FP16_PARITY_MODE and under TPU.COMPUTE_DTYPE
+    float16."""
     if config.TRAIN.FP16 and config.TPU.get("FP16_PARITY_MODE", False):
         raise NotImplementedError(
             "TRAIN.FP16 with TPU.FP16_PARITY_MODE asks for float16 compute "
             "with a static loss scale; the port's kernels take float32 and "
             "bfloat16 only (unset TPU.FP16_PARITY_MODE: TRAIN.FP16 then "
             "trains in bfloat16)")
+    if config.TPU.COMPUTE_DTYPE == "float16" and not config.TRAIN.FP16:
+        raise NotImplementedError(
+            "TPU.COMPUTE_DTYPE float16 asks for float16 training; the "
+            "port's kernels take float32 and bfloat16 only (set "
+            "COMPUTE_DTYPE to bfloat16 or float32)")
 
 
 def nsp_to_binary_classifier_surgery(sd, config):
@@ -198,6 +212,11 @@ def train_net(args, config, task):
     history adds ``begin_epoch`` and ``resumed_count`` (the optimizer count
     after the resume) to ``fit``'s."""
     rank, world = dist_rank_world()
+    if world > 1:
+        raise NotImplementedError(
+            f"training under a process group of {world} ranks: nothing "
+            f"all-reduces the gradients or metrics yet, so each rank would "
+            f"train its own replica; see ROADMAP.md queue 1 (multi-GPU)")
     output_path = train_output_path(config, args, task)
     setup_logger(output_path, rank)
     logger.info("config: %s", dict(config))
@@ -212,7 +231,7 @@ def train_net(args, config, task):
     if config.TRAIN.FP16:
         logger.info("TRAIN.FP16 -> bf16 compute (no loss scale needed)")
         dtype_name = "bfloat16"
-    dtype = {"bfloat16": torch.bfloat16}.get(dtype_name, torch.float32)
+    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
     seed = max(int(config.RNG_SEED), 0)
     model = build_module(config, task, dtype=dtype, device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
@@ -230,8 +249,13 @@ def train_net(args, config, task):
         apply_partial_pretrain(model, config)
 
     tokenizer = BertTokenizer.from_pretrained(config.NETWORK.BERT_MODEL_NAME)
-    train_loader = make_dataloader(config, task, "train", tokenizer)
-    val_loader = make_dataloader(config, task, "val", tokenizer)
+    if isinstance(config.DATASET, (list, tuple)):
+        train_loader = make_multitask_dataloader(config, task, "train",
+                                                 tokenizer)
+        val_loader = None
+    else:
+        train_loader = make_dataloader(config, task, "train", tokenizer)
+        val_loader = make_dataloader(config, task, "val", tokenizer)
     try:
         optimizer = Optimizer(config, model, len(train_loader), world)
         begin_epoch, extra = ckpt_lib.smart_resume(model_prefix, model,
@@ -247,19 +271,20 @@ def train_net(args, config, task):
         async_ckpt = bool(config.TPU.get("ASYNC_CHECKPOINT", True))
 
         def checkpoint_fn(m, opt, epoch, extra_dict, is_best):
-            if rank != 0:
-                return
+            # without validation every save is the best there is, as in
+            # the JAX package
             ckpt_lib.save_checkpoint(
                 model_prefix, epoch, m, opt, extra=extra_dict,
                 async_write=async_ckpt,
-                mirror_best_to=model_prefix if is_best else None)
+                mirror_best_to=model_prefix
+                if is_best or val_loader is None else None)
 
         history = fit(model, config, task, train_loader, optimizer,
                       device=device,
                       seed_generator=torch.Generator().manual_seed(seed),
                       val_loader=val_loader,
-                      validation_fn=make_validation_fn(model, config, task,
-                                                       device),
+                      validation_fn=None if val_loader is None else
+                      make_validation_fn(model, config, task, device),
                       begin_epoch=begin_epoch, checkpoint_fn=checkpoint_fn,
                       best_val=extra.get("best_val"),
                       plateau_state=extra.get("plateau"))
@@ -273,8 +298,10 @@ def train_net(args, config, task):
             logger.exception("async checkpoint write failed during unwind")
         raise
     finally:
-        train_loader.shutdown()
-        val_loader.shutdown()
+        for loader in (*getattr(train_loader, "loaders", [train_loader]),
+                       val_loader):
+            if loader is not None:
+                loader.shutdown()
     ckpt_lib.wait_for_pending_save()     # surface in-flight write failures
     history["begin_epoch"] = begin_epoch
     history["resumed_count"] = resumed_count

@@ -9,9 +9,10 @@ import torch
 from vlbert_tpu_torch.training import metrics as metrics_lib
 from vlbert_tpu_torch.training.loop import make_eval_step, to_device
 
-# which trailing batch entries are labels, and the output key each feeds
+# which trailing batch entries are labels, and the output key each feeds;
+# the pretraining model takes its labels as inputs and returns them
 TASK_LABELS = {"vcr": {"label": -1}, "vqa": {"label": -1},
-               "refcoco": {"label": -1}}
+               "refcoco": {"label": -1}, "pretrain": {}}
 
 
 def label_map_of(config, task):
@@ -32,7 +33,7 @@ def make_validation_fn(model, config, task, device):
         for batch, valid in val_loader.iter_with_valid():
             batch = to_device(batch, device)
             labels = {k: batch[i] for k, i in label_map.items()}
-            dm = eval_step(batch[:-n_labels], labels,
+            dm = eval_step(batch[:len(batch) - n_labels], labels,
                            torch.as_tensor(valid).to(device))
             acc.update(dm)
         return acc.get()

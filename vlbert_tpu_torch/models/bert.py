@@ -5,7 +5,8 @@ LayerNorm statistics and the attention softmax are always fp32; matmuls run
 in the compute dtype with fp32 parameters. Padding is hidden by the
 additive -10000 key bias. Module and parameter names are the reference's
 (``attention.self.query``, ``attention.output.LayerNorm``, ...), so
-checkpoint conversion is a mechanical rename.
+checkpoint conversion is a mechanical rename. The pretraining MLM head
+(``BertLMPredictionHead``) is here too.
 
 The attention core goes through ``ops.attention``: in training with a
 non-zero prob-dropout rate, ``fused_attention_dropout`` (kernels K3/K4 on
@@ -233,3 +234,50 @@ class BertPooler(nn.Module):
 
     def forward(self, hidden):
         return torch.tanh(self.dense(hidden[:, 0]))
+
+
+class BertPredictionHeadTransform(nn.Module):
+    """dense + activation + LayerNorm, before the MLM decoder (and the VQA
+    ``mlm`` classifier's first layer)."""
+
+    def __init__(self, hidden_size, hidden_act, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dense = Linear(hidden_size, hidden_size, dtype=dtype,
+                            device=device)
+        self.act = ACT2FN[hidden_act]
+        self.LayerNorm = BertLayerNorm(hidden_size, device=device)
+
+    def forward(self, x):
+        return self.LayerNorm(self.act(self.dense(x)))
+
+
+class BertLMPredictionHead(nn.Module):
+    """The MLM head: the transform, then the decoder tied to the
+    word-embedding table, which the caller passes at each call (it is not
+    copied), and a bias. The logits are fp32."""
+
+    def __init__(self, hidden_size, vocab_size, hidden_act, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.transform = BertPredictionHeadTransform(
+            hidden_size, hidden_act, dtype=dtype, device=device)
+        self.bias = nn.Parameter(torch.zeros(vocab_size, device=device))
+
+    def forward(self, hidden, word_embedding_weight):
+        h = self.transform(hidden)
+        return F.linear(h, cast(word_embedding_weight, h.dtype)) \
+            .to(torch.float32) + self.bias
+
+
+class BertOnlyMLMHead(nn.Module):
+    """Holds the MLM head as ``predictions``, the reference's nesting."""
+
+    def __init__(self, hidden_size, vocab_size, hidden_act, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.predictions = BertLMPredictionHead(
+            hidden_size, vocab_size, hidden_act, dtype=dtype, device=device)
+
+    def forward(self, hidden, word_embedding_weight):
+        return self.predictions(hidden, word_embedding_weight)

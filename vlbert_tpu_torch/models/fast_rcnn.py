@@ -23,8 +23,11 @@ stages 1-5 are all frozen is the pooled feature detached, and nothing
 flows into the backbone.
 
 Everything stays in the padded [B, O, ...] layout with a box validity
-mask. Not ported yet: MVRC feature masking (``mvrc_ops``, pretraining,
-ROADMAP.md queue 1 #8).
+mask. Pretraining's MVRC masking: given ``mvrc_ops`` and
+``mask_visual_embed``, the masked regions' features are replaced by the
+embedding before the class embedding is concatenated (with
+MASK_RAW_PIXELS the host zeroed their pixels instead, and no embedding
+is given).
 """
 
 from __future__ import annotations
@@ -85,7 +88,7 @@ class FastRCNN(nn.Module):
             Linear(4 * 2 * 256 + visual_feat_dim, final_dim, **kw))
 
     def forward(self, images, boxes, box_mask, im_info, classes=None,
-                segms=None, mvrc_ops=None):
+                segms=None, mvrc_ops=None, mask_visual_embed=None):
         """
         Args:
           images: [B, H, W, 3] NHWC, uint8 RGB (normalized here) or already
@@ -98,14 +101,12 @@ class FastRCNN(nn.Module):
           segms: [B, O, mh, mw] instance masks, mh x mw the RoI head's map
             (end-to-end mode; ignored with precomputed features, as in the
             JAX package)
+          mvrc_ops: [B, O] int, 1 where a region is masked
+          mask_visual_embed: [F] the masked regions' feature, or None
         Returns dict with obj_reps [B, O, final_dim] and obj_reps_raw
         [B, O, F]; under ``enable_cnn_reg_loss`` also obj_logits [B, O, 81]
         fp32, obj_labels and cnn_regularization_loss.
         """
-        if mvrc_ops is not None:
-            raise NotImplementedError(
-                "mvrc_ops (MVRC feature masking) is not ported yet; see "
-                "ROADMAP.md queue 1 #8 (pretraining)")
         if classes is None and (self.enable_cnn_reg_loss
                                 or self.image_semantic):
             raise ValueError("enable_cnn_reg_loss and image_semantic need "
@@ -151,7 +152,11 @@ class FastRCNN(nn.Module):
                            masked_cross_entropy(obj_logits, obj_labels,
                                                 box_mask))
 
-        feats = [post_roialign.to(d)]
+        masked = post_roialign
+        if mvrc_ops is not None and mask_visual_embed is not None:
+            masked = torch.where((mvrc_ops == 1)[..., None],
+                                 mask_visual_embed.to(masked.dtype), masked)
+        feats = [masked.to(d)]
         if self.image_semantic:
             feats.append(self.object_embed(
                 classes.long().clamp(0, NUM_CLASSES - 1)))

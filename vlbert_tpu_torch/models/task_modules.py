@@ -5,11 +5,13 @@ Ported: the RefCOCO+ grounding model, train and eval
 (``ResNetVLBERTForVQA`` with its ``1fc`` / ``2fc`` / ``mlm`` classifiers);
 the VCR models, train and eval (``ResNetVLBERTForVCR`` for Q2A and QA2R,
 ``ResNetVLBERTForVCRQ2AR`` for the single-model Q2AR with its second
-head), each from precomputed features or from pixels. Text arrives
-pre-assembled by the host; boxes stay in the static [B, O] layout with a
-mask. A module in training mode returns (outputs, loss) and in eval mode
-its outputs. ``build_module`` raises NotImplementedError, naming the
-ROADMAP.md queue, for the pretraining modules of the JAX package.
+head), each from precomputed features or from pixels; and the multitask
+pretraining model (``ResNetVLBERTForPretrainingMultitask``: MLM on
+captions and a text corpus, MVRC, the optional relationship task), which
+``ResNetVLBERTForPretraining`` builds without the corpus rows. Text
+arrives pre-assembled by the host; boxes stay in the static [B, O] layout
+with a mask. A module in training mode returns (outputs, loss) and in
+eval mode its outputs.
 """
 
 from __future__ import annotations
@@ -17,14 +19,19 @@ from __future__ import annotations
 import warnings
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from vlbert_tpu_torch.models.bert import ACT2FN, BertLayerNorm
+from vlbert_tpu_torch.models.bert import BertPredictionHeadTransform
 from vlbert_tpu_torch.models.fast_rcnn import FastRCNN
 from vlbert_tpu_torch.models.layers import Embedding, Linear
-from vlbert_tpu_torch.models.vlbert import VisualLinguisticBert, VLBertConfig
+from vlbert_tpu_torch.models.vlbert import (MVRCHeadTransform,
+                                            VisualLinguisticBert,
+                                            VisualLinguisticBertForPretraining,
+                                            VLBertConfig)
 from vlbert_tpu_torch.ops.dropout import Dropout
 from vlbert_tpu_torch.utils import losses
+from vlbert_tpu_torch.utils.misc import master_dataset
 
 
 def collect_obj_reps(span_tags, object_reps):
@@ -39,42 +46,16 @@ def collect_obj_reps(span_tags, object_reps):
     return out.reshape(*tags.shape, H)
 
 
-def generic_obj_vl_embeddings(embed_table, obj_reps):
+def generic_obj_vl_embeddings(embed_table, obj_reps, mask_fn=None):
     """cat(visual feature, GENERIC object linguistic embedding), the object
-    VL assembly shared by VQA / RefCOCO / pretraining."""
+    VL assembly shared by VQA / RefCOCO / pretraining; ``mask_fn`` lets
+    pretraining replace the masked regions' linguistic embedding first."""
     B, O = obj_reps.shape[:2]
     obj_ling = embed_table(torch.zeros((B, O), dtype=torch.long,
                                        device=obj_reps.device))
+    if mask_fn is not None:
+        obj_ling = mask_fn(obj_ling)
     return torch.cat([obj_reps, obj_ling.to(obj_reps.dtype)], dim=-1)
-
-
-class MVRCHeadTransform(nn.Module):
-    """dense + activation transform."""
-
-    def __init__(self, hidden_size, hidden_act, *, dtype=torch.float32,
-                 device=None):
-        super().__init__()
-        self.dense = Linear(hidden_size, hidden_size, dtype=dtype,
-                            device=device)
-        self.act = ACT2FN[hidden_act]
-
-    def forward(self, x):
-        return self.act(self.dense(x))
-
-
-class BertPredictionHeadTransform(nn.Module):
-    """dense + activation + LayerNorm (the MLM head's transform)."""
-
-    def __init__(self, hidden_size, hidden_act, *, dtype=torch.float32,
-                 device=None):
-        super().__init__()
-        self.dense = Linear(hidden_size, hidden_size, dtype=dtype,
-                            device=device)
-        self.act = ACT2FN[hidden_act]
-        self.LayerNorm = BertLayerNorm(hidden_size, device=device)
-
-    def forward(self, x):
-        return self.LayerNorm(self.act(self.dense(x)))
 
 
 class Classifier(nn.Sequential):
@@ -130,7 +111,8 @@ def _fast_rcnn_from_cfg(cfg, vl_cfg, device=None, with_classes=False,
         roi_sampling_ratio=tpu.get("ROI_SAMPLING_RATIO", 1),
         pixel_means=tuple(n.PIXEL_MEANS or (102.9801, 115.9465, 122.7717)),
         pixel_stds=tuple(n.PIXEL_STDS or (1.0, 1.0, 1.0)),
-        visual_feat_dim=cfg.DATASET.get("PRECOMPUTED_FEAT_DIM", 2048),
+        visual_feat_dim=master_dataset(cfg).get("PRECOMPUTED_FEAT_DIM",
+                                                2048),
         frozen_stages=tuple(n.IMAGE_FROZEN_BACKBONE_STAGES),
         dtype=vl_cfg.dtype, device=device)
 
@@ -456,14 +438,154 @@ class ResNetVLBERTForVCRQ2AR(ResNetVLBERTForVCR):
         return outputs, loss
 
 
-_QUEUE = {
-    "ResNetVLBERTForPretraining:pretrain": "queue 1 #8 (other tasks)",
-    "ResNetVLBERTForPretrainingMultitask:pretrain": "queue 1 #8 (other tasks)",
-}
+class ResNetVLBERTForPretrainingMultitask(nn.Module):
+    """Multitask pretraining: caption rows (image, boxes, text) and, with
+    ``with_aux``, text-only corpus rows, concatenated along the batch into
+    one VL-BERT pass. A corpus row's text visual embedding is the learned
+    ``aux_text_visual_embedding`` and its box slots are all masked. Losses:
+    MLM on both kinds of rows (``mlm_loss_wvc``, ``mlm_loss_aux``), MVRC
+    soft CE on the caption rows' masked regions, and the optional
+    caption-image relationship CE; the total is their sum.
+
+    MVRC masking: a masked region's precomputed feature becomes
+    ``object_mask_visual_embedding`` (from pixels too, when
+    MASK_RAW_PIXELS is off; with it on, the host zeroed the region's
+    pixels), and its linguistic embedding ``object_mask_word_embedding``.
+    """
+
+    def __init__(self, config, vl_config, *, with_aux=True,
+                 mask_visual_feat_dim=2048, device=None):
+        super().__init__()
+        vl = self.vl_config = vl_config
+        net = self.net = config.NETWORK
+        self.with_aux = with_aux
+        if with_aux and net.IMAGE_FINAL_DIM != vl.hidden_size:
+            # the aux embedding stands in for IMAGE_FINAL_DIM-wide visual
+            # features, the reference's own assumption
+            raise ValueError(
+                f"multitask pretraining requires IMAGE_FINAL_DIM "
+                f"({net.IMAGE_FINAL_DIM}) == VLBERT.hidden_size "
+                f"({vl.hidden_size}) for the aux text-visual embedding")
+        kw = dict(dtype=vl.dtype, device=device)
+        self.image_feature_extractor = _fast_rcnn_from_cfg(config, vl, device)
+        self.object_linguistic_embeddings = Embedding(1, vl.hidden_size,
+                                                      **kw)
+        if net.IMAGE_FEAT_PRECOMPUTED or not net.MASK_RAW_PIXELS:
+            # zeros, as in the reference; a plain nn.Embedding, so that
+            # init_weights leaves it so
+            self.object_mask_visual_embedding = nn.Embedding(
+                1, mask_visual_feat_dim, device=device)
+            nn.init.zeros_(self.object_mask_visual_embedding.weight)
+        if net.WITH_MVRC_LOSS:
+            self.object_mask_word_embedding = Embedding(1, vl.hidden_size,
+                                                        **kw)
+        self.aux_text_visual_embedding = Embedding(1, vl.hidden_size, **kw)
+        self.vlbert = VisualLinguisticBertForPretraining(
+            vl, with_rel_head=net.WITH_REL_LOSS,
+            with_mlm_head=net.WITH_MLM_LOSS,
+            with_mvrc_head=net.WITH_MVRC_LOSS, device=device)
+
+    def forward(self, image, boxes, im_info, text, relationship_label,
+                mlm_labels, mvrc_ops, mvrc_labels, aux_text=None,
+                aux_mlm_labels=None):
+        net = self.net
+        B, O = boxes.shape[:2]
+        box_mask = boxes[:, :, 0] > -1.5
+        masked = (mvrc_ops == 1)[..., None]
+        if net.IMAGE_FEAT_PRECOMPUTED:
+            feats = torch.where(
+                masked, self.object_mask_visual_embedding.weight[0]
+                .to(boxes.dtype), boxes[:, :, 4:])
+            boxes = torch.cat([boxes[:, :, :4], feats], dim=-1)
+        mask_visual_embed = None
+        if not (net.IMAGE_FEAT_PRECOMPUTED or net.MASK_RAW_PIXELS):
+            mask_visual_embed = self.object_mask_visual_embedding.weight[0]
+        obj_reps = self.image_feature_extractor(
+            image, boxes, box_mask, im_info, mvrc_ops=mvrc_ops,
+            mask_visual_embed=mask_visual_embed)["obj_reps"]
+
+        # the text's visual embedding: the whole-image box, slot 0
+        T = text.shape[1]
+        text_visual = obj_reps[:, :1].expand(B, T, obj_reps.shape[-1])
+
+        def mask_ling(obj_ling):
+            if not net.WITH_MVRC_LOSS:
+                return obj_ling
+            return torch.where(masked, self.object_mask_word_embedding.weight[
+                0].to(obj_ling.dtype), obj_ling)
+
+        obj_vl = generic_obj_vl_embeddings(self.object_linguistic_embeddings,
+                                           obj_reps, mask_ling)
+        B2 = 0
+        if self.with_aux and aux_text is not None:
+            # the corpus rows follow the caption rows: text padded to one
+            # length, the aux embedding as their visual embedding, no boxes
+            B2 = aux_text.shape[0]
+            T = max(T, aux_text.shape[1])
+            tv_aux = self.aux_text_visual_embedding.weight[0].to(
+                text_visual.dtype).expand(B2, T, text_visual.shape[-1])
+            text = torch.cat([_pad_t(text, T), _pad_t(aux_text, T)])
+            text_visual = torch.cat([_pad_t(text_visual, T), tv_aux])
+            obj_vl = torch.cat([obj_vl, obj_vl.new_zeros(
+                (B2, *obj_vl.shape[1:]))])
+            box_mask = torch.cat([box_mask, box_mask.new_zeros((B2, O))])
+        rel_logits, mlm_logits, mvrc_logits = self.vlbert(
+            text, torch.zeros_like(text), text_visual, text > 0, obj_vl,
+            box_mask)
+
+        zero = torch.zeros((), dtype=torch.float32, device=text.device)
+        rel_loss = mlm_loss_wvc = mlm_loss_aux = mvrc_loss = zero
+        outputs = {}
+        if net.WITH_REL_LOSS:
+            rel_logits = rel_logits[:B]
+            rel_loss = losses.cross_entropy(rel_logits, relationship_label)
+            outputs.update(relationship_logits=rel_logits,
+                           relationship_label=relationship_label)
+        if net.WITH_MLM_LOSS:
+            mlm_ce = (losses.cross_entropy_ignore_index_batch_first
+                      if net.MLM_LOSS_NORM_IN_BATCH_FIRST
+                      else losses.cross_entropy_ignore_index)
+            labels = _pad_t(mlm_labels, T, -1)
+            mlm_loss_wvc = mlm_ce(mlm_logits[:B], labels, -1)
+            outputs.update(mlm_logits_wvc=mlm_logits[:B],
+                           mlm_label_wvc=labels)
+            if B2:
+                labels = _pad_t(aux_mlm_labels, T, -1)
+                mlm_loss_aux = mlm_ce(mlm_logits[B:], labels, -1)
+                outputs.update(mlm_logits_aux=mlm_logits[B:],
+                               mlm_label_aux=labels)
+        if net.WITH_MVRC_LOSS:
+            mvrc_logits = mvrc_logits[:B]
+            if net.MVRC_LOSS_NORM_IN_BATCH_FIRST:
+                mvrc_loss = losses.soft_cross_entropy_batch_first(
+                    mvrc_logits, mvrc_labels)
+            else:
+                mvrc_loss = losses.soft_cross_entropy(
+                    mvrc_logits.reshape(-1, mvrc_logits.shape[-1]),
+                    mvrc_labels.reshape(-1, mvrc_labels.shape[-1]))
+            outputs.update(mvrc_logits=mvrc_logits, mvrc_label=mvrc_labels)
+        outputs.update(relationship_loss=rel_loss, mlm_loss=mlm_loss_wvc,
+                       mlm_loss_wvc=mlm_loss_wvc, mlm_loss_aux=mlm_loss_aux,
+                       mvrc_loss=mvrc_loss)
+        if not self.training:
+            return outputs
+        return outputs, rel_loss + mlm_loss_wvc + mlm_loss_aux + mvrc_loss
+
+
+def _pad_t(x, t, value=0):
+    """``x`` [N, T', ...] padded with ``value`` to T = t along dim 1."""
+    pad = [0, 0] * (x.dim() - 2) + [0, t - x.shape[1]]
+    return F.pad(x, pad, value=value)
+
 
 MODULES = {"ResNetVLBERT:refcoco": ResNetVLBERTForRefCOCO,
            "ResNetVLBERT:vqa": ResNetVLBERTForVQA,
-           "ResNetVLBERT:vcr": ResNetVLBERTForVCR}
+           "ResNetVLBERT:vcr": ResNetVLBERTForVCR,
+           # without the corpus rows when the name lacks "Multitask"
+           "ResNetVLBERTForPretraining:pretrain":
+               ResNetVLBERTForPretrainingMultitask,
+           "ResNetVLBERTForPretrainingMultitask:pretrain":
+               ResNetVLBERTForPretrainingMultitask}
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -481,9 +603,6 @@ def build_module(config, task, dtype=None, device=None, fused_qkv=None):
     TPU-only knobs are ignored.
     """
     key = f"{config.MODULE}:{task}"
-    if key in _QUEUE:
-        raise NotImplementedError(
-            f"module {key!r} is not ported yet; see ROADMAP.md {_QUEUE[key]}")
     if key not in MODULES:
         raise ValueError(f"unknown module {config.MODULE!r} for task "
                          f"{task!r}")
@@ -504,6 +623,11 @@ def build_module(config, task, dtype=None, device=None, fused_qkv=None):
     vl_cfg = VLBertConfig.from_attrdict(config.NETWORK.VLBERT, dtype=dtype,
                                         fused_qkv=fused_qkv)
     cls = MODULES[key]
-    if cls is ResNetVLBERTForVCR and config.DATASET.get("TASK") == "Q2AR":
+    if cls is ResNetVLBERTForVCR and master_dataset(config).get("TASK") \
+            == "Q2AR":
         cls = ResNetVLBERTForVCRQ2AR
+    if cls is ResNetVLBERTForPretrainingMultitask:
+        return cls(config, vl_cfg, with_aux=config.MODULE.endswith(
+            "Multitask"), mask_visual_feat_dim=master_dataset(config).get(
+                "PRECOMPUTED_FEAT_DIM", 2048), device=device)
     return cls(config, vl_cfg, device=device)

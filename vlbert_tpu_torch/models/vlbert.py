@@ -11,6 +11,10 @@ T+O+1, as in the JAX package:
     additive -10000 key bias of shape [B, 1, 1, L].
 Masked slots never influence live positions, so the fixed layout gives the
 reference's packed-sequence outputs at every live position.
+
+``VisualLinguisticBertForPretraining`` adds the pretraining heads: the
+caption-image relationship, MLM (its decoder tied to ``word_embeddings``)
+and masked-region classification (MVRC).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import dataclasses
 import torch
 from torch import nn
 
-from vlbert_tpu_torch.models.bert import BertEncoder, BertLayerNorm, BertPooler
+from vlbert_tpu_torch.models.bert import (ACT2FN, BertEncoder, BertLayerNorm,
+                                          BertOnlyMLMHead, BertPooler)
 from vlbert_tpu_torch.models.layers import Embedding, Linear
 from vlbert_tpu_torch.ops.dropout import Dropout
 
@@ -221,3 +226,104 @@ class VisualLinguisticBert(nn.Module):
         if output_attention_probs:
             return out, pooled, probs
         return out, pooled
+
+
+class MVRCHeadTransform(nn.Module):
+    """dense + activation transform."""
+
+    def __init__(self, hidden_size, hidden_act, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dense = Linear(hidden_size, hidden_size, dtype=dtype,
+                            device=device)
+        self.act = ACT2FN[hidden_act]
+
+    def forward(self, x):
+        return self.act(self.dense(x))
+
+
+class VisualLinguisticBertMVRCHead(nn.Module):
+    """Masked visual-region classification: fp32 logits over the
+    detector's classes."""
+
+    def __init__(self, hidden_size, visual_region_classes, hidden_act, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.transform = MVRCHeadTransform(hidden_size, hidden_act, **kw)
+        self.region_cls_pred = Linear(hidden_size, visual_region_classes,
+                                      **kw)
+
+    def forward(self, hidden):
+        return self.region_cls_pred(self.transform(hidden)).to(torch.float32)
+
+
+class VisualLinguisticBertRelationshipPredictionHead(nn.Module):
+    """Caption-image relationship (NSP-style) from the pooled output."""
+
+    def __init__(self, hidden_size, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.caption_image_relationship = Linear(hidden_size, 2, dtype=dtype,
+                                                 device=device)
+
+    def forward(self, pooled):
+        return self.caption_image_relationship(pooled).to(torch.float32)
+
+
+# the reference's checkpoints also hold the tied MLM decoder under this
+# name: the word-embedding table itself
+TIED_DECODER = "mlm_head.predictions.decoder.weight"
+
+
+class VisualLinguisticBertForPretraining(VisualLinguisticBert):
+    """VL-BERT with the relationship, MLM and MVRC heads. As in the
+    reference, the heads sit beside the encoder's own parameters, and the
+    state dict carries the MLM decoder as ``TIED_DECODER``: written from
+    ``word_embeddings.weight`` and dropped on load (the decoder is that
+    table)."""
+
+    def __init__(self, config, with_rel_head=True, with_mlm_head=True,
+                 with_mvrc_head=True, *, device=None):
+        super().__init__(config, device=device)
+        c = config
+        kw = dict(dtype=c.dtype, device=device)
+        self.relationship_head = self.mlm_head = self.mvrc_head = None
+        if with_rel_head:
+            self.relationship_head = \
+                VisualLinguisticBertRelationshipPredictionHead(
+                    c.hidden_size, **kw)
+        if with_mlm_head:
+            self.mlm_head = BertOnlyMLMHead(c.hidden_size, c.vocab_size,
+                                            c.hidden_act, **kw)
+            self.register_state_dict_post_hook(_write_tied_decoder)
+            self.register_load_state_dict_pre_hook(_drop_tied_decoder)
+        if with_mvrc_head:
+            self.mvrc_head = VisualLinguisticBertMVRCHead(
+                c.hidden_size, c.visual_region_classes, c.hidden_act, **kw)
+
+    def forward(self, text_input_ids, text_token_type_ids,
+                text_visual_embeddings, text_mask, object_vl_embeddings,
+                object_mask):
+        """(relationship, MLM, MVRC) fp32 logits, None for a head that is
+        off."""
+        text_out, obj_out, pooled = super().forward(
+            text_input_ids, text_token_type_ids, text_visual_embeddings,
+            text_mask, object_vl_embeddings, object_mask,
+            output_text_and_object_separately=True)
+        rel = mlm = mvrc = None
+        if self.relationship_head is not None:
+            rel = self.relationship_head(pooled)
+        if self.mlm_head is not None:
+            mlm = self.mlm_head(text_out, self.word_embeddings.weight)
+        if self.mvrc_head is not None:
+            mvrc = self.mvrc_head(obj_out)
+        return rel, mlm, mvrc
+
+
+def _write_tied_decoder(module, state_dict, prefix, local_metadata):
+    state_dict[prefix + TIED_DECODER] = \
+        state_dict[prefix + "word_embeddings.weight"]
+
+
+def _drop_tied_decoder(module, state_dict, prefix, *args):
+    state_dict.pop(prefix + TIED_DECODER, None)

@@ -17,8 +17,9 @@ plateau detector. The port reads its own files with ``weights_only=True``.
 Not ported: ``_reconcile_masked_opt_state`` migrates optax moment trees
 across a format change the port never had (its moments are dense tensors
 keyed by name), and ``_to_host`` / ``snapshot_needs_all_ranks`` gather
-state sharded across hosts, which waits for multi-GPU (ROADMAP.md queue 1
-#7): one process writes its own full state.
+state sharded across hosts, which waits for multi-GPU (ROADMAP.md queue
+1): one process writes its own full state. The pretraining model's tied
+MLM decoder is one tensor under two names: ``_to_host`` keeps it one.
 """
 
 from __future__ import annotations
@@ -66,15 +67,21 @@ def _atomic_copy(src, dst):
     os.replace(tmp, dst)
 
 
-def _to_host(obj):
+def _to_host(obj, memo=None):
     """A copy of ``obj`` with every tensor on the CPU: the caller's next
-    step updates the live tensors in place."""
+    step updates the live tensors in place. Two entries that are one
+    tensor (the pretraining model's tied MLM decoder) stay one copy, so
+    the file holds it once, as the reference's does."""
+    memo = {} if memo is None else memo
     if isinstance(obj, torch.Tensor):
-        return obj.detach().to("cpu", copy=True)
+        key = (obj.data_ptr(), obj.dtype, tuple(obj.shape), obj.stride())
+        if key not in memo:
+            memo[key] = obj.detach().to("cpu", copy=True)
+        return memo[key]
     if isinstance(obj, dict):
-        return {k: _to_host(v) for k, v in obj.items()}
+        return {k: _to_host(v, memo) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_host(v) for v in obj)
+        return type(obj)(_to_host(v, memo) for v in obj)
     return obj
 
 

@@ -21,16 +21,20 @@ Formats read (``load_state_dict_file``): torch (reference ``.model``, raw
 ``.npz`` of ``tools/convert_checkpoint.py``, mapped back through the
 inverse rules of ``state_dict_from_jax``. The JAX package's native msgpack
 checkpoints need flax, which the port does not have: that format raises.
-There is no ``stack_layer_params``, ``fuse_qkv_params`` or
-``align_vlbert_nesting``: the port has no scan layers, keeps separate
-query / key / value parameters under TPU.FUSED_QKV, and has no pretrain
-tree yet.
+There is no ``stack_layer_params`` or ``fuse_qkv_params``: the port has
+no scan layers and keeps separate query / key / value parameters under
+TPU.FUSED_QKV.
 
 ``state_dict_from_jax`` turns JAX params into a port ``state_dict``: for
 each port parameter name, ``map_reference_name(normalize_torch_name(name))``
 gives the JAX path and the layout transform, which is inverted here. A fused
 ``...attention.self.qkv`` leaf (TPU.FUSED_QKV) is split back into query,
-key and value.
+key and value. The JAX pretraining model nests its encoder one level
+deeper (``vlbert.bert.*``, the heads at ``vlbert.<head>``), as the
+reference does not: such leaves are read on the reference's names
+(``align_vlbert_nesting``'s inverse). The tied MLM decoder the reference
+layout carries (``vlbert.mlm_head.predictions.decoder.weight``) is the
+word-embedding table, and is read from it.
 
 One head needs a task-aware rename: the reference names its VQA ``mlm``
 classifier ``final_mlp.0`` (transform) and ``final_mlp.2`` (linear), which
@@ -287,6 +291,14 @@ def _lookup(flat, path, used):
     return None
 
 
+def _unnest_vlbert(flat):
+    """The JAX pretraining tree's ``vlbert.bert.*`` leaves on the task
+    trees' ``vlbert.*`` paths."""
+    prefix = "vlbert.bert."
+    return {("vlbert." + k[len(prefix):] if k.startswith(prefix) else k): v
+            for k, v in flat.items()}
+
+
 def state_dict_from_jax(flat, module, strict=True):
     """JAX params as a flat {dot.path: np.ndarray} -> the port module's
     state_dict ({name: torch.Tensor} on the CPU, fp32 as stored).
@@ -296,13 +308,16 @@ def state_dict_from_jax(flat, module, strict=True):
     what it could map and logs the rest (the ``.npz`` loader).
     """
     from vlbert_tpu_torch.models.task_modules import Classifier
+    from vlbert_tpu_torch.models.vlbert import TIED_DECODER
 
+    flat = _unnest_vlbert(flat)
     head = getattr(module, "final_mlp", None)
     renames = _MLM_HEAD if isinstance(head, Classifier) \
         and head.kind == "mlm" else ()
     out, used, missing, mismatched = {}, set(), [], []
     for name, ref in module.state_dict().items():
-        alias, rationale = _head_alias(normalize_torch_name(name))
+        alias, rationale = _head_alias(normalize_torch_name(
+            name.replace(TIED_DECODER, "word_embeddings.weight")))
         mapped = map_reference_name(alias)
         arr = None
         if mapped is not None:

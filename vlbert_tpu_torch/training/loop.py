@@ -172,10 +172,13 @@ def fit(model, config, task, train_loader, optimizer, *, device,
         else begin_epoch
     end_epoch = config.TRAIN.END_EPOCH if end_epoch is None else end_epoch
     log_freq = max(config.LOG_FREQUENT, 1)
-    speedo = Speedometer(config.TRAIN.BATCH_IMAGES * grad_accum, log_freq,
+    batch_images = config.TRAIN.BATCH_IMAGES
+    if isinstance(batch_images, (list, tuple)):   # the multitask loaders'
+        batch_images = sum(batch_images)
+    speedo = Speedometer(batch_images * grad_accum, log_freq,
                          len(train_loader), end_epoch - begin_epoch)
     acc = metrics_lib.HostAccumulator()
-    host_metric = metrics_lib.HOST_METRIC_NAME[task]
+    host_metric = metrics_lib.host_metric_name(task, config)
     # restored on resume, so that -best.model never regresses across
     # restarts (ref vcr/function/train.py:267-270)
     best_val = float("-inf") if best_val is None else float(best_val)

@@ -3,8 +3,7 @@
 Each metric is computed on the device from a step's outputs and stays
 there as a tensor; the host accumulates them into Python floats only at
 log points (``HostAccumulator``), so a step does not wait on the device.
-Ported: the VQA, VCR and RefCOCO+ metrics; the pretraining ones are
-ROADMAP.md queue 1 #8.
+Ported: the VQA, VCR, RefCOCO+ and pretraining metrics.
 """
 
 from __future__ import annotations
@@ -103,32 +102,88 @@ def refcoco_cls_pos_fraction(outputs):
     return pos.to(torch.float32).sum(), valid.to(torch.float32).sum()
 
 
+def relationship_accuracy(outputs):
+    """The argmax of the caption-image relationship logits is the label."""
+    logits, label = outputs["relationship_logits"], \
+        outputs["relationship_label"]
+    vf, n = _sample_valid(outputs, logits.shape[0])
+    return _correct_sum(logits.argmax(dim=1) == label.long(), vf), n
+
+
+def _kept(valid, outputs):
+    """[B, X] ``valid`` without the rows of wrap-padded samples."""
+    vf, _ = _sample_valid(outputs, valid.shape[0])
+    return valid if vf is None else valid & (vf[:, None] > 0)
+
+
+def mlm_accuracy(outputs, logits_key="mlm_logits_wvc",
+                 label_key="mlm_label_wvc"):
+    """Argmax accuracy over the tokens whose label is not -1 (the caption
+    rows; ``mlm_logits_aux`` / ``mlm_label_aux`` for the corpus rows)."""
+    logits, label = outputs[logits_key], outputs[label_key]
+    valid = _kept(label != -1, outputs)
+    correct = (logits.argmax(dim=-1) == label.long()) & valid
+    return correct.to(torch.float32).sum(), valid.to(torch.float32).sum()
+
+
+def mvrc_accuracy(outputs):
+    """The argmax region class is the soft label's argmax, over the rows
+    whose soft labels sum to ~1 (the masked regions)."""
+    logits, label = outputs["mvrc_logits"], outputs["mvrc_label"]
+    valid = _kept((label.sum(dim=-1) - 1.0).abs() < 0.1, outputs)
+    correct = (logits.argmax(dim=-1) == label.argmax(dim=-1)) & valid
+    return correct.to(torch.float32).sum(), valid.to(torch.float32).sum()
+
+
 def loss_logger(outputs, key):
     """Running mean of a loss output."""
     return outputs[key].detach().to(torch.float32).sum(), 1
 
 
 # the named host metric of each task's ValidationMonitor
-HOST_METRIC_NAME = {"vcr": "Acc", "vqa": "SoftAcc", "refcoco": "RefAcc"}
+HOST_METRIC_NAME = {"vcr": "Acc", "vqa": "SoftAcc", "refcoco": "RefAcc",
+                    "pretrain": "MLMAcc"}
+
+
+def host_metric_name(task, config=None):
+    """HOST_METRIC_NAME, except for pretraining without the MLM task:
+    MVRCAcc, else RelAcc (MLMAcc would not exist, and the best checkpoint
+    would never be chosen)."""
+    net = config.NETWORK if config is not None else None
+    if task == "pretrain" and net is not None and not net.WITH_MLM_LOSS:
+        if net.WITH_MVRC_LOSS:
+            return "MVRCAcc"
+        if net.WITH_REL_LOSS:
+            return "RelAcc"
+    return HOST_METRIC_NAME[task]
+
 
 TASK_METRICS = {"vcr": {"Acc": vcr_accuracy},
                 "vqa": {"SoftAcc": vqa_soft_accuracy},
                 "refcoco": {"RefAcc": refcoco_accuracy,
                             "ClsAcc": refcoco_cls_accuracy,
                             "ClsPosAcc": refcoco_cls_pos_accuracy,
-                            "ClsPosFrac": refcoco_cls_pos_fraction}}
+                            "ClsPosFrac": refcoco_cls_pos_fraction},
+                "pretrain": {"MLMAcc": mlm_accuracy,
+                             "MVRCAcc": mvrc_accuracy}}
+# the outputs a pretraining metric reads: absent when its task is off
+_NEEDS = {"MLMAcc": "mlm_logits_wvc", "MVRCAcc": "mvrc_logits"}
 
 
 def device_metrics(task, config, outputs):
     """All (sum, count) pairs of a task, on the device."""
-    if task not in TASK_METRICS:
-        raise NotImplementedError(f"metrics of task {task!r} are not ported "
-                                  f"yet; see ROADMAP.md queue 1")
-    out = {name: fn(outputs) for name, fn in TASK_METRICS[task].items()}
+    out = {name: fn(outputs) for name, fn in TASK_METRICS[task].items()
+           if name not in _NEEDS or _NEEDS[name] in outputs}
     if task == "vcr" and "rationale_logits" in outputs \
             and "rationale_label" in outputs:
         out["RationaleAcc"] = vcr_rationale_accuracy(outputs)
         out["JointAcc"] = vcr_joint_accuracy(outputs)
+    if task == "pretrain" and config.NETWORK.WITH_REL_LOSS \
+            and "relationship_logits" in outputs:
+        out["RelAcc"] = relationship_accuracy(outputs)
+    if task == "pretrain" and "mlm_logits_aux" in outputs:
+        out["MLMAccAUX"] = mlm_accuracy(outputs, "mlm_logits_aux",
+                                        "mlm_label_aux")
     for output_name, display_name in config.TRAIN.LOSS_LOGGERS:
         if output_name in outputs:
             out[display_name] = loss_logger(outputs, output_name)

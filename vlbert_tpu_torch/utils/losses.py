@@ -61,3 +61,28 @@ def bce_with_logits_masked(logits, targets, mask):
                                               reduction="none")
     m = _f32(mask)
     return (loss * m).sum() / m.sum().clamp(min=1.0)
+
+
+def cross_entropy_ignore_index_batch_first(logits, labels, ignore_index=-1):
+    """MLM_LOSS_NORM_IN_BATCH_FIRST: each example's mean over its valid
+    tokens, then the mean over the examples that have any; both
+    denominators get the reference's +1e-4. logits [B, T, V]."""
+    valid = labels != ignore_index
+    nll = _nll(logits, torch.where(valid, labels, torch.zeros_like(labels)))
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    num = valid.sum(dim=1).to(torch.float32)
+    per_ex = nll.sum(dim=1) / (num + 1e-4)
+    return per_ex.sum() / ((num != 0).sum().to(torch.float32) + 1e-4)
+
+
+def soft_cross_entropy_batch_first(logits, soft_labels):
+    """MVRC_LOSS_NORM_IN_BATCH_FIRST: a row is valid when its soft labels
+    sum to ~1; each example's mean over its valid rows, then the mean over
+    the examples that have any (+1e-4 on both). logits [B, O, C]."""
+    soft = _f32(soft_labels)
+    valid = (soft.sum(-1) - 1.0).abs() < 0.1
+    per_row = -(soft * torch.log_softmax(_f32(logits), dim=-1)).sum(-1)
+    per_row = torch.where(valid, per_row, torch.zeros_like(per_row))
+    num = valid.sum(dim=1).to(torch.float32)
+    per_ex = per_row.sum(dim=1) / (num + 1e-4)
+    return per_ex.sum() / ((num != 0).sum().to(torch.float32) + 1e-4)

@@ -1,13 +1,21 @@
 """Startup parameter summary (port of vlbert_tpu/utils/misc.py): a
 per-parameter name/dtype/shape/#params table plus trainable /
 non-trainable / total counts, logged once at model build. The split is
-``requires_grad``, which ``training.optim.apply_trainable_mask`` sets."""
+``requires_grad``, which ``training.optim.apply_trainable_mask`` sets.
+And ``master_dataset``, the DATASET entry a config's run is defined by."""
 
 from __future__ import annotations
 
 import logging
 
 logger = logging.getLogger(__name__)
+
+
+def master_dataset(cfg):
+    """``cfg.DATASET``, or the first entry of a pretraining config's list
+    (the master loader's, which sets the epoch length)."""
+    d = cfg.DATASET
+    return d[0] if isinstance(d, (list, tuple)) else d
 
 
 def summary_parameters(module, log=None):
