@@ -402,7 +402,9 @@ def k1_cases(dev):
     the serve shape; B=2 with 37 slots, the edge boxes and random ones,
     different in each image, padded slots at other places in each; the
     RefCOCO+ test driver's B=4 with 108 slots, 108, 97, 66 and 40 live;
-    VCR's test batch, B=4 on 600x1200 canvases with 108 slots; the
+    VCR's test batch, B=4 on 600x1200 canvases with 108 slots;
+    pretraining's caption batch, B=8 on a 1000x1000 canvas with 108 slots,
+    11-101 live, the whole-image box first; the
     portrait canvas a 480x640 query is padded to (1000 tall, 600 wide: map
     [1,63,38,1024]) with the serve boxes transposed; and an odd C (1032:
     129 bf16 or 258 fp32 chunks a pixel, more than a block's threads)."""
@@ -460,6 +462,25 @@ def k1_cases(dev):
     yield ("vcr_B4_O108", torch.randn(4, 38, 75, 1024, generator=g,
                                       device=dev),
            torch.from_numpy(bv).to(dev), torch.from_numpy(mv).to(dev), (1,))
+    # pretraining's caption batch: 8 images of PRETRAIN_CANVASES
+    # (landscape and portrait on one 1000x1000 canvas: body4
+    # [8,63,63,1024]), 108 slots, the whole-image box first, then 10-100
+    # frcnn boxes inside the image, the rest padded with the dataset's -2
+    O, live = 108, (101, 11, 57, 88, 30, 74, 19, 45)
+    bp = np.full((8, O, 4), -2.0, np.float32)
+    mp = np.zeros((8, O), bool)
+    for b, ((w, h), n) in enumerate(zip(PRETRAIN_CANVASES, live)):
+        x1 = rng.uniform(0, w * 0.8, n - 1)
+        y1 = rng.uniform(0, h * 0.8, n - 1)
+        bp[b, 0] = (0, 0, w - 1, h - 1)
+        bp[b, 1:n] = np.stack(
+            [x1, y1, np.minimum(x1 + rng.uniform(16, w / 2, n - 1), w - 1),
+             np.minimum(y1 + rng.uniform(16, h / 2, n - 1), h - 1)], 1)
+        mp[b, :n] = True
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    yield ("pretrain_B8_O108", torch.randn(8, 63, 63, 1024, generator=g,
+                                           device=dev),
+           torch.from_numpy(bp).to(dev), torch.from_numpy(mp).to(dev), (1,))
     portrait = boxes[..., [1, 0, 3, 2]].contiguous()
     yield ("portrait", feat.transpose(1, 2).contiguous(), portrait, mask,
            (1, 0))
@@ -588,25 +609,27 @@ def k1b_parity(dev):
 
 
 # K1b's timed calls: VCR's training shape with the padded slots of the
-# main path or every slot live, and RefCOCO+'s
-K1B_TIMED = ("vcr", "vcr_all_live", "refcoco")
+# main path or every slot live, RefCOCO+'s and pretraining's
+K1B_TIMED = ("vcr", "vcr_all_live", "refcoco", "pretrain")
 # RefCOCO+'s training batch: live slots of each of its 4 images (its
 # candidate boxes, at most 16 of the 108 slots, first)
 K1B_REFCOCO_LIVE = (16, 12, 8, 4)
 
 
 def k1b_inputs(dev, case="vcr"):
-    """A main path's K1b call, bf16 map and bf16 g [4,108,14,14,1024]:
+    """A main path's K1b call, bf16 map and bf16 g [B,108,14,14,1024]:
     "vcr", VCR's training shape, the vcr_B4_O108 case of k1_cases (body4
     [4,38,75,1024], 108 slots, 108, 60, 21 and 8 live); "vcr_all_live",
     the same with all 108 live; "refcoco", RefCOCO+'s training shape, the
     B4_O108 case's boxes (body4 [4,38,63,1024]) with K1B_REFCOCO_LIVE
-    live."""
+    live; "pretrain", pretraining's, the pretrain_B8_O108 case (g
+    [8,108,14,14,1024])."""
     import torch
 
     cases = {c[0]: c for c in k1_cases(dev)}
-    _, feat, boxes, mask, _ = cases["B4_O108" if case == "refcoco"
-                                    else "vcr_B4_O108"]
+    _, feat, boxes, mask, _ = cases[{"refcoco": "B4_O108",
+                                     "pretrain": "pretrain_B8_O108"}.get(
+                                         case, "vcr_B4_O108")]
     if case == "vcr_all_live":
         mask = torch.ones_like(mask)
     elif case == "refcoco":
@@ -1667,23 +1690,49 @@ def step_agreement(cfg, dev, task="vqa", plain=plain_training,
         raise AssertionError(f"fp32 step launches: kernels {c1} (want "
                              f"{want_launches}), plain {c2}")
     p2 = dict(twin.named_parameters())
-    dparam = max((p - p2[k]).abs().max().item()
-                 for k, p in model.named_parameters())
+    moved = {k: (p - p2[k]).abs() for k, p in model.named_parameters()}
+    dparam = max(d.max().item() for d in moved.values())
+
+    def element_at(k):
+        """The element of leaf ``k`` that moved furthest apart, and both
+        gradients there relative to the leaf's scale."""
+        at = moved[k].argmax()
+        out = {"leaf": k, "per_lr": moved[k].flatten()[at].item() / lr}
+        if k in g2:
+            scale = max(leaf_max[k], floor)
+            out.update(kernel_g=g1[k].flatten()[at].item() / scale,
+                       plain_g=g2[k].flatten()[at].item() / scale,
+                       scale=scale)
+        return out
+
+    # From pixels (image_rtol) the image path's leaves are held by their
+    # gradients alone: an element of theirs whose gradient lies near AdamW's
+    # eps after clipping can change its first step (about
+    # lr * g / (|g| + eps)) by up to 2 lr within image_rtol's gradient gap.
+    # The other leaves' parameters are held to param_per_lr.
+    dheld = max((moved[k].max().item() for k in moved if k not in image),
+                default=0.0)
+    far = max(moved, key=lambda k: moved[k].max().item())
+    worst_held = max((k for k in moved if k not in image),
+                     key=lambda k: moved[k].max().item())
+    far_at = {"all": element_at(far), "held": element_at(worst_held)}
     checks = {"loss": (abs(l1 - l2) / abs(l2), STEP_RTOL["loss"]),
               "grad_norm": (abs(n1 - n2) / n2, STEP_RTOL["grad_norm"]),
               "leaf_grad": (leaf_gap[worst_leaf], STEP_RTOL["leaf_grad"]),
-              "param_per_lr": (dparam / lr, STEP_RTOL["param_per_lr"])}
+              "param_per_lr": (dheld / lr, STEP_RTOL["param_per_lr"])}
     if image:
         worst_image = max(image, key=leaf_gap.get)
         checks["image_leaf_grad"] = (leaf_gap[worst_image], image_rtol)
     bad = {k: v for k, v in checks.items() if not v[0] <= v[1]}
     if bad:
         raise AssertionError(f"fp32 step: (err, tol) {checks}; worst leaf "
-                             f"gradient {worst_leaf}")
+                             f"gradient {worst_leaf}; furthest parameter "
+                             f"{far_at}")
     return {"loss": (l1, l2), "grad_norm": (n1, n2), "checks": checks,
             "launches": (c1, c2), "n_leaves": len(g2),
             "worst_leaf": worst_leaf, "max_param_diff": dparam, "lr": lr,
-            "by_group": by_group, "attention_ms": attention_ms}
+            "furthest_param": far_at, "by_group": by_group,
+            "attention_ms": attention_ms}
 
 
 # the answer head of a pretrain checkpoint: the VQA classifier's transform
@@ -2580,6 +2629,12 @@ PRETRAIN_IMAGES = 32
 # each resized by the configs' 600 / 1000 scales
 CC_SIZES = ((640, 480), (480, 640), (800, 600), (600, 800), (1000, 562),
             (562, 1000), (1280, 720), (720, 1280))
+# the extents of CC_SIZES after the 600 / 1000 scales (short side 600,
+# long side at most 1000): one caption batch's images, K1's
+# pretrain_B8_O108 case
+PRETRAIN_CANVASES = tuple(
+    (round(w * r), round(h * r)) for w, h in CC_SIZES
+    for r in [min(600 / min(w, h), 1000 / max(w, h))])
 CC_CLASSES = 1601                 # the detector's classes, VLBERT's MVRC's
 
 
@@ -2665,8 +2720,9 @@ def pretrain_phase(root, vocab_dir):
     validation, a falling loss with its three parts logged and the
     MLM / MVRC accuracies, the epochs' checkpoints in the reference
     layout (mirrored to -best.model), AUTO_RESUME finding the last; a
-    profiler window; then one fp32 step of the shipped base_prec config
-    with the kernels and with the plain versions. Returns results."""
+    profiler window; then one fp32 step from pixels of the same config on
+    its loader's first batch, and one of the shipped base_prec config,
+    each with the kernels and with the plain versions. Returns results."""
     import torch
     from vlbert_tpu_torch.data.build import make_multitask_dataloader
     from vlbert_tpu_torch.training.loop import to_device
@@ -2738,6 +2794,23 @@ def pretrain_phase(root, vocab_dir):
         0, cfg.TRAIN.END_EPOCH, len(res["loss"]), [])
     del again, h2
     torch.cuda.empty_cache()
+    heads = {"mlm_head": "vlbert.mlm_head.", "mvrc_head": "vlbert.mvrc_head."}
+    # fp32 from pixels: one step of the e2e config on the first batch of
+    # its loader, the kernels (K1, K1b among them) vs the plain versions
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    loader = make_multitask_dataloader(cfg, "pretrain")
+    try:
+        batch = to_device(next(iter(loader)), "cuda")
+    finally:
+        loader.shutdown()
+    res["fp32_e2e"] = step_agreement(
+        cfg, "cuda", "pretrain", plain_e2e_training,
+        e2e_launches("pretrain", 1), {**E2E_LEAF_GROUPS, **heads},
+        IMAGE_LEAF_RTOL, batch)
+    res["fp32_e2e_rows"] = (int(batch[0].shape[0]), int(batch[8].shape[0]))
+    res["fp32_e2e_image"] = tuple(batch[0].shape)
+    del batch
+    torch.cuda.empty_cache()
     # fp32: one step of the precomputed-feature config, kernels vs plain
     path = write_train_yaml(
         PRETRAIN_CFGS["prec"], os.path.join(root, "pretrain_prec.yaml"),
@@ -2748,14 +2821,12 @@ def pretrain_phase(root, vocab_dir):
     try:
         batch = to_device(next(iter(loader)), "cuda")
     finally:
-        for dl in loader.loaders:
-            dl.shutdown()
+        loader.shutdown()
     res["fp32_rows"] = (int(batch[3].shape[0]), int(batch[8].shape[0]))
     res["fp32"] = step_agreement(
         cfg, "cuda", "pretrain", plain_training,
         {**e2e_launches("pretrain", 1), "K1": 0, "K1b": 0},
-        {"mlm_head": "vlbert.mlm_head.", "mvrc_head": "vlbert.mvrc_head.",
-         "encoder": "vlbert.encoder."}, batch=batch)
+        {**heads, "encoder": "vlbert.encoder."}, batch=batch)
     del batch
     torch.cuda.empty_cache()
     return res
@@ -3224,7 +3295,8 @@ def main():
               f"({worst_k1b}; fp32 within {K1B_RTOL}, bf16 within one bf16 "
               f"step more), every repeat bit-identical; bf16 g "
               f"[4,108,14,14,1024] and dF at VCR's training shape "
-              f"[4,38,75,1024] and RefCOCO+'s [4,38,63,1024] (live "
+              f"[4,38,75,1024], RefCOCO+'s [4,38,63,1024] and "
+              f"pretraining's (g [8,108,...], dF [8,63,63,1024]) (live "
               f"{list(K1B_REFCOCO_LIVE)}), sampling 1, device ms by kernel "
               f"(call ms): "
               + "; ".join(f"{k} {t['ms']:.4f} ({t['call_ms']:.4f}), "
@@ -3340,6 +3412,24 @@ def main():
               f"{busy14:.2f} ms/step, idle share {1 - busy14 / wall14:.3f}; "
               f"top device time ms/step "
               f"{[(k, round(v, 3)) for k, v in top14]} ({card})", flush=True)
+        e2e14 = r14["fp32_e2e"]
+        print(f"[14 step fp32 pretrain from pixels] {PRETRAIN_CFGS['e2e']} "
+              f"in fp32 on its loader's first batch (image "
+              f"{list(r14['fp32_e2e_image'])}, {r14['fp32_e2e_rows'][0]} "
+              f"caption + {r14['fp32_e2e_rows'][1]} corpus rows): kernels "
+              f"vs plain versions (plain ROIAlign under autograd, plain "
+              f"Philox), one optimizer step from the same weights and seed: "
+              f"loss {e2e14['loss'][0]:.6f} vs {e2e14['loss'][1]:.6f}, grad "
+              f"norm {e2e14['grad_norm'][0]:.6f} vs "
+              f"{e2e14['grad_norm'][1]:.6f}, (rel err, rtol) "
+              f"{e2e14['checks']}, worst of {e2e14['n_leaves']} leaves "
+              f"{e2e14['worst_leaf']}, the parameter moved furthest apart "
+              f"{e2e14['furthest_param']}, worst by group "
+              f"{ {k: f'{v:.2e}' for k, v in e2e14['by_group'].items()} }; "
+              f"launches kernels {e2e14['launches'][0]}, plain "
+              f"{e2e14['launches'][1]}; a repeat of the kernel step is "
+              f"bit-identical; attention device ms by kernel "
+              f"{ms_by_name(e2e14['attention_ms'])} ({card})", flush=True)
         print(f"[14 step fp32 pretrain] {PRETRAIN_CFGS['prec']} "
               f"(precomputed features, {r14['fp32_rows'][0]} caption + "
               f"{r14['fp32_rows'][1]} corpus rows): kernels vs plain "
@@ -3406,7 +3496,9 @@ def main():
     k4_fp32_launches = {"phase8_vqa_step": agree["launches"][0]["K4"],
                         "phase13_vcr_step": agree13["launches"][0]["K4"],
                         "phase14_pretrain_step":
-                            agree14["launches"][0]["K4"]}
+                            agree14["launches"][0]["K4"],
+                        "phase14_pretrain_e2e_step":
+                            e2e14["launches"][0]["K4"]}
     kernels = [
         {"name": "roi_align_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/roi_align.cu",
@@ -3467,7 +3559,14 @@ def main():
                      "bound_ms": k1b_t["refcoco"]["bound"][0],
                      "bound_by": k1b_t["refcoco"]["bound"][1],
                      "library_ms": k1b_lib_rc[0],
-                     "library_kernels": k1b_lib_rc[1]}},
+                     "library_kernels": k1b_lib_rc[1]},
+         "pretrain": {"shape": "g [8,108,14,14,1024] bf16 (live slots "
+                               f"{k1b_t['pretrain']['live']}), dF "
+                               "[8,63,63,1024] bf16",
+                      "ms": k1b_t["pretrain"]["ms"],
+                      "call_ms": k1b_t["pretrain"]["call_ms"],
+                      "bound_ms": k1b_t["pretrain"]["bound"][0],
+                      "bound_by": k1b_t["pretrain"]["bound"][1]}},
         {"name": "attention_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
          "fp32_source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",

@@ -264,3 +264,20 @@ def test_multitask_dataloader_gives_the_same_stream(tmp_path, precomputed):
     assert out[0][0][8].shape == (3 * n_dev, 16)
     if not precomputed:
         assert out[0][0][0].dtype == np.float32     # normalized on the host
+
+
+def test_multitask_loader_shutdown_stops_every_sub_loader():
+    """MultiTaskLoader.shutdown() stops the master and every aux loader,
+    so its callers never reach into its sub-loaders."""
+    stopped = []
+
+    class Sub:
+        def __init__(self, name):
+            self.name = name
+
+        def shutdown(self):
+            stopped.append(self.name)
+
+    t_loader.MultiTaskLoader([Sub("master"), Sub("aux0"),
+                              Sub("aux1")]).shutdown()
+    assert stopped == ["master", "aux0", "aux1"]

@@ -366,6 +366,11 @@ class MultiTaskLoader:
     def __len__(self):
         return len(self.loaders[0])
 
+    def shutdown(self):
+        """Terminate every sub-loader's worker pool."""
+        for loader in self.loaders:
+            loader.shutdown()
+
     def __iter__(self):
         iters = [iter(l) for l in self.loaders]
         for master in iters[0]:

@@ -298,8 +298,7 @@ def train_net(args, config, task):
             logger.exception("async checkpoint write failed during unwind")
         raise
     finally:
-        for loader in (*getattr(train_loader, "loaders", [train_loader]),
-                       val_loader):
+        for loader in (train_loader, val_loader):
             if loader is not None:
                 loader.shutdown()
     ckpt_lib.wait_for_pending_save()     # surface in-flight write failures
