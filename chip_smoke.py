@@ -136,7 +136,26 @@ its own line:
      memory and a profiler window's idle share; then one fp32 optimizer
      step of cfgs/pretrain/base_prec_4x16G_fp32.yaml on precomputed
      features (32 + 32 rows) with the kernels and with the plain
-     versions, every gradient leaf held.
+     versions, every gradient leaf held;
+  15. VL-BERT-large (24 layers x 1024 x 16 heads): K2, K3, K4 at 16 heads
+     (B=16 L=173, fp32 and bf16) and K5 at [16, 173, 1024] against their
+     plain versions, keep masks at 16 heads bit for bit, each timed
+     beside its library call; then ``python -m
+     vlbert_tpu_torch.engine.train --task vcr`` from the shipped
+     cfgs/vcr/large_q2a_4x16G_fp16.yaml (TRAIN.FP16 -> bf16, SGD, 4
+     micro-steps of 4 images x 4 choices) on phase 13's fixture and
+     overrides: 8 steps, each launching K1 4, K1b 4, K3 96, K4 96 and K5
+     204 times forward and backward, one validation run (K2 24 a batch),
+     a falling loss, a profiler window; one step on its first batch with
+     TPU.REMAT off and on from the same weights and seed (the same loss,
+     every gradient leaf within 1e-5 of its largest element, K3 and the
+     encoder's K5 sites launched twice a layer), peak memory and step
+     time of each; the peak of one step of the shipped
+     cfgs/vcr/large_q2a_v5e_bf16.yaml batch of 16 images, REMAT off and
+     on (REMAT must lower it); an fp32 step of cfgs/vqa/large_4x16G_fp32.
+     yaml with the kernels and with the plain versions (phase 8's bar);
+     RefCOCOServer on cfgs/refcoco/large_gt_boxes_4x16G.yaml over phase
+     4's queries (K1 1, K2 24 a query), p50 / p90.
 
 Any failure raises. Every file the phases write lives under one temporary
 directory, removed on exit. On every exit it stops the processes it
@@ -291,6 +310,24 @@ def cuda_ms(fn, iters=50, warmup=5):
     return t["route_ms"], t["call_ms"]
 
 
+def event_ms(fn, iters=5, warmup=1):
+    """CUDA-event ms per call of ``fn`` over ``iters`` back-to-back calls,
+    no profiler window: for the slow plain versions, whose device time is
+    their call time."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def time_calls(fn, kernel=None, iters=50, warmup=5):
     """Per call of ``fn``: {"route_ms": the summed device time of every
     kernel and copy it runs, from a torch.profiler trace of ``iters`` calls;
@@ -323,18 +360,19 @@ def time_calls(fn, kernel=None, iters=50, warmup=5):
 
 def device_by_name(fn, iters):
     """{kernel name: (summed device µs, launches)} over ``iters`` calls of
-    ``fn`` in a torch.profiler window. The profiler now and then returns a
-    window without device events, or with some of them missing (a kernel
-    counted a number of times that is not a multiple of ``iters``, when
-    every call launches the same kernels); such a window is measured
-    again, up to three times in all, and the fullest one is kept."""
+    ``fn`` in a torch.profiler window of device activity only (host ops
+    are not recorded: a window over whole training steps stays cheap to
+    read). The profiler now and then returns a window without device
+    events, or with some of them missing (a kernel counted a number of
+    times that is not a multiple of ``iters``, when every call launches
+    the same kernels); such a window is measured again, up to three times
+    in all, and the fullest one is kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     windows = []
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -846,10 +884,10 @@ def k5_parity(dev):
     return errs, {"keep_fraction": frac, "sigma": sigma}, timing
 
 
-def _train_qkv(g, dev, dtype, B=16, L=128):
-    """q, k, v as strided views of one fused [B, L, 3*768] leaf, and a
-    [B,1,1,L] bias leaf: 7 padded keys per row, and batch row 1 with every
-    key masked.
+def _train_qkv(g, dev, dtype, B=16, L=128, H=12):
+    """q, k, v as strided views of one fused [B, L, 3*H*64] leaf (H heads
+    of 64), and a [B,1,1,L] bias leaf: 7 padded keys per row, and batch row
+    1 with every key masked.
 
     q and k lie on a 2**-6 grid in (-4, 4): every q.k then sums exactly in
     fp32 (22 bits), in any order. On the all-masked row a score is about
@@ -861,10 +899,11 @@ def _train_qkv(g, dev, dtype, B=16, L=128):
     kernels' arithmetic."""
     import torch
 
-    qkv = torch.randn(B, L, 3 * 768, generator=g, device=dev)
-    qk = torch.round(qkv[..., :2 * 768] * 64).clamp(-255, 255) / 64
-    qkv = torch.cat([qk, qkv[..., 2 * 768:]], -1).to(dtype).requires_grad_()
-    q, k, v = qkv.view(B, L, 3, 12, 64).unbind(2)
+    W = H * 64
+    qkv = torch.randn(B, L, 3 * W, generator=g, device=dev)
+    qk = torch.round(qkv[..., :2 * W] * 64).clamp(-255, 255) / 64
+    qkv = torch.cat([qk, qkv[..., 2 * W:]], -1).to(dtype).requires_grad_()
+    q, k, v = qkv.view(B, L, 3, H, 64).unbind(2)
     m = torch.ones(B, L, device=dev)
     m[:, -7:] = 0
     m[1] = 0
@@ -1271,6 +1310,39 @@ def make_queries(n=8):
     return queries
 
 
+def serve_checked(srv, queries, layers=12):
+    """Answers each query once through the RefCOCOServer ``srv``: each
+    must launch K1 once and K2 once a layer, and give finite scores of the
+    candidates' shape and a best box among its candidates. Returns the
+    launches of them all, the counts set to 0 first."""
+    import numpy as np
+    from vlbert_tpu_torch.ops.attention import fused_attention
+    from vlbert_tpu_torch.ops.roi_align import roi_align
+
+    roi_align.launches = fused_attention.launches = 0
+    for i, (img, cand, expr) in enumerate(queries):
+        before = roi_align.launches, fused_attention.launches
+        r = srv.query(img, cand, expr)
+        delta = (roi_align.launches - before[0],
+                 fused_attention.launches - before[1])
+        scores = r["candidate_scores"]
+        if delta != (1, layers):
+            raise AssertionError(f"query {i}: launches (K1, K2) {delta}, "
+                                 f"expected (1, {layers})")
+        if not (scores.shape == (len(cand),) and np.isfinite(scores).all()
+                and np.isfinite(r["image_box_score"])):
+            raise AssertionError(f"query {i}: non-finite or misshapen "
+                                 f"scores {scores}")
+        if not 0 <= r["best_index"] < len(cand):
+            raise AssertionError(f"query {i}: best_index {r['best_index']} "
+                                 f"outside {len(cand)} candidates")
+        if not np.array_equal(r["box"], cand[r["best_index"]]):
+            raise AssertionError(f"query {i}: box {r['box']} != candidate "
+                                 f"{cand[r['best_index']]}")
+    return {"roi_align": roi_align.launches,
+            "fused_attention": fused_attention.launches}
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's ROIAlign and attention calls to the plain PyTorch
@@ -1448,12 +1520,17 @@ def _zero_counts():
     hw_dropout.launches = hw_dropout.bwd_launches = 0
 
 
-def train_launches(steps, val_batches):
-    """Launches of ``steps`` VQA train steps and ``val_batches`` validation
-    batches at full width: K3 and K4 once a layer and step, K5 27 times
-    forward and 26 backward, K2 once a layer and batch, no K1."""
-    return {"K1": 0, "K1b": 0, "K2": 12 * val_batches, "K3": 12 * steps,
-            "K4": 12 * steps, "K5_fwd": 27 * steps, "K5_bwd": 26 * steps}
+def train_launches(steps, val_batches, layers=12, micro=1):
+    """Launches of ``steps`` VQA train steps of ``micro`` micro-steps and
+    ``val_batches`` validation batches at full width: per micro-step K3 and
+    K4 once a layer, K5 at 2 sites a layer and 3 more forward (the
+    embeddings', obj_downsample's, the classifier's), 2 more backward
+    (obj_downsample's input, precomputed features, needs no gradient);
+    K2 once a layer and batch; no K1. Base: 27 and 26."""
+    n = steps * micro
+    return {"K1": 0, "K1b": 0, "K2": layers * val_batches, "K3": layers * n,
+            "K4": layers * n, "K5_fwd": (3 + 2 * layers) * n,
+            "K5_bwd": (2 + 2 * layers) * n}
 
 
 @contextlib.contextmanager
@@ -1622,8 +1699,7 @@ def step_agreement(cfg, dev, task="vqa", plain=plain_training,
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+        prof = profile(activities=[ProfilerActivity.CUDA])
         for m, ctx, window in ((model, contextlib.nullcontext(), prof),
                                (twin, plain(), contextlib.nullcontext()),
                                (again, contextlib.nullcontext(),
@@ -2352,24 +2428,23 @@ def vcr_phase(root, vocab_dir):
 # optimizer steps; RefCOCO+: phase 11's 16 expressions, 8 a step (4 x 2),
 # 4 epochs = 8 steps
 VCR_TRAIN_QUESTIONS = 64
-# per micro-step, the K5 sites of each model: the embeddings', 2 a layer,
-# FastRCNN's before obj_downsample, and VCR's classifier's (RefCOCO+'s
-# CLASSIFIER_DROPOUT is 0, its CNN_REG_DROPOUT 0); every one on a tensor
-# that requires grad, so each also runs backward
-E2E_K5_SITES = {"vcr": 1 + 2 * 12 + 1 + 1, "refcoco": 1 + 2 * 12 + 1,
-                "pretrain": 1 + 2 * 12 + 1}
+# per micro-step, the K5 sites of each model besides the encoder's 2 a
+# layer: the embeddings', FastRCNN's before obj_downsample, and VCR's
+# classifier's (RefCOCO+'s CLASSIFIER_DROPOUT is 0, its CNN_REG_DROPOUT
+# 0); every one on a tensor that requires grad, so each also runs backward
+E2E_K5_OUTSIDE = {"vcr": 3, "refcoco": 2, "pretrain": 2}
 
 
-def e2e_launches(task, micro_steps=0, val_batches=0):
+def e2e_launches(task, micro_steps=0, val_batches=0, layers=12):
     """Launches of ``micro_steps`` training micro-steps from pixels and
     ``val_batches`` validation batches at full width: per micro-step K1
-    and K1b once, K3 and K4 once a layer, K5 at each of E2E_K5_SITES
-    forward and backward; per validation batch K1 once and K2 once a
-    layer."""
-    k5 = E2E_K5_SITES[task] * micro_steps
+    and K1b once, K3 and K4 once a layer, K5 at 2 sites a layer and those
+    of E2E_K5_OUTSIDE forward and backward (base VCR: 27); per validation
+    batch K1 once and K2 once a layer."""
+    k5 = (E2E_K5_OUTSIDE[task] + 2 * layers) * micro_steps
     return {"K1": micro_steps + val_batches, "K1b": micro_steps,
-            "K2": 12 * val_batches, "K3": 12 * micro_steps,
-            "K4": 12 * micro_steps, "K5_fwd": k5, "K5_bwd": k5}
+            "K2": layers * val_batches, "K3": layers * micro_steps,
+            "K4": layers * micro_steps, "K5_fwd": k5, "K5_bwd": k5}
 
 
 @contextlib.contextmanager
@@ -2832,6 +2907,425 @@ def pretrain_phase(root, vocab_dir):
     return res
 
 
+# Phase 15: VL-BERT-large (24 layers, 1024 wide, 16 heads) through the
+# same entry points, from the shipped large configs
+LARGE_CFGS = {"vcr": os.path.join(REPO, "cfgs", "vcr",
+                                  "large_q2a_4x16G_fp16.yaml"),
+              "vcr_b16": os.path.join(REPO, "cfgs", "vcr",
+                                      "large_q2a_v5e_bf16.yaml"),
+              "vqa": os.path.join(REPO, "cfgs", "vqa", "large_4x16G_fp32.yaml"),
+              "refcoco": os.path.join(REPO, "cfgs", "refcoco",
+                                      "large_gt_boxes_4x16G.yaml")}
+LARGE_LAYERS = 24
+# REMAT on against off on one fixed batch: each gradient leaf within this
+# much of the leaf's largest |element| (every kernel on the path is
+# deterministic, so the two are expected bit for bit)
+REMAT_LEAF_RTOL = 1e-5
+
+
+def remat_launches(launches, layers, micro_steps):
+    """The launches of a step with each encoder layer checkpointed: the
+    recompute inside backward() runs K3 and the layer's 2 K5 sites again
+    (a layer's forward launches nothing else that the path counts)."""
+    return dict(launches, K3=launches["K3"] + layers * micro_steps,
+                K5_fwd=launches["K5_fwd"] + 2 * layers * micro_steps)
+
+
+def large_vcr_yaml(root, data_dir, vocab_dir, src):
+    """``src`` (a shipped large VCR config) with phase 13's overrides on
+    phase 13's fixture: 8 steps over 2 epochs, validated once after the
+    last, the checkpoint writes recorded, not made."""
+    overrides = {**e2e_overrides(root, data_dir, vocab_dir),
+                 "DATASET.TRAIN_ANNOTATION_FILE": "train.jsonl",
+                 "DATASET.VAL_ANNOTATION_FILE": "val.jsonl",
+                 "TRAIN.END_EPOCH": 2, "VAL_FREQUENT": 2, "LOG_FREQUENT": 4,
+                 "TRAIN.LR": 6.25e-4}
+    name = os.path.basename(src).replace(".yaml", "_smoke.yaml")
+    return write_train_yaml(src, os.path.join(root, name), overrides), \
+        overrides
+
+
+def remat_agreement(cfg, task, batch, n_timed=2):
+    """One optimizer step of the config's model on ``batch`` from seed-SEED
+    weights with TPU.REMAT off and on (cuDNN and torch held to their
+    deterministic algorithms): loss, every gradient leaf (copied to the
+    host, so that the first model's do not count in the second's peak),
+    launches, the device memory held before the step (weights) and the
+    step's peak; then ``n_timed`` more steps each, timed by CUDA events,
+    and the device busy time of one more (profiler). Returns results."""
+    import gc
+
+    import torch
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.training.loop import make_train_step
+    from vlbert_tpu_torch.training.optim import (Optimizer,
+                                                 apply_trainable_mask)
+
+    accum = max(int(cfg.TRAIN.GRAD_ACCUMULATE_STEPS), 1)
+    res, grads = {}, {}
+    for remat in (False, True):
+        model = build_module(cfg, task, dtype=torch.bfloat16, device="cuda",
+                             remat=remat)
+        init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+        apply_trainable_mask(model, cfg)
+        opt = Optimizer(cfg, model, 4)
+        kept, opt_step = {}, opt.step
+
+        def step_and_keep(g, opt=opt, kept=kept, opt_step=opt_step):
+            if not kept:
+                kept.update((n, x.detach().cpu())
+                            for n, x in zip(opt.names, g))
+            return opt_step(g)
+
+        opt.step = step_and_keep
+        step = make_train_step(model, opt, task, cfg, accum)
+        saved_modes = (torch.backends.cudnn.deterministic,
+                       torch.are_deterministic_algorithms_enabled(),
+                       torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() / 2 ** 30
+            _zero_counts()
+            loss, _ = step(batch, SEED + 5)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            torch.backends.cudnn.deterministic = saved_modes[0]
+            torch.use_deterministic_algorithms(saved_modes[1],
+                                               warn_only=saved_modes[2])
+        ms = []
+        for i in range(n_timed):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            step(batch, SEED + 6 + i)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        busy = sum(device_us_by_name(lambda: step(batch, SEED), 1)
+                   .values()) / 1e3
+        res[remat] = {"loss": float(loss), "launches": launches,
+                      "resident_gib": resident, "peak_gib": peak,
+                      "step_ms": ms, "busy_ms": busy}
+        grads[remat] = kept
+        # opt and its step wrapper refer to each other: drop every name of
+        # the cycle and collect it, or the first model's weights and
+        # momentum stay on the card through the second's step
+        del model, opt, opt_step, step, step_and_keep
+        gc.collect()
+        torch.cuda.empty_cache()
+    off, on = grads[False], grads[True]
+    if off.keys() != on.keys() or not off:
+        raise AssertionError("REMAT: the two steps updated different "
+                             "parameters")
+    gap = {k: _maxerr(off[k], on[k]) / max(off[k].abs().max().item(),
+                                            1e-30) for k in off}
+    worst = max(gap, key=gap.get)
+    res["worst_leaf"], res["worst_gap"] = worst, gap[worst]
+    res["bit_identical_leaves"] = sum(torch.equal(off[k], on[k])
+                                      for k in off)
+    res["n_leaves"] = len(off)
+    return res
+
+
+def vcr_large_phase(root, vocab_dir):
+    """Phase 15a-c: ``python -m vlbert_tpu_torch.engine.train --task vcr``
+    from the shipped large Q2A config (bf16 under TRAIN.FP16, SGD, 4
+    micro-steps of 4 images x 4 choices) on phase 13's fixture and
+    overrides: exact launches per step and per validation run, a falling
+    loss; a profiler window on a fixed batch; that batch's step with
+    TPU.REMAT off and on (15b); then the peak memory of one step of the
+    shipped v5e config's batch of 16 images (64 encoder rows) with REMAT
+    off and on (15c). Returns results."""
+    import gc
+
+    import torch
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.training.loop import make_train_step
+    from vlbert_tpu_torch.training.optim import (Optimizer,
+                                                 apply_trainable_mask)
+    from vlbert_tpu_torch.utils.config import load_config
+
+    L = LARGE_LAYERS
+    t0 = time.perf_counter()
+    data_dir, rows = write_vcr_fixture(root, n_train=VCR_TRAIN_QUESTIONS)
+    path, overrides = large_vcr_yaml(root, data_dir, vocab_dir,
+                                     LARGE_CFGS["vcr"])
+    cfg = load_config("vcr", path)
+    run = e2e_train_run("vcr", path, record_writes=True)
+    hist, model = run["history"], run["model"]
+    accum = cfg.TRAIN.GRAD_ACCUMULATE_STEPS
+    micro = cfg.TRAIN.BATCH_IMAGES
+    n_val = -(-len(rows) // cfg.VAL.BATCH_IMAGES)
+    res = {k: run[k] for k in ("rc", "wall_s", "steps", "val", "total",
+                               "peak_gib", "saves")}
+    res.update(
+        overrides={k: v for k, v in overrides.items()
+                   if not k.startswith(("DATASET.", "NETWORK.BERT"))},
+        loss=hist["loss"], val_acc=[v["Acc"] for v in hist["val"]],
+        step_ms=hist["step_ms"], accum=accum, micro=micro, n_val=n_val,
+        n_params=sum(p.numel() for p in model.parameters()),
+        want_step=e2e_launches("vcr", accum, layers=L),
+        want_val=e2e_launches("vcr", 0, n_val, layers=L),
+        samples=len(hist["loss"]) * accum * micro)
+    res["checks"] = {
+        "rc": run["rc"] == 0,
+        "steps": len(run["steps"]) == VCR_TRAIN_QUESTIONS // (accum * micro)
+        * cfg.TRAIN.END_EPOCH and all(c == res["want_step"]
+                                      for c in run["steps"]),
+        "val": len(run["val"]) == 1 and run["val"][0] == res["want_val"],
+        "loss falls": _falls(hist["loss"], 2),
+        "writes recorded": [e for e, _ in run["saves"]] == [0, 1]}
+    batch = run["batch"]
+    seconds = {"train": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    res["profile"] = profile_steps(model, cfg, "vcr", n=2, batch=batch)
+    del model, run, hist
+    torch.cuda.empty_cache()
+    seconds["profile"] = time.perf_counter() - t0
+
+    # 15b: REMAT off and on, one step on the fixed batch
+    t0 = time.perf_counter()
+    r = remat_agreement(cfg, "vcr", batch)
+    seconds["remat"] = time.perf_counter() - t0
+    res["remat"] = r
+    want_on = remat_launches(res["want_step"], L, accum)
+    res["remat_want"] = want_on
+    res["checks"].update({
+        "remat loss equal": r[True]["loss"] == r[False]["loss"],
+        "remat leaves": r["worst_gap"] <= REMAT_LEAF_RTOL,
+        "remat launches": r[False]["launches"] == res["want_step"]
+        and r[True]["launches"] == want_on})
+    del batch
+    torch.cuda.empty_cache()
+
+    # 15c: one step of the shipped v5e config's batch of 16, REMAT off, on
+    # (its one batch read in this process: no worker pool to start)
+    t0 = time.perf_counter()
+    path16, _ = large_vcr_yaml(root, data_dir, vocab_dir,
+                               LARGE_CFGS["vcr_b16"])
+    cfg16 = load_config("vcr", path16)
+    cfg16.TPU.PROCESS_WORKERS = False
+    batch = first_train_batch(cfg16, "vcr", "cuda")
+    model = build_module(cfg16, "vcr", dtype=torch.bfloat16, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    apply_trainable_mask(model, cfg16)
+    b16 = {"images": int(batch[0].shape[0]),
+           "canvas": tuple(batch[0].shape[1:3]),
+           "rows": int(batch[5].shape[0] * batch[5].shape[1])}
+    for remat in (False, True):
+        model.vlbert.encoder.remat = remat
+        opt = Optimizer(cfg16, model, 4)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        _zero_counts()
+        try:
+            t1 = time.perf_counter()
+            make_train_step(model, opt, "vcr", cfg16, 1)(batch, SEED)
+            torch.cuda.synchronize()
+            b16[remat] = {"resident_gib": resident,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2 ** 30, "s": time.perf_counter() - t1,
+                          "launches": _launch_counts()}
+        except torch.cuda.OutOfMemoryError as e:
+            b16[remat] = {"oom": str(e).splitlines()[0]}
+        for p in model.parameters():
+            p.grad = None
+        del opt
+    res["b16"] = b16
+    want16 = e2e_launches("vcr", 1, layers=L)
+    # REMAT must lower the peak where the encoder's activations set it
+    res["checks"]["b16"] = "peak_gib" in b16[True] and \
+        b16[True]["launches"] == remat_launches(want16, L, 1) and (
+            "oom" in b16[False] or b16[False]["launches"] == want16
+            and b16[True]["peak_gib"] < b16[False]["peak_gib"])
+    del model, batch
+    torch.cuda.empty_cache()
+    res["seconds"] = dict(seconds, b16=time.perf_counter() - t0)
+    return res
+
+
+def vqa_large_fp32_phase(root):
+    """Phase 15d: one fp32 optimizer step of the shipped
+    cfgs/vqa/large_4x16G_fp32.yaml (precomputed features, 4 micro-steps of
+    16, L = 128) on phase 7's synthetic set, with the kernels and with the
+    plain versions (step_agreement, phase 8's bar). Returns results."""
+    from vlbert_tpu_torch.utils.config import load_config
+
+    data_dir, vocab_dir, answer_file = write_vqa_fixture(
+        root, n_train=64, n_val=32, seed=SEED)
+    cfg = apply_overrides(load_config("vqa", LARGE_CFGS["vqa"]), {
+        "NETWORK.PARTIAL_PRETRAIN": "", "NETWORK.BERT_MODEL_NAME": vocab_dir,
+        "DATASET.DATASET_PATH": data_dir, "DATASET.ROOT_PATH": data_dir,
+        "DATASET.TRAIN_ANNOTATION_FILE": "train.jsonl",
+        "DATASET.VAL_ANNOTATION_FILE": "val.jsonl",
+        "DATASET.ANSWER_VOCAB_FILE": answer_file,
+        "OUTPUT_PATH": os.path.join(root, "out"), "RNG_SEED": SEED,
+        "TRAIN.WARMUP": False})
+    accum = cfg.TRAIN.GRAD_ACCUMULATE_STEPS
+    res = step_agreement(
+        cfg, "cuda", "vqa",
+        want_launches=train_launches(1, 0, LARGE_LAYERS, accum),
+        groups={"encoder": "vlbert.encoder.", "classifier": "final_mlp."})
+    res.update(micro=cfg.TRAIN.BATCH_IMAGES, accum=accum,
+               L=cfg.TPU.MAX_TEXT_LEN + cfg.TPU.MAX_BOXES + 1)
+    return res
+
+
+def refcoco_large_serve_phase():
+    """Phase 15e: RefCOCOServer on cfgs/refcoco/large_gt_boxes_4x16G.yaml
+    at full width (bf16, seed-0 weights, visual LN scales 1.0 as phase 4)
+    on phase 4's 8 queries: K1 once and K2 24 times each, latency p50 /
+    p90. Returns results."""
+    import torch
+    from vlbert_tpu_torch.data.transforms import build_transforms
+    from vlbert_tpu_torch.engine.serve import RefCOCOServer
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.utils.config import load_config
+
+    cfg = load_config("refcoco", LARGE_CFGS["refcoco"])
+    cfg.NETWORK.VLBERT.visual_scale_text_init = 1.0
+    cfg.NETWORK.VLBERT.visual_scale_object_init = 1.0
+    model = build_module(cfg, "refcoco", dtype=torch.bfloat16, device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+    srv = RefCOCOServer(model, HashTokenizer(), build_transforms(cfg, "test"),
+                        max_text=24, max_boxes=16)
+    queries = make_queries()
+    srv.query(*queries[0])                                   # warm-up
+    torch.cuda.synchronize()
+    launches = serve_checked(srv, queries, LARGE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    lat = srv.measure_latency(queries * 3, warmup=3)
+    res = {"n_params": sum(p.numel() for p in model.parameters()),
+           "launches": launches, "lat": lat,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del srv, model
+    torch.cuda.empty_cache()
+    return res
+
+
+# VCR-large's attention: 4 questions x 4 choices, L = 64 + 108 + 1, 16
+# heads of 64; K5 at its hidden [16, 173, 1024]
+LARGE_ATTN = (16, 173, 16)
+
+
+def large_kernel_parity(dev):
+    """K2, K3, K4 at 16 heads (B=16 L=173, VCR-large's shape; 7 padded
+    keys, one all-masked batch row) and K5 at [16, 173, 1024], fp32 and
+    bf16, against their plain versions with phase 3's and 6's
+    tolerances, K3 and K5 in explicit-bits and Philox mode; K3's and K4's
+    keep masks at 16 heads (B=16 L=128) read back bit for bit; then each
+    timed by kernel name (profiler) beside its library call (SDPA, its
+    backward, F.dropout), and its plain version by CUDA events over 5
+    calls. Returns (errs, {dtype: {kernel: (kernel (ms, call ms), plain
+    call ms, library (ms, kernels))}})."""
+    import torch
+    import torch.nn.functional as F
+    from vlbert_tpu_torch.ops.attention import (
+        attention_bits, fused_attention, fused_attention_dropout,
+        plain_attention, plain_attention_dropout)
+    from vlbert_tpu_torch.ops.dropout import (hw_dropout, keep_mask,
+                                              plain_dropout)
+
+    B, L, H = LARGE_ATTN
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    errs, times = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        qkv, (q, k, v), bias = _train_qkv(g, dev, dtype, B=B, L=L, H=H)
+        fixed = bias.detach()
+        e2 = _maxerr(fused_attention(q, k, v, fixed),
+                     plain_attention(q, k, v, fixed))
+        if not e2 <= K2_ATOL[dn]:
+            raise AssertionError(f"K2 H={H} {dn}: max abs err {e2}")
+        errs[f"K2/{dn}"] = e2
+        gy = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+        bits = torch.randint(0, 65536, (B, H, L, L), generator=g, device=dev,
+                             dtype=torch.int32)
+        x = torch.randn(B, L, H * 64, generator=g, device=dev).to(dtype) \
+            .requires_grad_()
+        gx = torch.randn(x.shape, generator=g, device=dev).to(dtype)
+        bits5 = torch.randint(0, 65536, x.shape, generator=g, device=dev,
+                              dtype=torch.int32)
+        for mode, kw, kw5 in (("bits", dict(bits=bits), dict(bits=bits5)),
+                              ("philox", dict(seed=SEED + 12),
+                               dict(seed=SEED + 11))):
+            a = fused_attention_dropout(q, k, v, bias, DROP_RATE, **kw)
+            ga = torch.autograd.grad(a, (qkv, bias), gy)
+            b = plain_attention_dropout(q, k, v, bias, DROP_RATE, **kw)
+            gb = torch.autograd.grad(b, (qkv, bias), gy)
+            e3 = _maxerr(a, b)
+            e4 = max(_rel_err(s, t) for s, t in zip(ga, gb))
+            a5 = hw_dropout(x, DROP_RATE, **kw5)
+            (d5,) = torch.autograd.grad(a5, x, gx)
+            b5 = plain_dropout(x, DROP_RATE, **kw5)
+            (p5,) = torch.autograd.grad(b5, x, gx)
+            e5 = max(_maxerr(a5, b5), _maxerr(d5, p5))
+            if not (e3 <= K3_ATOL[dn] and e4 <= BWD_RTOL[dn]
+                    and e5 <= K5_ATOL):
+                raise AssertionError(
+                    f"H={H} {dn}/{mode}: K3 err {e3}, K4 rel err {e4}, K5 "
+                    f"err {e5}")
+            errs.update({f"K3/{dn}/{mode}": e3, f"K4/{dn}/{mode}": e4,
+                         f"K5/{dn}/{mode}": e5})
+        for seed in (SEED + 31, SEED + 32):
+            fwd, bwd = _attention_masks(dev, seed, dtype, H=H)
+            want = keep_mask(attention_bits(16, H, 128, seed, dev),
+                             DROP_RATE, False)
+            if not (torch.equal(fwd, want) and torch.equal(bwd, want)):
+                raise AssertionError(f"K3/K4 H={H} {dn} seed {seed}: keep "
+                                     f"bits differ from the plain Philox's")
+
+        # times: K2 (no grad), K3 (no grad), K4 as the backward of one
+        # forward on separate leaves, K5; each beside plain and library
+        sdpa = _sdpa_args(q.detach(), k.detach(), v.detach(), fixed)
+        leaves = [t.detach().contiguous().requires_grad_() for t in (q, k, v)]
+        outs = (fused_attention_dropout(*leaves, fixed, DROP_RATE, seed=SEED),
+                plain_attention_dropout(*leaves, fixed, DROP_RATE, seed=SEED))
+        lib_leaves = [t.transpose(1, 2).detach().contiguous()
+                      .requires_grad_() for t in leaves]
+        lib_out = F.scaled_dot_product_attention(
+            *lib_leaves, attn_mask=sdpa[3], dropout_p=DROP_RATE)
+        gl = gy.transpose(1, 2).contiguous()
+        xd = x.detach()
+        with torch.no_grad():
+            t = {"K2": (cuda_ms(lambda: fused_attention(q, k, v, fixed)),
+                        event_ms(lambda: plain_attention(q, k, v, fixed)),
+                        library_ms(lambda: F.scaled_dot_product_attention(
+                            *sdpa[:3], attn_mask=sdpa[3]))),
+                 "K3": (cuda_ms(lambda: fused_attention_dropout(
+                            q, k, v, fixed, DROP_RATE, seed=SEED)),
+                        event_ms(lambda: plain_attention_dropout(
+                            q, k, v, fixed, DROP_RATE, seed=SEED)),
+                        library_ms(lambda: F.scaled_dot_product_attention(
+                            *sdpa[:3], attn_mask=sdpa[3],
+                            dropout_p=DROP_RATE))),
+                 "K5": (cuda_ms(lambda: hw_dropout(xd, DROP_RATE,
+                                                   seed=SEED)),
+                        event_ms(lambda: plain_dropout(xd, DROP_RATE,
+                                                       seed=SEED)),
+                        library_ms(lambda: F.dropout(xd, DROP_RATE,
+                                                     training=True)))}
+        t["K4"] = (cuda_ms(lambda: torch.autograd.grad(
+                       outs[0], leaves, gy, retain_graph=True)),
+                   event_ms(lambda: torch.autograd.grad(
+                       outs[1], leaves, gy, retain_graph=True)),
+                   library_ms(lambda: torch.autograd.grad(
+                       lib_out, lib_leaves, gl, retain_graph=True)))
+        times[dn] = t
+        del outs, lib_out
+    return errs, times
+
+
 def main():
     import numpy as np
     import torch
@@ -2911,28 +3405,7 @@ def main():
     srv.query(*queries[0])                                   # warm-up
     torch.cuda.synchronize()
 
-    roi_align.launches = fused_attention.launches = 0
-    for i, (img, cand, expr) in enumerate(queries):
-        before = roi_align.launches, fused_attention.launches
-        r = srv.query(img, cand, expr)
-        delta = (roi_align.launches - before[0],
-                 fused_attention.launches - before[1])
-        scores = r["candidate_scores"]
-        if delta != (1, 12):
-            raise AssertionError(f"query {i}: launches (K1, K2) {delta}, "
-                                 f"expected (1, 12)")
-        if not (scores.shape == (len(cand),) and np.isfinite(scores).all()
-                and np.isfinite(r["image_box_score"])):
-            raise AssertionError(f"query {i}: non-finite or misshapen "
-                                 f"scores {scores}")
-        if not 0 <= r["best_index"] < len(cand):
-            raise AssertionError(f"query {i}: best_index {r['best_index']} "
-                                 f"outside {len(cand)} candidates")
-        if not np.array_equal(r["box"], cand[r["best_index"]]):
-            raise AssertionError(f"query {i}: box {r['box']} != candidate "
-                                 f"{cand[r['best_index']]}")
-    launches = {"roi_align": roi_align.launches,
-                "fused_attention": fused_attention.launches}
+    launches = serve_checked(srv, queries)
     if launches != {"roi_align": 8, "fused_attention": 96}:
         raise AssertionError(f"main-path launches {launches}, expected 8 "
                              f"and 96")
@@ -3445,6 +3918,102 @@ def main():
               f"{agree14['launches'][1]}; a repeat of the kernel step is "
               f"bit-identical; attention device ms by kernel "
               f"{ms_by_name(agree14['attention_ms'])} ({card})", flush=True)
+        # --- 15: VL-BERT-large (24 layers x 1024 x 16 heads) ---
+        lk_errs, lk_t = large_kernel_parity(dev)
+        B15, L15, H15 = LARGE_ATTN
+        print(f"[15 parity H=16] K2, K3 (bits, Philox), K4 at B={B15} "
+              f"L={L15} H={H15} D=64 (7 padded keys, one all-masked batch "
+              f"row) and K5 at [{B15},{L15},{H15 * 64}], fp32 and bf16, "
+              f"against their plain versions: "
+              f"{ {k: f'{v:.2e}' for k, v in lk_errs.items()} } (K2/K3 atol "
+              f"{K2_ATOL}, K4 rtol {BWD_RTOL}, K5 exact); K3/K4 keep masks "
+              f"at 16 heads (B=16 L=128) read back bit for bit in both "
+              f"dtypes; ms kernel by name (call ms) / plain (CUDA events, "
+              f"a call) / library by name (SDPA, its backward, F.dropout): "
+              + "; ".join(f"{name} {dn} {t[0][0]:.4f} ({t[0][1]:.4f}) / "
+                          f"{t[1]:.4f} / {t[2][0]:.4f}"
+                          for dn, ts in lk_t.items()
+                          for name, t in sorted(ts.items()))
+              + f" ({card})", flush=True)
+        root15 = os.path.join(root, "p15")
+        os.makedirs(root15)
+        r15 = vcr_large_phase(root15, vocab13)
+        if not all(r15["checks"].values()):
+            raise AssertionError(f"VCR-large: {r15['checks']}; {r15}")
+        p50_15 = step_p50(r15["step_ms"])
+        wall15, busy15, top15 = r15["profile"]
+        print(f"[15a train VCR-large] python -m vlbert_tpu_torch.engine.train "
+              f"--task vcr from {LARGE_CFGS['vcr']} at full width "
+              f"(ResNet-101 C4, dilated conv5, VL-BERT 1024 x 24 x 16, "
+              f"{r15['n_params'] / 1e6:.1f}M params, TRAIN.FP16 -> bf16, SGD) "
+              f"with overrides {json.dumps(r15['overrides'])}, on phase 13's "
+              f"{VCR_TRAIN_QUESTIONS} synthetic questions: "
+              f"{len(r15['loss'])} optimizer steps of {r15['accum']} "
+              f"micro-steps x {r15['micro']} images x 4 choices, loss "
+              f"{[round(x, 4) for x in r15['loss']]}; val Acc "
+              f"{r15['val_acc']} (random weights); launches per step "
+              f"{r15['want_step']} and per validation run "
+              f"{r15['want_val']}, on every one, total {r15['total']}; "
+              f"checkpoint writes recorded {r15['saves']}; step p50 "
+              f"{p50_15:.2f} ms (CUDA events, steps 3..{len(r15['loss'])}), "
+              f"{r15['accum'] * r15['micro'] * 1e3 / p50_15:.1f} samples/s; "
+              f"{r15['wall_s']:.2f} s of main; peak device memory "
+              f"{r15['peak_gib']:.2f} GiB; profiled window (fixed batch): "
+              f"wall {wall15:.2f} ms/step unprofiled, device busy "
+              f"{busy15:.2f} ms/step, idle share {1 - busy15 / wall15:.3f}; "
+              f"top device time ms/step "
+              f"{[(k, round(v, 3)) for k, v in top15]} ({card})", flush=True)
+        rm = r15["remat"]
+        print(f"[15b REMAT VCR-large] one optimizer step on 15a's first "
+              f"batch from the same seed-0 weights and seed, TPU.REMAT off "
+              f"vs on (each encoder layer checkpointed, its dropout seeds "
+              f"replayed in the recompute): loss {rm[False]['loss']:.6f} "
+              f"vs {rm[True]['loss']:.6f}; {rm['bit_identical_leaves']} of "
+              f"{rm['n_leaves']} gradient leaves bit-identical, worst "
+              f"{rm['worst_leaf']} {rm['worst_gap']:.3e} of its largest "
+              f"|element| (tolerance {REMAT_LEAF_RTOL}); launches off "
+              f"{rm[False]['launches']}, on {rm[True]['launches']} (want "
+              f"{r15['remat_want']}); peak device memory "
+              f"{rm[False]['peak_gib']:.2f} -> {rm[True]['peak_gib']:.2f} "
+              f"GiB ({rm[False]['resident_gib']:.2f} and "
+              f"{rm[True]['resident_gib']:.2f} held before the step); step ms (CUDA events, the 2 steps after it) off "
+              f"{[round(x, 2) for x in rm[False]['step_ms']]}, on "
+              f"{[round(x, 2) for x in rm[True]['step_ms']]}; device busy "
+              f"ms of a step (profiler) off {rm[False]['busy_ms']:.2f}, on "
+              f"{rm[True]['busy_ms']:.2f}; phase 15a-c seconds "
+              f"{ {k: round(v, 1) for k, v in r15['seconds'].items()} } "
+              f"({card})", flush=True)
+        b16 = r15["b16"]
+        print(f"[15c B=16 VCR-large] {LARGE_CFGS['vcr_b16']} with 15a's "
+              f"overrides: one optimizer step of its shipped batch, "
+              f"{b16['images']} images x 4 choices = {b16['rows']} encoder "
+              f"rows, canvas {list(b16['canvas'])}, bf16, SGD: TPU.REMAT "
+              f"off {b16[False]}, on {b16[True]} ({card})", flush=True)
+        r15d = vqa_large_fp32_phase(root15)
+        print(f"[15d step fp32 VQA-large] {LARGE_CFGS['vqa']} (precomputed "
+              f"features, {r15d['accum']} micro-steps of {r15d['micro']}, "
+              f"L = {r15d['L']}) on phase 7's synthetic set: kernels vs "
+              f"plain versions (plain Philox), one optimizer step from the "
+              f"same weights and seed: loss {r15d['loss'][0]:.6f} vs "
+              f"{r15d['loss'][1]:.6f}, grad norm "
+              f"{r15d['grad_norm'][0]:.6f} vs {r15d['grad_norm'][1]:.6f}, "
+              f"(rel err, rtol) {r15d['checks']}, worst of "
+              f"{r15d['n_leaves']} leaves {r15d['worst_leaf']}, worst by "
+              f"group "
+              f"{ {k: f'{v:.2e}' for k, v in r15d['by_group'].items()} }; "
+              f"launches kernels {r15d['launches'][0]}, plain "
+              f"{r15d['launches'][1]}; a repeat of the kernel step is "
+              f"bit-identical; attention device ms by kernel "
+              f"{ms_by_name(r15d['attention_ms'])} ({card})", flush=True)
+        r15e = refcoco_large_serve_phase()
+        lat15 = r15e["lat"]
+        print(f"[15e serve RefCOCO+-large] {LARGE_CFGS['refcoco']} in "
+              f"RefCOCOServer, ResNet-101 + VL-BERT 1024 x 24 x 16, "
+              f"{r15e['n_params'] / 1e6:.1f}M params, bf16, phase 4's 8 "
+              f"queries ok (launches {r15e['launches']}: K1 1, K2 24 a "
+              f"query); latency p50 {lat15['p50_ms']:.2f} ms, p90 "
+              f"{lat15['p90_ms']:.2f} ms over n={lat15['n']}; peak device "
+              f"memory {r15e['peak_gib']:.2f} GiB ({card})", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3717,6 +4286,74 @@ def main():
              "library_ms": lib["K4_fp32_L173"][0],
              "library_kernels": lib["K4_fp32_L173"][1]}},
     ]
+
+    def at_h16(name, backward=False, philox=None):
+        """One kernel at VCR-large's 16 heads (phase 15's parity shapes),
+        bf16 and fp32: ms, call ms, plain, bound, library."""
+        out = {}
+        for dn, ts in lk_t.items():
+            (ms, call_ms), plain_ms, (lib_ms, lib_kernels) = ts[name]
+            if name == "K5":
+                n = B15 * L15 * H15 * 64
+                es = 2 if dn == "bfloat16" else 4
+                bound = roofline(2 * n * es, n, dn)
+                shape = f"[{B15},{L15},{H15 * 64}]"
+            else:
+                bound = attention_bound(B15, L15, H15, D, dn,
+                                        backward=backward)
+                shape = f"B={B15} L={L15} H={H15} D={D}"
+            out[dn] = {"shape": shape, "ms": ms, "call_ms": call_ms,
+                       "plain_ms": plain_ms,
+                       "plain_ms_by": "CUDA events, 5 calls",
+                       "bound_ms": bound[0],
+                       "bound_by": bound[1], "library_ms": lib_ms,
+                       "library_kernels": lib_kernels}
+            # K4's fp32 route has no Philox count of its own
+            key = {("K3", "float32"): "K3_fp32",
+                   ("K4", "float32"): None}.get((philox, dn), philox)
+            if key:
+                evals = PHILOX_PER_CALL[key]
+                out[dn]["philox_floor_ms"] = philox_floor_ms(
+                    evals(B15 * L15 * H15 * 64) if name == "K5"
+                    else evals(B15, H15, L15), philox4_instr)
+        return out
+
+    # launches on phase 15's paths: VCR-large's 8 training steps and its
+    # validation run (15a), the REMAT step (15b), the fp32 VQA-large step
+    # (15d), the 8 RefCOCO+-large queries (15e)
+    tot15, on15 = r15["total"], r15["remat"][True]["launches"]
+    large = {
+        "roi_align_fwd": ({"vcr_large_train": tot15["K1"],
+                           "refcoco_large_serve":
+                               r15e["launches"]["roi_align"]}, None),
+        "roi_align_bwd": ({"vcr_large_train": tot15["K1b"]}, None),
+        "attention_fwd": ({"vcr_large_val": tot15["K2"],
+                           "refcoco_large_serve":
+                               r15e["launches"]["fused_attention"]},
+                          at_h16("K2")),
+        "dropout": ({"vcr_large_train": (tot15["K5_fwd"], tot15["K5_bwd"]),
+                     "vcr_large_remat_step": (on15["K5_fwd"],
+                                              on15["K5_bwd"]),
+                     "vqa_large_fp32_step": (
+                         r15d["launches"][0]["K5_fwd"],
+                         r15d["launches"][0]["K5_bwd"])},
+                    at_h16("K5", philox="K5")),
+        "attention_dropout_fwd": ({"vcr_large_train": tot15["K3"],
+                                   "vcr_large_remat_step": on15["K3"],
+                                   "vqa_large_fp32_step":
+                                       r15d["launches"][0]["K3"]},
+                                  at_h16("K3", philox="K3")),
+        "attention_dropout_bwd": ({"vcr_large_train": tot15["K4"],
+                                   "vcr_large_remat_step": on15["K4"],
+                                   "vqa_large_fp32_step":
+                                       r15d["launches"][0]["K4"]},
+                                  at_h16("K4", backward=True,
+                                         philox="K4"))}
+    for record in kernels:
+        counts, times = large[record["name"]]
+        record["launches_large"] = counts
+        if times:
+            record["at_H16"] = times
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

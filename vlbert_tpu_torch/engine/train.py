@@ -233,7 +233,10 @@ def train_net(args, config, task):
         dtype_name = "bfloat16"
     dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
     seed = max(int(config.RNG_SEED), 0)
-    model = build_module(config, task, dtype=dtype, device=device)
+    # TPU.REMAT: each encoder layer activation-checkpointed, as the JAX
+    # package's train_net builds its model
+    model = build_module(config, task, dtype=dtype, device=device,
+                         remat=bool(config.TPU.get("REMAT", False)))
     init_weights(model, torch.Generator(device=device).manual_seed(seed))
     apply_trainable_mask(model, config)
     if rank == 0:

@@ -15,20 +15,30 @@ attention-probs (vis) path keeps the plain einsum/softmax pipeline,
 because its probs must reach the caller. The hidden dropouts are
 ``ops.dropout.Dropout`` (kernel K5 on the card); every dropout takes its
 seed from the step's ``dropout_seeds`` context.
+
+``BertEncoder(remat=True)`` (TPU.REMAT) checkpoints each layer in training
+under grad: only its input is kept, and ``backward()`` runs the layer again
+(K3 and K5 launch a second time) with the dropout seeds of its first run
+(``ops.dropout.site_state`` / ``replay_sites``), so the recompute rebuilds
+the masks that K4 and K5's backward replay. The attention-probs path and
+eval run unrolled, as in the JAX package's ``nn.remat``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vlbert_tpu_torch.models.layers import Linear, cast
 from vlbert_tpu_torch.ops.attention import (fused_attention,
                                             fused_attention_dropout)
-from vlbert_tpu_torch.ops.dropout import Dropout, next_site_seed
+from vlbert_tpu_torch.ops.dropout import (Dropout, next_site_seed,
+                                          replay_sites, site_state)
 
 ACT2FN = {
     # exact erf gelu, NOT the tanh approximation
@@ -198,12 +208,15 @@ class BertLayer(nn.Module):
 
 class BertEncoder(nn.Module):
     """Stack of BertLayers; per-layer outputs and attention probs are
-    returned only when requested."""
+    returned only when requested. ``remat``: each layer is activation-
+    checkpointed in training under grad (see the module docstring)."""
 
     def __init__(self, num_layers, hidden_size, num_heads, intermediate_size,
                  hidden_act, attention_dropout=0.0, hidden_dropout=0.0,
-                 fused_qkv=False, *, dtype=torch.float32, device=None):
+                 fused_qkv=False, *, dtype=torch.float32, device=None,
+                 remat=False):
         super().__init__()
+        self.remat = remat
         self.layer = nn.ModuleList([
             BertLayer(hidden_size, num_heads, intermediate_size, hidden_act,
                       attention_dropout, hidden_dropout, fused_qkv,
@@ -212,9 +225,20 @@ class BertEncoder(nn.Module):
 
     def forward(self, x, attention_bias, output_all_encoded_layers=False,
                 output_attention_probs=False):
+        remat = self.remat and self.training and torch.is_grad_enabled() \
+            and not output_attention_probs
         all_layers, all_probs = [], []
         for layer in self.layer:
-            x = layer(x, attention_bias, output_attention_probs)
+            if remat:
+                # the recompute draws the seeds this forward draws; no
+                # layer reads torch's RNG, so its state is not kept
+                replay = replay_sites(site_state())
+                x = checkpoint(layer, x, attention_bias, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=lambda r=replay: (
+                                   contextlib.nullcontext(), r))
+            else:
+                x = layer(x, attention_bias, output_attention_probs)
             if output_attention_probs:
                 x, probs = x
                 all_probs.append(probs)

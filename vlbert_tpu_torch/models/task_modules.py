@@ -589,18 +589,45 @@ MODULES = {"ResNetVLBERT:refcoco": ResNetVLBERTForRefCOCO,
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-# TPU knobs that pick between two formulations of one function; on CUDA the
-# port always launches its kernels (Philox dropout for DROPOUT_IMPL)
-_IGNORED_KNOBS = ("FUSED_ATTENTION", "ROI_ALIGN_IMPL", "DROPOUT_IMPL")
+# TPU knobs the port accepts and ignores, each with the reason
+_IGNORED_KNOBS = {
+    # pick between two formulations of one function: on CUDA the port
+    # always launches its kernels (Philox dropout for DROPOUT_IMPL)
+    "FUSED_ATTENTION": "the attention kernels always run",
+    "ROI_ALIGN_IMPL": "the ROIAlign kernels always run",
+    "DROPOUT_IMPL": "the Philox dropout kernels always run",
+    "RNG_IMPL": "dropout draws Philox from the step's seed",
+    # what it buys the JAX package K3/K4 always do: the backward keeps only
+    # q, k, v and the bias, and rebuilds probs and mask from the seed
+    "ATTN_REMAT": "K3/K4 keep only q, k, v and the bias for the backward",
+    # XLA compile-time, layout and buffer levers
+    "SCAN_LAYERS": "an XLA layout lever, not ported",
+    "ROI_CHUNK": "chunks XLA's ROIAlign intermediate, which K1 has not",
+    "DONATE_STATE": "XLA buffer donation",
+    "COMPILE_CACHE_DIR": "an XLA compile cache",
+    "MASKED_OPT_STATE": "moments are kept for the trained parameters only",
+    # device meshes: the port runs on one card
+    "MESH_SHAPE": "one card",
+    "MESH_AXES": "one card",
+    "PARTITION_MODE": "one card",
+}
 
 
-def build_module(config, task, dtype=None, device=None, fused_qkv=None):
+def build_module(config, task, dtype=None, device=None, fused_qkv=None,
+                 remat=None):
     """Build a task module from a vlbert_tpu config.
 
     dtype: compute dtype; None reads TPU.COMPUTE_DTYPE. fused_qkv: None
-    reads TPU.FUSED_QKV. TPU.FUSED_ATTENTION, TPU.ROI_ALIGN_IMPL and
-    TPU.DROPOUT_IMPL are accepted and ignored with a warning; the other
-    TPU-only knobs are ignored.
+    reads TPU.FUSED_QKV. remat: per-layer activation checkpointing of the
+    encoder in training; None reads TPU.REMAT. The knobs of
+    ``_IGNORED_KNOBS`` are accepted and ignored with a warning that gives
+    the reason: TPU.FUSED_ATTENTION, TPU.ROI_ALIGN_IMPL, TPU.DROPOUT_IMPL
+    and TPU.RNG_IMPL choose a formulation where the port always launches
+    its kernel; TPU.ATTN_REMAT keeps only q, k, v and the bias for the
+    attention backward, which K3/K4 always do; TPU.SCAN_LAYERS and the
+    other XLA levers have no counterpart; the mesh knobs lay out devices,
+    and the port runs on one card. The other TPU knobs are read where they
+    apply (the loaders, the transforms, train_net, the checkpoints).
     """
     key = f"{config.MODULE}:{task}"
     if key not in MODULES:
@@ -613,15 +640,17 @@ def build_module(config, task, dtype=None, device=None, fused_qkv=None):
     tpu = config.TPU if "TPU" in config else {}
     present = [k for k in _IGNORED_KNOBS if k in tpu]
     if present:
-        warnings.warn(f"TPU.{', TPU.'.join(present)} ignored: on CUDA the "
-                      f"port always launches its ROIAlign, attention and "
-                      f"Philox dropout kernels", stacklevel=2)
+        warnings.warn(f"TPU.{', TPU.'.join(present)} ignored on CUDA: "
+                      + "; ".join(f"{k}: {_IGNORED_KNOBS[k]}"
+                                  for k in present), stacklevel=2)
     if dtype is None:
         dtype = _DTYPES[tpu.get("COMPUTE_DTYPE", "bfloat16")]
     if fused_qkv is None:
         fused_qkv = bool(tpu.get("FUSED_QKV", False))
+    if remat is None:
+        remat = bool(tpu.get("REMAT", False))
     vl_cfg = VLBertConfig.from_attrdict(config.NETWORK.VLBERT, dtype=dtype,
-                                        fused_qkv=fused_qkv)
+                                        fused_qkv=fused_qkv, remat=remat)
     cls = MODULES[key]
     if cls is ResNetVLBERTForVCR and master_dataset(config).get("TASK") \
             == "Q2AR":

@@ -34,8 +34,8 @@ NUM_SPECIAL_WORDS = 1000
 
 @dataclasses.dataclass(frozen=True)
 class VLBertConfig:
-    """Mirror of cfg.NETWORK.VLBERT plus the port's compute dtype and the
-    fused-QKV choice."""
+    """Mirror of cfg.NETWORK.VLBERT plus the port's compute dtype, the
+    fused-QKV choice and per-layer activation checkpointing (TPU.REMAT)."""
 
     vocab_size: int = 30522
     hidden_size: int = 768
@@ -59,13 +59,15 @@ class VLBertConfig:
     visual_region_classes: int = 1601
     dtype: torch.dtype = torch.float32
     fused_qkv: bool = False
+    remat: bool = False
 
     @classmethod
-    def from_attrdict(cls, d, dtype=torch.float32, fused_qkv=False):
+    def from_attrdict(cls, d, dtype=torch.float32, fused_qkv=False,
+                      remat=False):
         fields = {f.name for f in dataclasses.fields(cls)} \
-            - {"dtype", "fused_qkv"}
+            - {"dtype", "fused_qkv", "remat"}
         kwargs = {k: v for k, v in d.items() if k in fields}
-        return cls(**kwargs, dtype=dtype, fused_qkv=fused_qkv)
+        return cls(**kwargs, dtype=dtype, fused_qkv=fused_qkv, remat=remat)
 
 
 class VisualLinguisticBert(nn.Module):
@@ -109,7 +111,7 @@ class VisualLinguisticBert(nn.Module):
             c.num_hidden_layers, H, c.num_attention_heads,
             c.intermediate_size, c.hidden_act,
             c.attention_probs_dropout_prob, c.hidden_dropout_prob,
-            c.fused_qkv, **kw)
+            c.fused_qkv, remat=c.remat, **kw)
         if c.with_pooler:
             self.pooler = BertPooler(H, **kw)
 

@@ -25,7 +25,9 @@ Seeds: a training step opens ``dropout_seeds(step_seed)``; every dropout
 site draws ``next_site_seed()`` in forward order, so each site gets its own
 seed from the step's seed and its fixed position on the path. No dropout
 uses torch's global RNG; a module in training mode outside that context
-raises.
+raises. An activation-checkpointed layer (TPU.REMAT) takes ``site_state()``
+before its forward and recomputes under ``replay_sites``, so the recompute
+draws the forward's seeds again: the kernels rebuild the same masks.
 """
 
 from __future__ import annotations
@@ -126,6 +128,33 @@ def dropout_seeds(seed):
         yield
     finally:
         _STATE.seed, _STATE.site = saved
+
+
+def site_state():
+    """The step's seed and the index of the next dropout site: what
+    ``replay_sites`` needs to draw again the seeds the forward draws from
+    this point on (an activation-checkpointed layer's recompute)."""
+    return _STATE.seed, _STATE.site
+
+
+class replay_sites:
+    """Within this block, dropout sites draw their seeds from ``state`` (a
+    ``site_state()``) on, as the forward did from where it was taken; on
+    exit the seed and counter found on entry come back. Inside or outside
+    a ``dropout_seeds`` block alike: a recompute during ``backward()``
+    runs after the step's block has exited. Re-enterable: a backward that
+    keeps its graph recomputes a checkpointed layer each time it runs."""
+
+    def __init__(self, state):
+        self.state = state
+        self.saved = []
+
+    def __enter__(self):
+        self.saved.append((_STATE.seed, _STATE.site))
+        _STATE.seed, _STATE.site = self.state
+
+    def __exit__(self, *exc):
+        _STATE.seed, _STATE.site = self.saved.pop()
 
 
 def next_site_seed():

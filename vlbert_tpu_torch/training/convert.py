@@ -305,7 +305,10 @@ def state_dict_from_jax(flat, module, strict=True):
 
     Strict (the default): raises on a port parameter with no source, on a
     shape mismatch and on any JAX leaf left unused. ``strict=False`` returns
-    what it could map and logs the rest (the ``.npz`` loader).
+    what it could map and logs the rest (the ``.npz`` loader). A module on
+    the meta device gets meta tensors: the names and shapes are held and
+    nothing is allocated (``flat`` may then hold zero-stride arrays of
+    ``jax.eval_shape``'s shapes).
     """
     from vlbert_tpu_torch.models.task_modules import Classifier
     from vlbert_tpu_torch.models.vlbert import TIED_DECODER
@@ -337,7 +340,8 @@ def state_dict_from_jax(flat, module, strict=True):
                               f"{arr.shape} after transform, port expects "
                               f"{tuple(ref.shape)}")
             continue
-        out[name] = torch.tensor(arr, dtype=ref.dtype)
+        out[name] = torch.empty(arr.shape, dtype=ref.dtype, device="meta") \
+            if ref.is_meta else torch.tensor(arr, dtype=ref.dtype)
     unused = sorted(set(flat) - used)
     if not strict:
         if missing or mismatched or unused:
