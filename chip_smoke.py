@@ -155,12 +155,32 @@ its own line:
      on (REMAT must lower it); an fp32 step of cfgs/vqa/large_4x16G_fp32.
      yaml with the kernels and with the plain versions (phase 8's bar);
      RefCOCOServer on cfgs/refcoco/large_gt_boxes_4x16G.yaml over phase
-     4's queries (K1 1, K2 24 a query), p50 / p90.
+     4's queries (K1 1, K2 24 a query), p50 / p90;
+  16. data parallelism (TPU.PARTITION_MODE dp), each rank a child process
+     with torchrun's environment and a free port (the card's machine has
+     one card: NCCL refuses two ranks on one device, so NCCL runs at one
+     rank and two ranks share the card over gloo): (a) phase 7's config
+     on a synthetic set of 128 questions, 8 steps of 16, through
+     ``python -m vlbert_tpu_torch.engine.train --dist --dist-backend
+     nccl`` at one rank beside the same run without ``--dist``: the same
+     losses and final parameters bit for bit, phase 7's launches a step;
+     (b) the same at two gloo ranks on cuda:0, 16 a rank, 2 epochs: a
+     falling loss, both ranks' parameters bit for bit, phase 7's
+     launches on each, rank 0 alone writing the checkpoints, the
+     validation metric the same on both and equal to one process's over
+     the whole split from the same checkpoint, AUTO_RESUME to epoch 2 on
+     both; (c) one fp32 step of cfgs/pretrain/base_prec_4x16G_fp32.yaml
+     on phase 14's precomputed-feature fixture at two gloo ranks with
+     unequal masked counts, dropout off, against one process's step on
+     the concatenated batch at phase 8's bar. Per rank the step p50, a
+     profiler window's device busy time and the gradient all-reduce's
+     share (informative: gloo stages through the host).
 
 Any failure raises. Every file the phases write lives under one temporary
 directory, removed on exit. On every exit it stops the processes it
 started (the loader's forkserver, multiprocessing's resource tracker, any
-leftover child). The last three lines are the kernels' JSON record, the
+leftover child; phase 16's rank processes stop their own, and orphans are
+reparented to this process, a subreaper). The last three lines are the kernels' JSON record, the
 nvidia-smi line, and {"ok": true, "device": {...}}. Kernel launches made
 to compare a kernel with its plain version are not counted: each path's
 counts are set to 0 just before it runs. Each kernel's record carries its
@@ -693,7 +713,7 @@ def k1b_bound(feat, mask, g):
 
 def k1b_times(dev):
     """K1b at the K1B_TIMED calls (bf16, sampling ratio 1), by kernel
-    name; and the plain version at VCR's."""
+    name; and the plain version at VCR's and pretraining's."""
     from vlbert_tpu_torch.ops import roi_align as troi
 
     out = {}
@@ -704,9 +724,10 @@ def k1b_times(dev):
             *args), K1B_KERNEL)
         out[key]["bound"] = k1b_bound(feat, mask, g)
         out[key]["live"] = int(mask.sum())
-    feat, boxes, mask, g = k1b_inputs(dev)
-    out["plain"] = cuda_ms(lambda: troi.roi_align_bwd_plain(
-        feat, boxes, mask, g, sampling_ratio=1))
+    for key, case in (("plain", "vcr"), ("plain_pretrain", "pretrain")):
+        feat, boxes, mask, g = k1b_inputs(dev, case)
+        out[key] = cuda_ms(lambda: troi.roi_align_bwd_plain(
+            feat, boxes, mask, g, sampling_ratio=1))
     return out
 
 
@@ -3326,6 +3347,548 @@ def large_kernel_parity(dev):
     return errs, times
 
 
+# Phase 16: data parallelism (TPU.PARTITION_MODE dp) through ``python -m
+# vlbert_tpu_torch.engine.train --dist``, each rank a child process with
+# torchrun's environment. The card's machine has one card: NCCL runs at
+# one rank (NCCL refuses two ranks on one device), two ranks share the
+# card over gloo, which all-reduces and broadcasts CUDA tensors through
+# the host.
+DIST_TIMEOUT = 300        # seconds a group of rank processes may take
+DIST_TRAIN = 128          # phase 16's VQA training questions
+DIST_VAL = 32
+DIST_VAL_BATCH = 16
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def become_subreaper():
+    """Descendants of the rank processes that outlive them (loader
+    workers, a forkserver) are reparented to this process, so that
+    ``stop_child_processes`` finds and reaps them (Linux's
+    PR_SET_CHILD_SUBREAPER)."""
+    import ctypes
+
+    with contextlib.suppress(OSError, AttributeError):
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+
+
+def torchrun_env(rank, world, port):
+    return {"RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def run_ranks(jobs, root, name, timeout=DIST_TIMEOUT):
+    """One child process per job (``rank_job``; a job's "env" holds
+    torchrun's variables, none for a run without a process group), all
+    started together; returns each job's result. Kills the group and
+    raises on a failure or when it outlives ``timeout``."""
+    procs = []
+    for i, job in enumerate(jobs):
+        path = os.path.join(root, f"{name}_{i}.json")
+        job["out"] = os.path.join(root, f"{name}_{i}.result.json")
+        with open(path, "w") as f:
+            json.dump(job, f)
+        log = open(os.path.join(root, f"{name}_{i}.log"), "w")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                            "MASTER_ADDR", "MASTER_PORT")}
+        env.update(CUBLAS_WORKSPACE_CONFIG=":4096:8", **job.get("env", {}))
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+             f"sys.exit(chip_smoke.rank_job({path!r}))"],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    deadline, hung = time.monotonic() + timeout, False
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        hung = True
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [i for i, (p, _) in enumerate(procs) if p.returncode != 0]
+    if hung or bad:
+        tails = []
+        for i in bad or range(len(procs)):
+            with open(os.path.join(root, f"{name}_{i}.log")) as f:
+                tails.append(f"--- {name} process {i}:\n{f.read()[-3000:]}")
+        raise AssertionError(f"phase 16 {name}: "
+                             + ("the group outlived "
+                                f"{timeout} s" if hung else
+                                f"processes {bad} failed") + "\n"
+                             + "\n".join(tails))
+    out = []
+    for job in jobs:
+        with open(job["out"]) as f:
+            out.append(json.load(f))
+    return out
+
+
+def rank_job(job_path):
+    """A process of phase 16: ``train`` runs ``python -m
+    vlbert_tpu_torch.engine.train``'s main with the job's argv, ``step``
+    16c's fp32 step; the result goes to the job's "out" as json. Stops
+    its own children before it exits."""
+    import torch
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = {"train": rank_train, "step": rank_step}[job["kind"]](job)
+        with open(job["out"], "w") as f:
+            json.dump(out, f)
+    finally:
+        stop_child_processes()
+    return 0
+
+
+def params_digest(model):
+    """sha256 of every parameter's fp32 bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_train(job):
+    """``python -m vlbert_tpu_torch.engine.train`` (its main) with
+    ``job["argv"]``: the losses, the launches of each step and validation
+    run, the final parameters' digest, the checkpoint writes asked for
+    (made unless ``record_writes``), the gradient all-reduce's time a step
+    (host clock between two device syncs), each validation run's summed
+    (sum, count) pairs and, under ``profile``, a profiler window of 2
+    steps on the first batch."""
+    import torch
+    import vlbert_tpu_torch.engine.train as t_train
+    from vlbert_tpu_torch.parallel import dist as dist_lib
+    from vlbert_tpu_torch.training import checkpoint as ckpt
+
+    kept, ar_ms, saves, val_sums = {}, [], [], []
+    saved = (t_train.train_net, ckpt.save_checkpoint,
+             dist_lib.all_reduce_mean_, dist_lib.all_reduce_accumulator)
+
+    def timed_all_reduce(tensors):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved[2](tensors)
+        torch.cuda.synchronize()
+        ar_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def summed(acc, device):
+        out = saved[3](acc, device)
+        val_sums.append({k: (acc.sums[k], acc.nums[k]) for k in acc.sums})
+        return out
+
+    def save(prefix, epoch, *a, **kw):
+        saves.append(epoch)
+        if job.get("record_writes"):
+            return f"{prefix}-{epoch:04d}.model"
+        return saved[1](prefix, epoch, *a, **kw)
+
+    def keep(args, config, task):
+        model, history = saved[0](args, config, task)
+        kept.update(history=history, digest=params_digest(model),
+                    all_reduce_ms=list(ar_ms), val_sums=list(val_sums),
+                    step_launches=list(rec["steps"]),
+                    val_launches=list(rec["val"]), total=_launch_counts(),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if job.get("profile") and history["loss"]:
+            kept["profile"] = profile_steps(model, config, task, n=2,
+                                            batch=rec["batch"])
+        return model, history
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    with launches_per_call() as rec:
+        t_train.train_net, ckpt.save_checkpoint = keep, save
+        dist_lib.all_reduce_mean_ = timed_all_reduce
+        dist_lib.all_reduce_accumulator = summed
+        try:
+            rc = t_train.main(job["argv"])
+        finally:
+            (t_train.train_net, ckpt.save_checkpoint,
+             dist_lib.all_reduce_mean_,
+             dist_lib.all_reduce_accumulator) = saved
+    h = kept.pop("history")
+    return {"rank": int(os.environ.get("RANK", 0)), "rc": rc,
+            "wall_s": time.perf_counter() - t0, "loss": h["loss"],
+            "step_ms": h["step_ms"], "val": h["val"],
+            "begin_epoch": h["begin_epoch"],
+            "resumed_count": h["resumed_count"], "saves": saves, **kept}
+
+
+def dist_step_model(cfg, dev):
+    """The fp32 model of ``cfg`` from seed-0 weights, dropout off (the
+    ranks' dropout seeds fold in their rank: their masks are not one
+    process's)."""
+    import torch
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.training.optim import apply_trainable_mask
+
+    model = build_module(cfg, "pretrain", dtype=torch.float32, device=dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
+    apply_trainable_mask(model, cfg)
+    model.image_feature_extractor.obj_downsample[0].rate = 0.0
+    return model
+
+
+def masked_counts(batch):
+    """What the pretraining losses divide by: the caption and corpus
+    tokens with an MLM label, the regions with an MVRC label."""
+    return {"mlm": int((batch[5] != -1).sum()),
+            "mlm_aux": int((batch[9] != -1).sum()),
+            "mvrc": int(((batch[7].sum(-1) - 1).abs() < 0.1).sum())}
+
+
+def rank_step(job):
+    """16c, one rank: the first batch of its shard of the pretraining
+    loader (rank 1's first caption row unmasked, so that the ranks' MLM
+    counts differ), one fp32 optimizer step from seed-0 weights under a
+    gloo group on cuda:0. Saves the batch (and on rank 0 the updated
+    weights) for the one-process step."""
+    import torch
+    from vlbert_tpu_torch.data.build import make_multitask_dataloader
+    from vlbert_tpu_torch.parallel import dist as dist_lib
+    from vlbert_tpu_torch.training.loop import make_train_step, to_device
+    from vlbert_tpu_torch.training.optim import Optimizer
+    from vlbert_tpu_torch.utils.config import load_config
+
+    cfg = load_config("pretrain", job["yaml"])
+    with dist_lib.process_group("gloo", "cuda:0") as dev:
+        rank, world = dist_lib.rank_world()
+        loader = make_multitask_dataloader(cfg, "pretrain")
+        try:
+            batch = to_device(next(iter(loader)), dev)
+        finally:
+            loader.shutdown()
+        if rank == 1:
+            batch[5][0] = -1
+        torch.save([None if x is None else x.cpu() for x in batch],
+                   job["batch"])
+        model = dist_step_model(cfg, dev)
+        opt = Optimizer(cfg, model, 4, world)
+        step = make_train_step(model, opt, "pretrain", cfg,
+                               max(int(cfg.TRAIN.GRAD_ACCUMULATE_STEPS), 1))
+        _zero_counts()
+        loss, dm = step(batch, SEED + 5)
+        torch.cuda.synchronize()
+        out = {"rank": rank, "loss": float(loss),
+               "grad_norm": float(dm["grad_total_norm"][0]),
+               "launches": _launch_counts(), "counts": masked_counts(batch),
+               "rows": [int(batch[3].shape[0]), int(batch[8].shape[0])],
+               "digest": params_digest(model)}
+        if rank == 0:
+            torch.save({n: p.detach().cpu() for n, p
+                        in model.named_parameters()}, job["params"])
+    return out
+
+
+def interleave(shards, accum):
+    """The global batch of the ranks' ``shards`` of one tensor, in the
+    JAX package's layout: micro-step i is the ranks' micro-steps i side by
+    side."""
+    import torch
+
+    parts = [s.chunk(accum) for s in shards]
+    return torch.cat([p[i] for i in range(accum) for p in parts])
+
+
+def dist_train_yaml(root, data_dir, vocab_dir, answer_file, name, epochs):
+    """cfgs/vqa/base_v5e_bf16.yaml on phase 16's set with phase 7's
+    overrides, ``epochs`` epochs, validation batches of 16, the output
+    under ``root/name``."""
+    overrides = {
+        "NETWORK.PARTIAL_PRETRAIN": "", "NETWORK.BERT_MODEL_NAME": vocab_dir,
+        "DATASET.DATASET_PATH": data_dir, "DATASET.ROOT_PATH": data_dir,
+        "DATASET.TRAIN_ANNOTATION_FILE": "train.jsonl",
+        "DATASET.VAL_ANNOTATION_FILE": "val.jsonl",
+        "DATASET.ANSWER_VOCAB_FILE": answer_file,
+        "OUTPUT_PATH": os.path.join(root, name), "RNG_SEED": SEED,
+        "TRAIN.END_EPOCH": epochs, "LOG_FREQUENT": 4,
+        "TRAIN.WARMUP": False, "TRAIN.LR": 6.25e-6,
+        "TRAIN.AUTO_RESUME": True, "VAL.BATCH_IMAGES": DIST_VAL_BATCH}
+    path = write_train_yaml(VQA_CFG, os.path.join(root, f"{name}.yaml"),
+                            overrides)
+    return path, overrides
+
+
+def dist_phase(root, root14, vocab_dir):
+    """Phase 16. (a) NCCL at one rank: phase 7's run, 8 steps of 16 on a
+    set of DIST_TRAIN questions, through ``--dist`` and without it, the
+    two processes side by side: the same losses and final parameters bit
+    for bit, phase 7's launches a step. (b) gloo at two ranks on cuda:0,
+    16 a rank: 8 steps over 2 epochs, the loss falls, both ranks' final
+    parameters bit for bit, phase 7's launches on each, rank 0 alone
+    writes, the validation metric the same on both and equal to one
+    process's over the whole split from the same checkpoint; AUTO_RESUME
+    to epoch 2 on both. (c) gloo at two ranks, one fp32 step of
+    cfgs/pretrain/base_prec_4x16G_fp32.yaml (MLM + MVRC, masked
+    normalisers) on phase 14's precomputed-feature fixture, dropout off,
+    the ranks' masked counts unequal, against one process's step on the
+    concatenated batch at phase 8's bar. Returns results."""
+    import torch
+    from vlbert_tpu_torch.data.build import make_dataloader
+    from vlbert_tpu_torch.engine.val import make_validation_fn
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.parallel import dist as dist_lib
+    from vlbert_tpu_torch.training import checkpoint as ckpt
+    from vlbert_tpu_torch.training.loop import make_train_step
+    from vlbert_tpu_torch.training.optim import Optimizer
+    from vlbert_tpu_torch.utils.config import load_config
+
+    become_subreaper()
+    res, seconds = {}, {}
+    data_dir, vocab16, answer_file = write_vqa_fixture(
+        os.path.join(root, "data"), n_train=DIST_TRAIN, n_val=DIST_VAL,
+        seed=SEED)
+    fixture = (data_dir, vocab16, answer_file)
+    base = ["--task", "vqa", "--cfg"]
+
+    # (a) NCCL at world 1 beside the same run without a process group
+    t0 = time.perf_counter()
+    plain_yaml, overrides = dist_train_yaml(root, *fixture, "a_plain", 1)
+    nccl_yaml, _ = dist_train_yaml(root, *fixture, "a_nccl", 1)
+    res["a"] = run_ranks(
+        [{"kind": "train", "argv": base + [plain_yaml],
+          "record_writes": True},
+         {"kind": "train", "argv": base + [nccl_yaml, "--dist",
+                                           "--dist-backend", "nccl"],
+          "record_writes": True, "profile": True,
+          "env": torchrun_env(0, 1, free_port())}], root, "a")
+    seconds["a"] = time.perf_counter() - t0
+
+    # (b) gloo, two ranks on cuda:0, then AUTO_RESUME past the last epoch
+    t0 = time.perf_counter()
+    b_yaml, _ = dist_train_yaml(root, *fixture, "b", 2)
+    argv = base + [b_yaml, "--dist", "--dist-backend", "gloo", "--device",
+                   "cuda:0"]
+    port = free_port()
+    res["b"] = run_ranks(
+        [{"kind": "train", "argv": argv, "profile": True,
+          "env": torchrun_env(r, 2, port)} for r in range(2)], root, "b")
+    seconds["b"] = time.perf_counter() - t0
+    out_b = os.path.join(root, "b", "vqa_train")
+    res["b_files"] = sorted(os.listdir(out_b))
+    cfg = load_config("vqa", b_yaml)
+    b_prefix = cfg.MODEL_PREFIX
+    prefix = os.path.join(out_b, b_prefix)
+    # one process over the whole validation split from the last checkpoint
+    model = build_module(cfg, "vqa", dtype=torch.bfloat16, device="cuda")
+    ckpt.load_checkpoint(f"{prefix}-0001.model", model)
+    loader = make_dataloader(cfg, "vqa", "val")
+    acc_of = []
+    saved_acc = dist_lib.all_reduce_accumulator
+    dist_lib.all_reduce_accumulator = lambda acc, device: acc_of.append(
+        acc) or saved_acc(acc, device)
+    try:
+        res["b_val_one"] = make_validation_fn(model, cfg, "vqa",
+                                              "cuda")(loader)
+    finally:
+        dist_lib.all_reduce_accumulator = saved_acc
+        loader.shutdown()
+    res["b_val_one_sums"] = {k: (acc_of[0].sums[k], acc_of[0].nums[k])
+                             for k in acc_of[0].sums}
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    port = free_port()
+    res["b_resume"] = run_ranks(
+        [{"kind": "train", "argv": argv, "record_writes": True,
+          "env": torchrun_env(r, 2, port)} for r in range(2)], root,
+        "b_resume")
+    seconds["b_resume"] = time.perf_counter() - t0
+
+    # (c) one fp32 pretraining step at two ranks vs one process
+    t0 = time.perf_counter()
+    prec_dir = os.path.join(root14, "cc_prec")
+    corpus = os.path.join(root14, "corpus.doc")
+    c_over = {**pretrain_overrides(root14, prec_dir, corpus, vocab_dir),
+              "TRAIN.END_EPOCH": 1, "TRAIN.BATCH_IMAGES": [8, 8],
+              "TPU.PROCESS_WORKERS": False,
+              "NETWORK.VLBERT.hidden_dropout_prob": 0.0,
+              "NETWORK.VLBERT.attention_probs_dropout_prob": 0.0}
+    c_yaml = write_train_yaml(PRETRAIN_CFGS["prec"],
+                              os.path.join(root, "c.yaml"), c_over)
+    port = free_port()
+    jobs = [{"kind": "step", "yaml": c_yaml,
+             "batch": os.path.join(root, f"c_batch{r}.pt"),
+             "params": os.path.join(root, "c_params0.pt"),
+             "env": torchrun_env(r, 2, port)} for r in range(2)]
+    res["c"] = run_ranks(jobs, root, "c")
+    cfg = load_config("pretrain", c_yaml)
+    accum = max(int(cfg.TRAIN.GRAD_ACCUMULATE_STEPS), 1)
+    shards = [torch.load(j["batch"]) for j in jobs]
+    batch = tuple(None if xs[0] is None
+                  else interleave(xs, accum).to("cuda")
+                  for xs in zip(*shards))
+    cfg.TRAIN.BATCH_IMAGES = [2 * b for b in cfg.TRAIN.BATCH_IMAGES]
+    model = dist_step_model(cfg, "cuda")
+    opt = Optimizer(cfg, model, 4, 1)
+    lr = opt.lr()
+    _zero_counts()
+    loss, dm = make_train_step(model, opt, "pretrain", cfg, accum)(
+        batch, SEED + 5)
+    torch.cuda.synchronize()
+    ranks_sd = torch.load(jobs[0]["params"])
+    dparam = max((p.detach().cpu() - ranks_sd[n]).abs().max().item()
+                 for n, p in model.named_parameters())
+    r0 = res["c"][0]
+    one = {"loss": float(loss), "grad_norm": float(dm["grad_total_norm"][0]),
+           "launches": _launch_counts(), "lr": lr,
+           "counts": masked_counts(batch)}
+    one["checks"] = {
+        "loss": (abs(r0["loss"] - one["loss"]) / abs(one["loss"]),
+                 STEP_RTOL["loss"]),
+        "grad_norm": (abs(r0["grad_norm"] - one["grad_norm"])
+                      / one["grad_norm"], STEP_RTOL["grad_norm"]),
+        "param_per_lr": (dparam / lr, STEP_RTOL["param_per_lr"])}
+    res["c_one"] = one
+    del model, opt, ranks_sd, batch, shards
+    torch.cuda.empty_cache()
+    seconds["c"] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    res["overrides"] = {k: v for k, v in overrides.items()
+                        if not k.startswith(("DATASET.", "NETWORK.BERT"))}
+    res["c_overrides"] = {k: v for k, v in c_over.items()
+                          if not k.startswith(("DATASET.", "NETWORK.BERT"))}
+
+    # the checks
+    a_plain, a_nccl = res["a"]
+    b0, b1 = res["b"]
+    steps_a = DIST_TRAIN // 16
+    step_want = train_launches(1, 0)
+    val_want = train_launches(0, -(-DIST_VAL // DIST_VAL_BATCH))
+    val_b = train_launches(0, -(-DIST_VAL // 2 // DIST_VAL_BATCH))
+    res["checks"] = {
+        "a: bit for bit": a_plain["loss"] == a_nccl["loss"]
+        and a_plain["digest"] == a_nccl["digest"]
+        and len(a_nccl["loss"]) == steps_a
+        and all(map(math.isfinite, a_nccl["loss"])),
+        "a: launches": all(r["step_launches"] == [step_want] * steps_a
+                           and r["val_launches"] == [val_want]
+                           for r in res["a"]),
+        "b: loss falls": _falls(b0["loss"], 2) and len(b0["loss"]) == 8,
+        "b: ranks bit for bit": b0["loss"] == b1["loss"]
+        and b0["digest"] == b1["digest"],
+        "b: launches": all(r["step_launches"] == [step_want] * 8
+                           and r["val_launches"] == [val_b] * 2
+                           for r in res["b"]),
+        "b: rank 0 alone writes": b0["saves"] == [0, 1] and b1["saves"] == []
+        and {f"{b_prefix}-0000.model", f"{b_prefix}-0001.model",
+             f"{b_prefix}-best.model", "train_rank0.log",
+             "train_rank1.log"} == set(res["b_files"]),
+        # every question counted once over the ranks, the same metric
+        # and sums on both ranks and in one process
+        "b: validation": b0["val"] == b1["val"] and len(b0["val"]) == 2
+        and b0["val_sums"] == b1["val_sums"]
+        and set(b0["val"][-1]) == set(res["b_val_one"])
+        and all(abs(b0["val"][-1][k] - v) <= 1e-6
+                and b0["val_sums"][-1][k][1] == DIST_VAL
+                and res["b_val_one_sums"][k][1] == DIST_VAL
+                and abs(b0["val_sums"][-1][k][0]
+                        - res["b_val_one_sums"][k][0]) <= 1e-5
+                for k, v in res["b_val_one"].items()),
+        "b: auto resume": all((r["begin_epoch"], r["resumed_count"],
+                               r["loss"], r["saves"]) == (2, 8, [], [])
+                              for r in res["b_resume"]),
+        "c: counts differ": res["c"][0]["counts"] != res["c"][1]["counts"],
+        "c: ranks bit for bit": res["c"][0]["digest"]
+        == res["c"][1]["digest"]
+        and res["c"][0]["loss"] == res["c"][1]["loss"],
+        "c: one process": all(v[0] <= v[1] for v in one["checks"].values())}
+    return res
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def print_dist_phase(r, card):
+    """Phase 16's lines. Step p50 (CUDA events, steps 3..), the profiler
+    window's device busy ms a step and the gradient all-reduce's median ms
+    a step (host clock between two device syncs) and its share of the step
+    p50, per rank: informative (gloo stages through the host; NCCL at one
+    rank copies)."""
+    def timing(x):
+        wall, busy, _ = x["profile"] or (float("nan"),) * 3
+        p50, ar = step_p50(x["step_ms"]), _median(x["all_reduce_ms"])
+        return (f"step p50 {p50:.2f} ms, profiled window wall {wall:.2f} / "
+                f"device busy {busy:.2f} ms a step, gradient all-reduce "
+                f"{ar:.2f} ms a step ({ar / p50:.3f} of the step p50), "
+                f"peak {x['peak_gib']:.2f} GiB, {x['wall_s']:.1f} s of main")
+
+    plain, nccl = r["a"]
+    print(f"[16a dp NCCL world 1] {VQA_CFG} with overrides "
+          f"{json.dumps(r['overrides'])} on {DIST_TRAIN} synthetic "
+          f"questions: python -m vlbert_tpu_torch.engine.train --dist "
+          f"--dist-backend nccl (RANK 0, WORLD_SIZE 1) beside the same run "
+          f"without --dist, side by side on the card: {len(nccl['loss'])} "
+          f"steps of 16, losses {[round(x, 4) for x in nccl['loss']]} equal "
+          f"bit for bit, final parameters' sha256 equal "
+          f"({nccl['digest'][:16]}); launches per step "
+          f"{nccl['step_launches'][0]} and per validation run "
+          f"{nccl['val_launches'][0]} on both; with --dist: {timing(nccl)}; without: step p50 "
+          f"{step_p50(plain['step_ms']):.2f} ms ({card})", flush=True)
+    b0, b1 = r["b"]
+    print(f"[16b dp gloo world 2] the same config, 2 epochs, python -m "
+          f"vlbert_tpu_torch.engine.train --dist --dist-backend gloo "
+          f"--device cuda:0 on 2 ranks sharing the card, 16 a rank: "
+          f"{len(b0['loss'])} steps, loss "
+          f"{[round(x, 4) for x in b0['loss']]} on both, final parameters "
+          f"equal bit for bit ({b0['digest'][:16]}); launches per step "
+          f"{b0['step_launches'][0]} on each rank, per validation run "
+          f"{b0['val_launches'][0]}; checkpoint writes asked for rank 0 "
+          f"{b0['saves']}, rank 1 {b1['saves']}; files {r['b_files']}; "
+          f"val SoftAcc by epoch rank 0 "
+          f"{[round(v['SoftAcc'], 6) for v in b0['val']]}, rank 1 "
+          f"{[round(v['SoftAcc'], 6) for v in b1['val']]}, one process over "
+          f"the {DIST_VAL} questions from -0001.model "
+          f"{round(r['b_val_one']['SoftAcc'], 6)} ((sum, count) "
+          f"{b0['val_sums'][-1]['SoftAcc']} on the ranks, "
+          f"{r['b_val_one_sums']['SoftAcc']} in one process); AUTO_RESUME: "
+          f"begin_epoch "
+          f"{[x['begin_epoch'] for x in r['b_resume']]}, optimizer count "
+          f"{[x['resumed_count'] for x in r['b_resume']]}, "
+          f"{[len(x['loss']) for x in r['b_resume']]} steps; rank 0: "
+          f"{timing(b0)}; rank 1: {timing(b1)}; phase 16 seconds "
+          f"{ {k: round(v, 1) for k, v in r['seconds'].items()} } ({card})",
+          flush=True)
+    c0, c1 = r["c"]
+    one = r["c_one"]
+    print(f"[16c dp gloo world 2, fp32 step] {PRETRAIN_CFGS['prec']} with "
+          f"overrides {json.dumps(r['c_overrides'])} on phase 14's "
+          f"precomputed-feature fixture: each rank's first batch "
+          f"({c0['rows'][0]} caption + {c0['rows'][1]} corpus rows; masked "
+          f"counts rank 0 {c0['counts']}, rank 1 {c1['counts']}), one AdamW "
+          f"step from seed-0 weights on 2 ranks vs one process on the "
+          f"concatenated batch ({one['counts']}): loss {c0['loss']:.6f} vs "
+          f"{one['loss']:.6f}, grad norm {c0['grad_norm']:.6f} vs "
+          f"{one['grad_norm']:.6f}, (rel err, rtol) {one['checks']} at lr "
+          f"{one['lr']:.3e}; both ranks' parameters equal bit for bit; "
+          f"launches a rank {c0['launches']}, one process "
+          f"{one['launches']} ({card})", flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -3760,6 +4323,7 @@ def main():
         k1b_t = k1b_times(dev)
         k1b_lib = k1b_library(dev)
         k1b_lib_rc = k1b_library(dev, "refcoco")
+        k1b_lib_pt = k1b_library(dev, "pretrain")
         worst_k1b = max(k1b_errs, key=k1b_errs.get)
         print(f"[13 parity K1b roi_align backward] {len(k1b_errs)} cases "
               f"(case/g->dF/sampling ratio, the K1 cases; padded slots' g "
@@ -3775,13 +4339,15 @@ def main():
               + "; ".join(f"{k} {t['ms']:.4f} ({t['call_ms']:.4f}), "
                           f"{t['live']} live slots, bound "
                           f"{t['bound'][0]:.4f} ({t['bound'][1]})"
-                          for k, t in k1b_t.items() if k != "plain")
+                          for k, t in k1b_t.items() if k in K1B_TIMED)
               + f"; plain {k1b_t['plain'][0]:.4f} ({k1b_t['plain'][1]:.4f}); "
               f"library: the backward of F.grid_sample over the bin centres "
               f"({k1b_lib[2]}) {k1b_lib[0]:.4f} ms "
               f"({', '.join(n[:48] for n in k1b_lib[1])}), fp32 max abs err "
               f"{k1b_lib[3]:.2e} against the plain dF on the boxes inside "
-              f"the map; at RefCOCO+'s {k1b_lib_rc[0]:.4f} ms ({card})",
+              f"the map; at RefCOCO+'s {k1b_lib_rc[0]:.4f} ms; at "
+              f"pretraining's {k1b_lib_pt[0]:.4f} ms ({k1b_lib_pt[2]}), "
+              f"plain there {k1b_t['plain_pretrain'][0]:.4f} ms ({card})",
               flush=True)
         root13 = os.path.join(root, "p13")
         os.makedirs(root13)
@@ -4014,6 +4580,14 @@ def main():
               f"query); latency p50 {lat15['p50_ms']:.2f} ms, p90 "
               f"{lat15['p90_ms']:.2f} ms over n={lat15['n']}; peak device "
               f"memory {r15e['peak_gib']:.2f} GiB ({card})", flush=True)
+        # --- 16: data parallelism over torch.distributed ---
+        root16 = os.path.join(root, "p16")
+        os.makedirs(root16)
+        r16 = dist_phase(root16, root14, vocab13)
+        if not all(r16["checks"].values()):
+            raise AssertionError(f"data parallelism: {r16['checks']}; "
+                                 f"{ {k: r16[k] for k in ('b_val_one', 'c_one', 'seconds')} }")
+        print_dist_phase(r16, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4135,7 +4709,10 @@ def main():
                       "ms": k1b_t["pretrain"]["ms"],
                       "call_ms": k1b_t["pretrain"]["call_ms"],
                       "bound_ms": k1b_t["pretrain"]["bound"][0],
-                      "bound_by": k1b_t["pretrain"]["bound"][1]}},
+                      "bound_by": k1b_t["pretrain"]["bound"][1],
+                      "plain_ms": k1b_t["plain_pretrain"][0],
+                      "library_ms": k1b_lib_pt[0],
+                      "library_kernels": k1b_lib_pt[1]}},
         {"name": "attention_fwd", "route": "cuda",
          "source": "vlbert_tpu_torch/csrc/attention_dropout_mma.cu",
          "fp32_source": "vlbert_tpu_torch/csrc/attention_f32_mma.cu",
@@ -4354,6 +4931,17 @@ def main():
         record["launches_large"] = counts
         if times:
             record["at_H16"] = times
+    # launches on phase 16's paths, each run's total: 16a's run under a
+    # process group of one NCCL rank, 16b's two gloo ranks
+    dist_runs = {"16a_nccl_world1": r16["a"][1]["total"],
+                 "16b_gloo_rank0": r16["b"][0]["total"],
+                 "16b_gloo_rank1": r16["b"][1]["total"]}
+    count_of = {"roi_align_fwd": "K1", "roi_align_bwd": "K1b",
+                "attention_fwd": "K2", "dropout": "K5_fwd",
+                "attention_dropout_fwd": "K3", "attention_dropout_bwd": "K4"}
+    for record in kernels:
+        record["launches_dist"] = {k: v[count_of[record["name"]]]
+                                   for k, v in dist_runs.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

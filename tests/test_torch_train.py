@@ -404,24 +404,3 @@ def test_compute_dtype_float16_is_refused(tmp_path):
     cfg.TPU.COMPUTE_DTYPE = "float32"
     cfg.TRAIN.FP16 = False
     check_unported(cfg)
-
-
-def test_more_than_one_rank_is_refused_before_a_model_is_built(
-        tmp_path, monkeypatch):
-    """Under a process group of 2 ranks nothing all-reduces the gradients,
-    so train_net refuses, naming the multi-GPU item, before it builds a
-    model or a loader."""
-    import vlbert_tpu_torch.engine.train as t_train
-
-    data_dir, vocab_dir = _write_vqa_fixture(tmp_path)
-    cfg = _tiny_vqa_cfg(tmp_path, data_dir, vocab_dir)
-    built = []
-    monkeypatch.setattr(t_train, "dist_rank_world", lambda: (0, 2))
-    monkeypatch.setattr(t_train, "build_module",
-                        lambda *a, **kw: built.append(a))
-    monkeypatch.setattr(t_train, "make_dataloader",
-                        lambda *a, **kw: built.append(a))
-    args = types.SimpleNamespace(model_dir="", device="cpu")
-    with pytest.raises(NotImplementedError, match="2 ranks.*multi-GPU"):
-        t_train.train_net(args, cfg, "vqa")
-    assert built == []

@@ -4,7 +4,10 @@ jax): cfg -> (transform, dataset, collate, loader).
 The dataset, collate, loader, tokenizer and transforms are the port's
 copies of the JAX package's host code (numpy, no jax). Rank and world size
 come from ``torch.distributed`` when it is initialised, else 0 and 1; each
-process loads its own shard. Every dataset of the JAX package's catalog
+process loads its own shard (``data/loader.py``: an epoch-seeded
+permutation, wrap-padded to a multiple of the world size, every rank the
+same number of batches; validation marks the padding invalid), and only
+rank 0 writes VCR's db cache. Every dataset of the JAX package's catalog
 is ported: VQA, RefCOCO / RefCOCO+, VCR, and for pretraining Conceptual
 Captions, COCO captions and the text corpus, whose list-valued DATASET
 gives ``make_multitask_dataloader``.
@@ -25,15 +28,8 @@ from vlbert_tpu_torch.data.datasets.vqa import VQADataset, make_vqa_collate
 from vlbert_tpu_torch.data.loader import DataLoader, MultiTaskLoader
 from vlbert_tpu_torch.data.tokenization import BertTokenizer
 from vlbert_tpu_torch.data.transforms import build_transforms
+from vlbert_tpu_torch.parallel.dist import rank_world as dist_rank_world
 from vlbert_tpu_torch.utils.misc import master_dataset
-
-
-def dist_rank_world():
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 CAPTION_DATASETS = {"conceptual_captions": ConceptualCaptionsDataset,

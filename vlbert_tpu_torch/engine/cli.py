@@ -14,14 +14,16 @@ def _add_test_args(parser):
                         choices=("val", "test"))
     parser.add_argument("--result-path", type=str, default="./results")
     parser.add_argument("--result-name", type=str, default="result")
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device; cuda needs a card (no fallback)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device, by default cuda (under --dist "
+                             "cuda:LOCAL_RANK); cuda needs a card (no "
+                             "fallback)")
 
 
 def parse_args(task=None, description="VL-BERT (PyTorch + CUDA)",
                argv=None):
-    """Training: --cfg, --model-dir, --device, --do-test and the test
-    flags; --task when ``task`` is None."""
+    """Training: --cfg, --model-dir, --device, --do-test, --dist,
+    --dist-backend and the test flags; --task when ``task`` is None."""
     parser = argparse.ArgumentParser(description=description)
     if task is None:
         parser.add_argument("--task", type=str, required=True,
@@ -33,6 +35,13 @@ def parse_args(task=None, description="VL-BERT (PyTorch + CUDA)",
                         help="root path for the run's output")
     parser.add_argument("--do-test", action="store_true",
                         help="score the best checkpoint after training")
+    parser.add_argument("--dist", action="store_true",
+                        help="data parallel over torch.distributed, one "
+                             "rank a card, from torchrun's environment")
+    parser.add_argument("--dist-backend", type=str, default=None,
+                        choices=("nccl", "gloo"),
+                        help="the process group's backend: by default nccl "
+                             "on a card, gloo on the CPU")
     _add_test_args(parser)
     args = parser.parse_args(argv)
     if task is not None:
@@ -53,4 +62,5 @@ def parse_test_args(argv=None):
     args = parser.parse_args(argv)
     if not args.ckpt:
         parser.error("--ckpt is required")
+    args.device = args.device or "cuda"
     return args

@@ -25,9 +25,21 @@ validation metric and the plateau detector. Every CHECKPOINT_FREQUENT
 epoch and every best-val epoch is saved as ``{prefix}-{epoch:04d}.model``
 (by a background writer under TPU.ASYNC_CHECKPOINT), the best mirrored to
 ``{prefix}-best.model``. ``--do-test`` then scores the best checkpoint
-(``engine/test.py``). One card, one process: under a process group of
-more than one rank it refuses to train, because nothing all-reduces the
-gradients yet (ROADMAP.md queue 1, multi-GPU).
+(``engine/test.py``).
+
+On several cards, one process a card (TPU.PARTITION_MODE dp,
+``parallel/dist.py``):
+
+    torchrun --nproc_per_node N -m vlbert_tpu_torch.engine.train --dist \
+        --task vqa --cfg cfgs/vqa/base_4x16G_fp32.yaml
+
+TRAIN.BATCH_IMAGES is each card's batch and the base LR scales by the
+world size, as in the JAX package and the reference. Every rank
+initialises the same weights; rank 0 alone resumes and its weights,
+optimizer moments and count, begin epoch, best validation metric and
+plateau state are broadcast; each step is the global batch's; rank 0
+alone writes checkpoints and runs ``--do-test`` (the others wait at a
+barrier); each rank logs to ``train_rank{rank}.log``.
 """
 
 from __future__ import annotations
@@ -44,6 +56,7 @@ from vlbert_tpu_torch.data.tokenization import BertTokenizer
 from vlbert_tpu_torch.engine.val import make_validation_fn
 from vlbert_tpu_torch.models.layers import init_weights
 from vlbert_tpu_torch.models.task_modules import build_module
+from vlbert_tpu_torch.parallel import dist as dist_lib
 from vlbert_tpu_torch.training import checkpoint as ckpt_lib
 from vlbert_tpu_torch.training import convert as cvt
 from vlbert_tpu_torch.training.loop import fit
@@ -212,16 +225,12 @@ def train_net(args, config, task):
     history adds ``begin_epoch`` and ``resumed_count`` (the optimizer count
     after the resume) to ``fit``'s."""
     rank, world = dist_rank_world()
-    if world > 1:
-        raise NotImplementedError(
-            f"training under a process group of {world} ranks: nothing "
-            f"all-reduces the gradients or metrics yet, so each rank would "
-            f"train its own replica; see ROADMAP.md queue 1 (multi-GPU)")
+    dist_lib.check_partition(config, world)
     output_path = train_output_path(config, args, task)
     setup_logger(output_path, rank)
     logger.info("config: %s", dict(config))
     model_prefix = model_prefix_of(config, output_path)
-    device = torch.device(getattr(args, "device", "cuda"))
+    device = torch.device(getattr(args, "device", None) or "cuda")
     check_unported(config)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but torch.cuda is not "
@@ -261,8 +270,7 @@ def train_net(args, config, task):
         val_loader = make_dataloader(config, task, "val", tokenizer)
     try:
         optimizer = Optimizer(config, model, len(train_loader), world)
-        begin_epoch, extra = ckpt_lib.smart_resume(model_prefix, model,
-                                                   optimizer, config)
+        begin_epoch, extra = resume(model_prefix, model, optimizer, config)
         resumed_count = optimizer.count
         logger.info("base LR %g over %d steps/epoch; epochs %d..%d, "
                     "optimizer count %d", optimizer.base_lr,
@@ -274,6 +282,9 @@ def train_net(args, config, task):
         async_ckpt = bool(config.TPU.get("ASYNC_CHECKPOINT", True))
 
         def checkpoint_fn(m, opt, epoch, extra_dict, is_best):
+            # one writer: every rank holds the same state
+            if rank != 0:
+                return
             # without validation every save is the best there is, as in
             # the JAX package
             ckpt_lib.save_checkpoint(
@@ -305,13 +316,48 @@ def train_net(args, config, task):
             if loader is not None:
                 loader.shutdown()
     ckpt_lib.wait_for_pending_save()     # surface in-flight write failures
+    dist_lib.barrier()                   # rank 0's files are written
     history["begin_epoch"] = begin_epoch
     history["resumed_count"] = resumed_count
     if getattr(args, "do_test", False):
         from vlbert_tpu_torch.engine.test import do_test
 
+        # rank 0 alone, over an unsharded loader; None on the others
         history["test"] = do_test(args, config, task)
+        dist_lib.barrier()
     return model, history
+
+
+def resume(model_prefix, model, optimizer, config):
+    """``smart_resume``; under a process group on rank 0 alone, then rank
+    0's parameters, buffers, optimizer moments, count and plateau scale,
+    begin epoch and ``extra`` (best_val, plateau) on every rank (JAX:
+    ``broadcast_one_to_all`` after the resume). A rank without the
+    checkpoint file resumes all the same; a failure on rank 0 raises on
+    every rank. Returns (begin_epoch, extra)."""
+    if not dist_lib.is_distributed():
+        return ckpt_lib.smart_resume(model_prefix, model, optimizer, config)
+    rank = dist_lib.rank_world()[0]
+    state, error = None, None
+    if rank == 0:
+        try:
+            begin_epoch, extra = ckpt_lib.smart_resume(model_prefix, model,
+                                                       optimizer, config)
+            state = (begin_epoch, extra, optimizer.count,
+                     optimizer.plateau_scale)
+        except Exception as e:      # raised below, after the broadcast
+            error = e
+            state = f"{type(e).__name__}: {e}"
+    state = dist_lib.broadcast_object(state)
+    if error is not None:
+        raise error
+    if isinstance(state, str):
+        raise RuntimeError(f"rank 0 failed to resume: {state}")
+    begin_epoch, extra, optimizer.count, optimizer.plateau_scale = state
+    dist_lib.broadcast_tensors_(
+        [p.data for p in model.parameters()] + list(model.buffers())
+        + optimizer.mu + (optimizer.nu or []))
+    return begin_epoch, extra
 
 
 def main(argv=None):
@@ -320,7 +366,13 @@ def main(argv=None):
 
     args = parse_args(argv=argv)
     config = load_config(args.task, args.cfg)
-    train_net(args, config, args.task)
+    if not args.dist:
+        args.device = args.device or "cuda"
+        train_net(args, config, args.task)
+        return 0
+    with dist_lib.process_group(args.dist_backend, args.device) as device:
+        args.device = str(device)
+        train_net(args, config, args.task)
     return 0
 
 

@@ -1,11 +1,16 @@
 """Validation over a loader (port of vlbert_tpu/engine/val.py): inference
 on every batch, metrics from the batch's label columns, wrap-padded
-duplicates masked out."""
+duplicates masked out. Under a process group each rank validates its
+shard of the split and the (sum, count) pairs are summed over the ranks,
+so every rank returns the whole split's metrics (JAX: one jit over the
+global batch), takes the same best-val decision and steps the plateau
+detector alike."""
 
 from __future__ import annotations
 
 import torch
 
+from vlbert_tpu_torch.parallel import dist as dist_lib
 from vlbert_tpu_torch.training import metrics as metrics_lib
 from vlbert_tpu_torch.training.loop import make_eval_step, to_device
 
@@ -36,6 +41,6 @@ def make_validation_fn(model, config, task, device):
             dm = eval_step(batch[:len(batch) - n_labels], labels,
                            torch.as_tensor(valid).to(device))
             acc.update(dm)
-        return acc.get()
+        return dist_lib.all_reduce_accumulator(acc, device).get()
 
     return validation_fn

@@ -606,10 +606,14 @@ _IGNORED_KNOBS = {
     "DONATE_STATE": "XLA buffer donation",
     "COMPILE_CACHE_DIR": "an XLA compile cache",
     "MASKED_OPT_STATE": "moments are kept for the trained parameters only",
-    # device meshes: the port runs on one card
-    "MESH_SHAPE": "one card",
-    "MESH_AXES": "one card",
-    "PARTITION_MODE": "one card",
+    # device meshes: one rank runs on its one card; at more than one,
+    # engine.train --dist trains PARTITION_MODE dp over a MESH_SHAPE of
+    # the world size (parallel/dist.py::check_partition)
+    "MESH_SHAPE": "one card a rank; at more than one rank it must lay out "
+                  "the world size",
+    "MESH_AXES": "one card a rank; no model axis",
+    "PARTITION_MODE": "one card a rank; dp over torch.distributed ranks "
+                      "under engine.train --dist",
 }
 
 
@@ -626,7 +630,8 @@ def build_module(config, task, dtype=None, device=None, fused_qkv=None,
     its kernel; TPU.ATTN_REMAT keeps only q, k, v and the bias for the
     attention backward, which K3/K4 always do; TPU.SCAN_LAYERS and the
     other XLA levers have no counterpart; the mesh knobs lay out devices,
-    and the port runs on one card. The other TPU knobs are read where they
+    and each rank runs on one card (``parallel/dist.py`` checks them
+    against the process group). The other TPU knobs are read where they
     apply (the loaders, the transforms, train_net, the checkpoints).
     """
     key = f"{config.MODULE}:{task}"

@@ -14,12 +14,18 @@ under reference names, so the JAX package reads the file as "torch"
 name, ``count``, ``plateau_scale``); ``extra`` carries ``best_val`` and the
 plateau detector. The port reads its own files with ``weights_only=True``.
 
+Under a process group (TPU.PARTITION_MODE dp) every rank holds the same
+full state: ``engine/train.py`` has rank 0 alone write (the background
+writer and ``-best.model`` included) and alone resume, then broadcasts
+what it read; the module is never wrapped, so the files keep the
+reference names with no ``module.`` prefix.
+
 Not ported: ``_reconcile_masked_opt_state`` migrates optax moment trees
 across a format change the port never had (its moments are dense tensors
 keyed by name), and ``_to_host`` / ``snapshot_needs_all_ranks`` gather
-state sharded across hosts, which waits for multi-GPU (ROADMAP.md queue
-1): one process writes its own full state. The pretraining model's tied
-MLM decoder is one tensor under two names: ``_to_host`` keeps it one.
+state sharded across hosts, which waits for sharded training (fsdp, tp;
+ROADMAP.md queue 1, multi-GPU). The pretraining model's tied MLM decoder
+is one tensor under two names: ``_to_host`` keeps it one.
 """
 
 from __future__ import annotations

@@ -8,6 +8,14 @@ pre-clip global norm is recorded, and the optimizer applies the update.
 Frozen parameters have ``requires_grad`` off, so they get no gradient and
 no update. A non-finite loss raises.
 
+Under a process group (TPU.PARTITION_MODE dp, ``parallel/dist.py``) the
+step is the global batch's: each rank's seed folds in its rank, so the
+ranks draw different dropout masks; the losses' data-dependent
+denominators are global (``utils/losses.py::global_counts``); the loss
+and the metrics' (sum, count) pairs are all-reduced before the NaN guard,
+so every rank raises together; the gradients are averaged across ranks
+once an optimizer step, before the clip.
+
 ``fit`` keeps the reference's epoch structure: set_epoch shuffling, one
 seed per step from the trainer's ``torch.Generator``, Speedometer logging,
 per-epoch validation, plateau LR stepping from the validation metric, and
@@ -19,14 +27,17 @@ JAX package's do.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 
 import torch
 
 from vlbert_tpu_torch.ops.dropout import dropout_seeds, fold_in
+from vlbert_tpu_torch.parallel import dist as dist_lib
 from vlbert_tpu_torch.training import metrics as metrics_lib
 from vlbert_tpu_torch.training.optim import ReduceLROnPlateau
+from vlbert_tpu_torch.utils import losses
 
 logger = logging.getLogger(__name__)
 
@@ -50,21 +61,32 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
     """Returns ``train_step(batch, seed) -> (loss, device metrics)``.
 
     batch: tuple of tensors on the model's device (None for absent
-    inputs), the labels last; seed: the step's 64-bit dropout seed."""
+    inputs), the labels last; seed: the step's 64-bit dropout seed, the
+    same on every rank."""
     params = optimizer.params
+    rank, world = dist_lib.rank_world()
+
+    def counts():
+        if dist_lib.is_distributed():
+            return losses.global_counts(dist_lib.all_reduce_sum, world)
+        return contextlib.nullcontext()
 
     def train_step(batch, seed):
         model.train()
+        if world > 1:
+            seed = fold_in(seed, rank)
         loss_sum, dm_sum = None, None
         for i, micro in enumerate(_split(batch, grad_accum)):
-            with dropout_seeds(seed if grad_accum == 1 else fold_in(seed, i)):
+            with dropout_seeds(seed if grad_accum == 1
+                               else fold_in(seed, i)), counts():
                 outputs, loss = model(*micro)
             loss.backward()
             dm = metrics_lib.device_metrics(task, config, outputs)
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             dm_sum = dm if dm_sum is None else _add(dm_sum, dm)
-        loss = loss_sum / grad_accum
+        loss, dm_sum = dist_lib.all_reduce_step_stats(loss_sum / grad_accum,
+                                                      dm_sum)
         if not bool(torch.isfinite(loss)):
             raise FloatingPointError(f"non-finite loss {float(loss)} at "
                                      f"step {optimizer.count}")
@@ -73,6 +95,7 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
         grads = [torch.zeros_like(p) if p.grad is None
                  else p.grad / grad_accum if grad_accum > 1 else p.grad
                  for p in params]
+        dist_lib.all_reduce_mean_(grads)
         dm_sum["grad_total_norm"] = (optimizer.step(grads), 1)
         for p in params:
             p.grad = None
@@ -104,7 +127,8 @@ def to_device(batch, device):
 
 
 class Speedometer:
-    """samples/s + ETA logger, every ``frequent`` batches."""
+    """samples/s + ETA logger, every ``frequent`` batches; ``batch_size``
+    is the global batch of a step (every rank's, every micro-step's)."""
 
     def __init__(self, batch_size, frequent, batches_per_epoch, epochs):
         self.batch_size = batch_size
@@ -175,7 +199,9 @@ def fit(model, config, task, train_loader, optimizer, *, device,
     batch_images = config.TRAIN.BATCH_IMAGES
     if isinstance(batch_images, (list, tuple)):   # the multitask loaders'
         batch_images = sum(batch_images)
-    speedo = Speedometer(batch_images * grad_accum, log_freq,
+    # samples/s of the global batch (JAX's loop.py: x device count)
+    world = dist_lib.rank_world()[1]
+    speedo = Speedometer(batch_images * world * grad_accum, log_freq,
                          len(train_loader), end_epoch - begin_epoch)
     acc = metrics_lib.HostAccumulator()
     host_metric = metrics_lib.host_metric_name(task, config)
