@@ -174,7 +174,29 @@ its own line:
      unequal masked counts, dropout off, against one process's step on
      the concatenated batch at phase 8's bar. Per rank the step p50, a
      profiler window's device busy time and the gradient all-reduce's
-     share (informative: gloo stages through the host).
+     share (informative: gloo stages through the host);
+  17. int8 weight-only serving at base width: (a) phase 4's weights
+     behind RefCOCOServer(quantize="int8"), bf16 compute, phase 4's 8
+     queries (K1 8 and K2 96 launches), beside the same weights fp32:
+     each query's box (a flip only inside 2 delta of the top-2 margin),
+     max |delta logit| over the logit std, weight bytes
+     (``quantized_bytes``) and what the card holds
+     (``torch.cuda.memory_allocated``) for each, p50 / p90 in turns, one
+     query's device busy with the dequant's kernels and share; (b) the same
+     for VQAServer(quantize="int8") from phase 9's checkpoint on phase
+     10's questions (K2 12 a query, no other kernel); (c) fp32 compute on
+     int8 weights, kernels vs plain versions (atol 1e-3, the same argmax);
+     (d) tools/int8_accuracy_torch.py's base-scale drift of the VQA and
+     RefCOCO+ heads, no flip beyond the 2 delta bound;
+  18. (a) ``python -m vlbert_tpu_torch.engine.vis`` (its main) on the
+     shipped cfgs/pretrain/vis_attention_maps_coco.yaml at full width
+     (ResNet-101, VL-BERT 768 x 12 x 12, fp32; no PARTIAL_PRETRAIN file,
+     visual LN scales 1.0) over a synthetic COCO captions val split of 8
+     JPEGs: 8 dumps of [12, 12, L, L] whose rows sum to 1 within 1e-5, K1
+     once a batch and K2 never, the same dumps with the plain ROIAlign
+     within 1e-4, ms an image; (b) one RefCOCO+ query at IMAGE_NUM_LAYERS
+     18 (BasicBlock) behind RefCOCOServer, fp32 kernels vs plain versions
+     at phase 5's bar, and bf16 launches.
 
 Any failure raises. Every file the phases write lives under one temporary
 directory, removed on exit. On every exit it stops the processes it
@@ -3889,6 +3911,502 @@ def print_dist_phase(r, card):
           f"{one['launches']} ({card})", flush=True)
 
 
+# Phases 17 and 18: int8 weight-only serving at base width; the
+# attention-map dump from pixels and ResNet-18 from pixels
+
+VIS_CFG = os.path.join(REPO, "cfgs", "pretrain",
+                       "vis_attention_maps_coco.yaml")
+# (width, height) of the synthetic COCO val images, landscape and
+# portrait, each resized by the vis config's 600 / 1000 scales
+COCO_SIZES = ((640, 480), (480, 640), (640, 427), (500, 375), (427, 640),
+              (640, 512), (612, 612), (375, 500))
+
+
+def resident_built(build):
+    """(what ``build()`` returns, the bytes ``torch.cuda.memory_allocated``
+    gained over it): what the card holds for it once built."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = build()
+    gc.collect()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - before
+
+
+def int8_gap(ref, got):
+    """One query's logits with fp32 and with int8 weights (live slots):
+    max |delta|, the reference's std, whether the argmax agrees, the
+    reference's top-2 margin and whether a flip is within the 2 delta
+    bound (a tie closer than that flips under any perturbation of the
+    measured size)."""
+    import numpy as np
+
+    delta = float(np.abs(got - ref).max())
+    top2 = np.sort(ref)[-2:] if ref.size > 1 else np.zeros(2)
+    margin = float(top2[1] - top2[0])
+    same = int(got.argmax()) == int(ref.argmax())
+    return {"delta": delta, "std": float(ref.std()), "same": same,
+            "margin": margin, "ok": same or margin <= 2 * delta}
+
+
+def dequant_split(srv, batch):
+    """Device ms of one query of ``srv`` (an int8 server) and of its
+    dequant alone: every quantized layer's ``op_weight`` in the compute
+    dtype, the ops a query runs for it, timed apart by kernel name."""
+    import torch
+    from vlbert_tpu_torch.ops.quant import quantizable_layers
+
+    layers = [m for _, m in quantizable_layers(srv.model) if m.quantized]
+    dtype = layers[0].compute_dtype
+    query = time_calls(lambda: srv.infer(batch), iters=5, warmup=2)
+    with torch.inference_mode():
+        deq = time_calls(lambda: [m.op_weight(dtype) for m in layers],
+                         iters=5, warmup=2)
+    return {"query_ms": query["route_ms"], "dequant_ms": deq["route_ms"],
+            "share": deq["route_ms"] / query["route_ms"],
+            "dequant_kernels": deq["by_kernel"], "layers": len(layers)}
+
+
+def latency_in_turns(servers, queries):
+    """p50 / p90 of each server of ``servers`` ({name: server}) over
+    ``queries`` three times, measured in turns a, b, b, a; each name's
+    two runs pooled."""
+    import numpy as np
+
+    names = list(servers)
+    runs = {k: [] for k in names}
+    for k in names + names[::-1]:
+        lat = servers[k].measure_latency(queries * 3, warmup=3)
+        runs[k].append(lat)
+    return {k: {"p50_ms": float(np.median([r["p50_ms"] for r in v])),
+                "p90_ms": float(np.median([r["p90_ms"] for r in v])),
+                "p50_runs": [r["p50_ms"] for r in v], "n": sum(
+                    r["n"] for r in v)} for k, v in runs.items()}
+
+
+def kernels_vs_plain(srv, batch, n_live):
+    """fp32 logits of one batch with the kernels and with their plain
+    versions: launches, max abs error, argmax of both, finite."""
+    import numpy as np
+
+    _zero_counts()
+    a = srv.infer(batch)["label_logits"][0][:n_live]
+    launches = _launch_counts()
+    with plain_versions():
+        b = srv.infer(batch)["label_logits"][0][:n_live]
+    return {"launches": launches, "err": float(np.abs(a - b).max()),
+            "argmax": (int(a.argmax()), int(b.argmax())),
+            "finite": bool(np.isfinite(a).all())}
+
+
+def refcoco_int8_phase(cfg, model, queries):
+    """Phase 17a and 17c (RefCOCO+): ``model``'s weights (phase 4's, bf16)
+    behind RefCOCOServer with fp32 and with int8 weights: resident bytes,
+    launches, the box and logits of each query, latency in turns, one
+    query's device time with its dequant apart; then fp32 compute on int8
+    weights, kernels vs plain versions. Returns results."""
+    import torch
+    from vlbert_tpu_torch.data.transforms import build_transforms
+    from vlbert_tpu_torch.engine.serve import RefCOCOServer
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.ops.quant import quantized_bytes
+
+    sd = model.state_dict()
+    tf = build_transforms(cfg, "test")
+
+    def server(dtype, quantize):
+        m = build_module(cfg, "refcoco", dtype=dtype, device="cuda")
+        m.load_state_dict(sd)
+        return RefCOCOServer(m, HashTokenizer(), tf, max_text=24,
+                             max_boxes=16, quantize=quantize)
+
+    srv, fp32_resident = resident_built(lambda: server(torch.bfloat16,
+                                                       None))
+    srv8, int8_resident = resident_built(lambda: server(torch.bfloat16,
+                                                        "int8"))
+    res = {"bytes": quantized_bytes(srv8.model),
+           "resident": {"fp32": fp32_resident, "int8": int8_resident}}
+    srv8.query(*queries[0])                                  # warm-up
+    torch.cuda.synchronize()
+    res["launches"] = serve_checked(srv8, queries)
+    res["queries"] = []
+    for q in queries:
+        b = srv.preprocess(*q)
+        n = len(q[1])
+        # the caller's candidates, after the whole-image box
+        ref = srv.infer(b)["label_logits"][0][1:1 + n]
+        got = srv8.infer(b)["label_logits"][0][1:1 + n]
+        res["queries"].append(int8_gap(ref, got))
+    res["lat"] = latency_in_turns({"bf16": srv, "int8": srv8}, queries)
+    batch = srv8.preprocess(*queries[3])
+    res["profile"] = dequant_split(srv8, batch)
+    res["profile_bf16_query_ms"] = time_calls(
+        lambda: srv.infer(batch), iters=5, warmup=2)["route_ms"]
+    del srv, srv8
+    srv32 = server(torch.float32, "int8")
+    res["fp32"] = kernels_vs_plain(srv32, batch, int(batch[2][0].sum()))
+    del srv32
+    torch.cuda.empty_cache()
+    return res
+
+
+def vqa_int8_phase(cfg, best):
+    """Phase 17b and 17c (VQA): ``best`` (phase 9's checkpoint) behind
+    VQAServer with fp32 and with int8 weights on phase 10's questions:
+    resident bytes, launches a query, answers and logits, latency in
+    turns, one query's dequant share; then fp32 compute on int8 weights,
+    kernels vs plain versions. Returns results."""
+    import torch
+    from vlbert_tpu_torch.data.tokenization import BertTokenizer
+    from vlbert_tpu_torch.engine.serve import VQAServer
+    from vlbert_tpu_torch.engine.test import _load_params
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.ops.quant import quantized_bytes
+
+    tok = BertTokenizer.from_pretrained(cfg.NETWORK.BERT_MODEL_NAME)
+    with open(cfg.DATASET.ANSWER_VOCAB_FILE) as f:
+        answers = [line.strip() for line in f if line.strip()]
+
+    def server(dtype, quantize):
+        m = build_module(cfg, "vqa", dtype=dtype, device="cuda")
+        _load_params(m, best)
+        return VQAServer(m, tok, answers, feat_dim=cfg.DATASET.get(
+            "PRECOMPUTED_FEAT_DIM", 2048), quantize=quantize)
+
+    srv, fp32_resident = resident_built(lambda: server(torch.bfloat16,
+                                                       None))
+    srv8, int8_resident = resident_built(lambda: server(torch.bfloat16,
+                                                        "int8"))
+    res = {"bytes": quantized_bytes(srv8.model),
+           "resident": {"fp32": fp32_resident, "int8": int8_resident}}
+    queries = vqa_queries(feat_dim=srv.feat_dim)
+    srv8.query(*queries[0])                                  # warm-up
+    torch.cuda.synchronize()
+    res["per_query"], res["queries"] = [], []
+    for q in queries:
+        _zero_counts()
+        srv8.query(*q)
+        res["per_query"].append(_launch_counts())
+        b = srv.preprocess(*q)
+        res["queries"].append(int8_gap(srv.infer(b)["label_logits"][0],
+                                       srv8.infer(b)["label_logits"][0]))
+    res["lat"] = latency_in_turns({"bf16": srv, "int8": srv8}, queries)
+    batch = srv8.preprocess(*queries[3])
+    res["profile"] = dequant_split(srv8, batch)
+    del srv, srv8
+    srv32 = server(torch.float32, "int8")
+    res["fp32"] = kernels_vs_plain(srv32, srv32.preprocess(*queries[3]),
+                                   len(answers))
+    del srv32
+    torch.cuda.empty_cache()
+    return res
+
+
+def int8_accuracy_phase():
+    """Phase 17d: tools/int8_accuracy_torch.py's base-scale numbers for
+    the VQA and RefCOCO+ heads, on the card."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "int8_accuracy_torch",
+        os.path.join(REPO, "tools", "int8_accuracy_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return {task: tool.measure(task, B=8, seed=SEED, device="cuda")
+            for task in ("vqa", "refcoco")}
+
+
+def write_coco_fixture(root, n=8):
+    """A synthetic COCO captions val split in the dataset's on-disk form
+    under ``root`` (the real data are not in the repo): ``val2017/`` with
+    ``n`` JPEGs of COCO_SIZES, ``annotations/captions_val2017.json`` (two
+    captions of FIXTURE_WORDS an image) and ``instances_val2017.json``
+    (5-40 xywh boxes an image over 80 unsorted category ids). Returns the
+    data dir."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 18)
+    d = os.path.join(root, "coco")
+    os.makedirs(os.path.join(d, "annotations"), exist_ok=True)
+    os.makedirs(os.path.join(d, "val2017"), exist_ok=True)
+    cat_ids = [int(c) for c in rng.permutation(np.arange(1, 91))[:80]]
+    images, caps, inst = [], [], []
+    for i in range(n):
+        w, h = COCO_SIZES[i % len(COCO_SIZES)]
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)) \
+            .save(os.path.join(d, "val2017", f"{i + 1}.jpg"), quality=90)
+        images.append({"id": i + 1, "width": w, "height": h,
+                       "file_name": f"{i + 1}.jpg"})
+        for _ in range(2):
+            caps.append({"image_id": i + 1, "caption": " ".join(rng.choice(
+                FIXTURE_WORDS[:-1], int(rng.integers(5, 16))))})
+        for _ in range(int(rng.integers(5, 41))):
+            x, y = rng.uniform(0, w * 0.8), rng.uniform(0, h * 0.8)
+            inst.append({"image_id": i + 1,
+                         "category_id": cat_ids[int(rng.integers(80))],
+                         "bbox": [x, y, rng.uniform(8, w - x),
+                                  rng.uniform(8, h - y)]})
+    with open(os.path.join(d, "annotations", "captions_val2017.json"),
+              "w") as f:
+        json.dump({"images": images, "annotations": caps}, f)
+    with open(os.path.join(d, "annotations", "instances_val2017.json"),
+              "w") as f:
+        json.dump({"categories": [{"id": c} for c in sorted(cat_ids)],
+                   "images": images, "annotations": inst}, f)
+    return d
+
+
+def vis_phase(root, vocab_dir):
+    """Phase 18a: ``python -m vlbert_tpu_torch.engine.vis`` (its main) on
+    the shipped vis yaml at full width over a synthetic COCO val split,
+    with its loader's workers; again with the plain ROIAlign; a warm
+    attention_vis of one image. Returns results."""
+    import numpy as np
+    import torch
+    import vlbert_tpu_torch.engine.vis as vis
+    from vlbert_tpu_torch.data.build import make_dataloader
+    from vlbert_tpu_torch.data.tokenization import BertTokenizer
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.training.loop import to_device
+    from vlbert_tpu_torch.utils.config import load_config
+
+    data = write_coco_fixture(root)
+    overrides = {"DATASET.DATASET_PATH": data, "DATASET.ROOT_PATH": root,
+                 "NETWORK.BERT_MODEL_NAME": vocab_dir,
+                 "NETWORK.PARTIAL_PRETRAIN": "",
+                 "NETWORK.VLBERT.visual_scale_text_init": 1.0,
+                 "NETWORK.VLBERT.visual_scale_object_init": 1.0}
+    path = write_train_yaml(VIS_CFG, os.path.join(root, "vis.yaml"),
+                            overrides)
+    res = {"overrides": {k: v for k, v in overrides.items()
+                         if not k.startswith("DATASET.")}}
+    dirs = [os.path.join(root, "dump"), os.path.join(root, "dump_plain")]
+    _zero_counts()
+    t0 = time.perf_counter()
+    res["n"] = vis.main(["--cfg", path, "--result-path", dirs[0]])
+    res["wall_s"] = time.perf_counter() - t0
+    res["launches"] = _launch_counts()
+    with plain_versions():
+        n_plain = vis.main(["--cfg", path, "--result-path", dirs[1]])
+    res["shapes"], res["row_err"], res["plain_err"] = set(), 0.0, 0.0
+    res["names_equal"] = n_plain == res["n"]
+    for i in range(res["n"]):
+        a, b = (np.load(os.path.join(d, f"{i}_attention_probs.npy"))
+                for d in dirs)
+        res["shapes"].add(a.shape)
+        res["row_err"] = max(res["row_err"],
+                             float(np.abs(a.sum(-1) - 1).max()))
+        res["plain_err"] = max(res["plain_err"],
+                               float(np.abs(a - b).max()))
+        names = []
+        for d in dirs:
+            with open(os.path.join(d, f"{i}_tokens.json")) as f:
+                names.append(json.load(f))
+        res["names_equal"] &= names[0] == names[1] \
+            and len(names[0]) == a.shape[-1]
+    res["shapes"] = sorted(res["shapes"])
+    # a warm forward of one image, outside main
+    cfg = load_config("pretrain", path)
+    tok = BertTokenizer.from_pretrained(vocab_dir)
+    model = build_module(cfg, "pretrain", dtype=torch.float32,
+                         device="cuda")
+    init_weights(model, torch.Generator(device="cuda").manual_seed(0))
+    loader = make_dataloader(cfg, "pretrain", "val", tok, num_replicas=1,
+                             rank=0)
+    try:
+        batch = to_device(next(iter(loader))[:4], "cuda")
+    finally:
+        loader.shutdown()
+    res["image"] = list(batch[0].shape)
+    with torch.inference_mode():
+        t = time_calls(lambda: model.attention_vis(*batch), iters=5,
+                       warmup=2)
+    res["warm_ms"], res["warm_busy_ms"] = t["call_ms"], t["route_ms"]
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def refcoco_r18_phase(queries):
+    """Phase 18b: one RefCOCO+ query at IMAGE_NUM_LAYERS 18 (BasicBlock,
+    C4 256 wide) behind RefCOCOServer, fp32 kernels vs plain versions;
+    and a bf16 query's launches. Returns results."""
+    import torch
+    from vlbert_tpu_torch.data.transforms import build_transforms
+    from vlbert_tpu_torch.engine.serve import RefCOCOServer
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.utils.config import load_config
+
+    cfg = load_config("refcoco", CFG)
+    cfg.NETWORK.IMAGE_FEAT_PRECOMPUTED = False
+    cfg.NETWORK.IMAGE_NUM_LAYERS = 18
+    cfg.NETWORK.VLBERT.visual_scale_text_init = 1.0
+    cfg.NETWORK.VLBERT.visual_scale_object_init = 1.0
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_module(cfg, "refcoco", dtype=dtype, device="cuda")
+        init_weights(model, torch.Generator(device="cuda").manual_seed(SEED))
+        srv = RefCOCOServer(model, HashTokenizer(),
+                            build_transforms(cfg, "test"), max_text=24,
+                            max_boxes=16)
+        batch = srv.preprocess(*queries[3])
+        srv.infer(batch)                                     # warm-up
+        if dtype == torch.float32:
+            res["n_params"] = sum(p.numel() for p in model.parameters())
+            res["c4"] = model.image_feature_extractor.backbone.layer3[-1] \
+                .conv2.out_channels
+            res["fp32"] = kernels_vs_plain(srv, batch,
+                                           int(batch[2][0].sum()))
+        else:
+            res["bf16_launches"] = serve_checked(srv, queries[:2])
+        del srv, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def int8_and_vis_phases(cfg, model, queries, cfg9, best, root, vocab13,
+                        card):
+    """Phases 17 and 18, their checks and lines: int8 serving from phase
+    4's ``model`` (on ``cfg``, its ``queries``) and from phase 9's ``best``
+    checkpoint (on ``cfg9``), int8_accuracy_torch's numbers, the attention
+    dump and ResNet-18 from pixels; files under ``root``, the 30522-word
+    vocabulary at ``vocab13``. Returns the results whose launches the
+    kernels' record carries."""
+    per_query = {"K1": 0, "K1b": 0, "K2": 12, "K3": 0, "K4": 0,
+                 "K5_fwd": 0, "K5_bwd": 0}
+    # --- 17: int8 weight-only serving at base width ---
+    r17a = refcoco_int8_phase(cfg, model, queries)
+    r17b = vqa_int8_phase(cfg9, best)
+    fp32_one = dict(per_query, K1=1, K2=12)
+    checks17 = {
+        "refcoco launches": r17a["launches"]
+        == {"roi_align": 8, "fused_attention": 96},
+        "refcoco boxes": all(g["ok"] for g in r17a["queries"]),
+        "vqa launches": all(c == per_query for c in r17b["per_query"]),
+        "vqa answers": all(g["ok"] for g in r17b["queries"]),
+        "refcoco fp32": r17a["fp32"]["launches"] == fp32_one
+        and r17a["fp32"]["finite"] and r17a["fp32"]["err"] <= E2E_ATOL
+        and r17a["fp32"]["argmax"][0] == r17a["fp32"]["argmax"][1],
+        "vqa fp32": r17b["fp32"]["launches"] == per_query
+        and r17b["fp32"]["finite"] and r17b["fp32"]["err"] <= E2E_ATOL
+        and r17b["fp32"]["argmax"][0] == r17b["fp32"]["argmax"][1]}
+    if not all(checks17.values()):
+        raise AssertionError(f"int8 serving: {checks17}; {r17a}; {r17b}")
+    for tag, r, what in (("17a serve RefCOCO+ int8", r17a, "box"),
+                         ("17b serve VQA int8", r17b, "answer")):
+        gaps, b, lat = r["queries"], r["bytes"], r["lat"]
+        prof = r["profile"]
+        top = sorted(prof["dequant_kernels"].items(),
+                     key=lambda kv: -kv[1])[:4]
+        print(f"[{tag}] phase {'4' if tag.startswith('17a') else '9'}"
+              f"'s weights, bf16 compute, {len(gaps)} queries: the "
+              f"same {what} as the fp32-weight server on "
+              f"{sum(g['same'] for g in gaps)} of {len(gaps)} (a flip "
+              f"only within 2 delta of a top-2 margin: "
+              f"{[round(g['margin'], 5) for g in gaps if not g['same']]}"
+              f"); max |delta logit| / logit std per query "
+              f"{[round(g['delta'] / max(g['std'], 1e-12), 4) for g in gaps]}"
+              f" (max |delta| {max(g['delta'] for g in gaps):.3e}); "
+              f"launches {r['launches'] if 'launches' in r else r['per_query'][0]}"
+              f" (each query's the fp32-weight server's); weight bytes "
+              f"(quantized_bytes) int8 {b['quantized_bytes'] / 2**20:.1f}"
+              f" MiB vs fp32 {b['fp32_bytes'] / 2**20:.1f} MiB "
+              f"({b['quantized_bytes'] / b['fp32_bytes']:.3f}x); resident "
+              f"(torch.cuda.memory_allocated) int8 "
+              f"{r['resident']['int8'] / 2**20:.1f} MiB vs fp32 "
+              f"{r['resident']['fp32'] / 2**20:.1f} MiB; latency in turns "
+              f"(bf16, int8, int8, bf16) p50 / p90 ms: fp32 weights "
+              f"{lat['bf16']['p50_ms']:.2f} / {lat['bf16']['p90_ms']:.2f}"
+              f" {[round(x, 2) for x in lat['bf16']['p50_runs']]}, int8 "
+              f"{lat['int8']['p50_ms']:.2f} / {lat['int8']['p90_ms']:.2f}"
+              f" {[round(x, 2) for x in lat['int8']['p50_runs']]} (n="
+              f"{lat['int8']['n']} each); one query's device busy "
+              f"{prof['query_ms']:.3f} ms"
+              + (f" (fp32 weights {r['profile_bf16_query_ms']:.3f})"
+                 if "profile_bf16_query_ms" in r else "")
+              + f", of it the dequant of {prof['layers']} weights "
+              f"{prof['dequant_ms']:.3f} ms ({prof['share']:.3f}) by "
+              f"kernel {[(k[:56], round(v, 4)) for k, v in top]} "
+              f"({card})", flush=True)
+    print(f"[17c int8 fp32] fp32 compute on int8 weights, kernels vs "
+          f"plain versions on one query: RefCOCO+ launches "
+          f"{r17a['fp32']['launches']}, max abs logit err "
+          f"{r17a['fp32']['err']:.3e}, argmax {r17a['fp32']['argmax']}; "
+          f"VQA launches {r17b['fp32']['launches']}, max abs logit err "
+          f"{r17b['fp32']['err']:.3e}, argmax {r17b['fp32']['argmax']} "
+          f"(atol {E2E_ATOL}) ({card})", flush=True)
+    r17d = int8_accuracy_phase()
+    if any(r["argmax_flips_beyond_margin"] for r in r17d.values()):
+        raise AssertionError(f"int8 accuracy: a flip beyond the 2 delta "
+                             f"bound: {r17d}")
+    print(f"[17d int8 accuracy] tools/int8_accuracy_torch.py, base "
+          f"scale (768 x 12 x 30522), fp32 compute, seed {SEED}, B=8: "
+          + "; ".join(
+              f"{t} max |delta| {r['max_abs_logit_delta']:.3e}, mean "
+              f"{r['mean_abs_logit_delta']:.3e}, logit std "
+              f"{r['logit_std']:.3e}, smallest top-2 margin "
+              f"{r['min_top2_margin']:.3e}, argmax flips "
+              f"{r['argmax_flips']} ({r['argmax_flips_beyond_margin']} "
+              f"beyond 2 delta), bytes {r['quantized_bytes']} vs "
+              f"{r['fp32_bytes']}" for t, r in r17d.items())
+          + f" ({card})", flush=True)
+
+    # --- 18: the attention-map dump and ResNet-18 from pixels ---
+    root18 = os.path.join(root, "p18")
+    os.makedirs(root18)
+    r18a = vis_phase(root18, vocab13)
+    none18 = dict.fromkeys(("K1b", "K2", "K3", "K4", "K5_fwd",
+                            "K5_bwd"), 0)
+    L18 = r18a["shapes"][0][-1] if r18a["shapes"] else 0
+    checks18a = {"dumps": r18a["n"] == 8,
+                 "shapes": r18a["shapes"] == [(12, 12, L18, L18)],
+                 "rows": r18a["row_err"] <= 1e-5,
+                 "launches": r18a["launches"] == dict(none18, K1=8),
+                 "plain": r18a["plain_err"] <= 1e-4,
+                 "names": r18a["names_equal"]}
+    if not all(checks18a.values()):
+        raise AssertionError(f"attention dump: {checks18a}; {r18a}")
+    print(f"[18a vis] python -m vlbert_tpu_torch.engine.vis --cfg "
+          f"{os.path.relpath(VIS_CFG, REPO)} (its main) with overrides "
+          f"{json.dumps(r18a['overrides'])}, at full width (ResNet-101 "
+          f"C4, dilated conv5, VL-BERT 768 x 12 x 12, "
+          f"{r18a['n_params'] / 1e6:.1f}M params, fp32) over a "
+          f"synthetic COCO val split of 8 JPEGs: {r18a['n']} dumps of "
+          f"{r18a['shapes']}, every row's sum within "
+          f"{r18a['row_err']:.2e} of 1, launches {r18a['launches']} (K1 "
+          f"once a batch of 1, K2 never: the probs route), the dumps "
+          f"with the plain ROIAlign within {r18a['plain_err']:.2e} (atol "
+          f"1e-4), sidecars equal; main {r18a['wall_s']:.2f} s "
+          f"({r18a['wall_s'] * 1e3 / r18a['n']:.1f} ms an image with "
+          f"setup and loader); warm attention_vis of one image "
+          f"{r18a['image']} {r18a['warm_ms']:.2f} ms (device busy "
+          f"{r18a['warm_busy_ms']:.2f} ms) ({card})", flush=True)
+    r18b = refcoco_r18_phase(queries)
+    f18 = r18b["fp32"]
+    if not (f18["launches"] == fp32_one and f18["finite"]
+            and f18["err"] <= E2E_ATOL
+            and f18["argmax"][0] == f18["argmax"][1]
+            and r18b["c4"] == 256):
+        raise AssertionError(f"ResNet-18 RefCOCO+: {r18b}")
+    print(f"[18b serve RefCOCO+ ResNet-18] {os.path.relpath(CFG, REPO)}"
+          f" at IMAGE_NUM_LAYERS 18 (BasicBlock, C4 {r18b['c4']} wide, "
+          f"{r18b['n_params'] / 1e6:.1f}M params), seed-0 weights: fp32 "
+          f"kernels (launches {f18['launches']}) vs plain versions on "
+          f"one query: max abs logit err {f18['err']:.3e} (atol "
+          f"{E2E_ATOL}), argmax {f18['argmax']}; bf16 launches on 2 "
+          f"queries {r18b['bf16_launches']} ({card})", flush=True)
+    return r17a, r17b, r18a, r18b
+
+
 def main():
     import numpy as np
     import torch
@@ -3907,6 +4425,7 @@ def main():
     from vlbert_tpu_torch.ops.roi_align import roi_align
     from vlbert_tpu_torch.utils.config import load_config
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4588,6 +5107,10 @@ def main():
             raise AssertionError(f"data parallelism: {r16['checks']}; "
                                  f"{ {k: r16[k] for k in ('b_val_one', 'c_one', 'seconds')} }")
         print_dist_phase(r16, card)
+
+        # --- 17-18: int8 serving, the attention dump, ResNet-18 ---
+        r17a, r17b, r18a, r18b = int8_and_vis_phases(
+            cfg, model, queries, cfg9, r9["best"], root, vocab13, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4942,6 +5465,31 @@ def main():
     for record in kernels:
         record["launches_dist"] = {k: v[count_of[record["name"]]]
                                    for k, v in dist_runs.items()}
+    # launches on phases 17-18's paths: the int8 servers' 8 queries each
+    # (17a RefCOCO+, 17b VQA), their fp32 query on int8 weights (17c), the
+    # attention dump's 8 images (18a), ResNet-18's fp32 query (18b)
+    int8_vis = {
+        "roi_align_fwd": {
+            "17a_refcoco_int8_serve": r17a["launches"]["roi_align"],
+            "17c_refcoco_int8_fp32_query": r17a["fp32"]["launches"]["K1"],
+            "18a_attention_dump": r18a["launches"]["K1"],
+            "18b_refcoco_r18_fp32_query": r18b["fp32"]["launches"]["K1"],
+            "18b_refcoco_r18_bf16_queries":
+                r18b["bf16_launches"]["roi_align"]},
+        "attention_fwd": {
+            "17a_refcoco_int8_serve": r17a["launches"]["fused_attention"],
+            "17b_vqa_int8_serve": sum(c["K2"] for c in r17b["per_query"]),
+            "17c_refcoco_int8_fp32_query": r17a["fp32"]["launches"]["K2"],
+            "17c_vqa_int8_fp32_query": r17b["fp32"]["launches"]["K2"],
+            "18a_attention_dump": r18a["launches"]["K2"],
+            "18b_refcoco_r18_fp32_query": r18b["fp32"]["launches"]["K2"],
+            "18b_refcoco_r18_bf16_queries":
+                r18b["bf16_launches"]["fused_attention"]}}
+    for record in kernels:
+        if record["name"] in int8_vis:
+            record["launches_int8_vis"] = int8_vis[record["name"]]
+    print(f"[total] phases 1-18 in {time.perf_counter() - t_run:.1f} s, "
+          f"the kernels' build included ({card})", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ import vlbert_tpu.data.datasets.vcr as j_vcr
 import vlbert_tpu.data.datasets.vqa as j_vqa
 import vlbert_tpu.data.loader as j_loader
 import vlbert_tpu.data.tokenization as j_tok
+import vlbert_tpu.data.tokenization_roberta as j_rob
 import vlbert_tpu.data.transforms as j_transforms
 import vlbert_tpu.training.convert as j_convert
 import vlbert_tpu.utils.config as j_config
@@ -30,12 +31,14 @@ import vlbert_tpu_torch.data.datasets.vcr as t_vcr
 import vlbert_tpu_torch.data.datasets.vqa as t_vqa
 import vlbert_tpu_torch.data.loader as t_loader
 import vlbert_tpu_torch.data.tokenization as t_tok
+import vlbert_tpu_torch.data.tokenization_roberta as t_rob
 import vlbert_tpu_torch.data.transforms as t_transforms
 import vlbert_tpu_torch.training.convert as t_convert
 import vlbert_tpu_torch.utils.config as t_config
 import vlbert_tpu_torch.utils.mask as t_mask
 from tests.test_data_pipeline import _write_refcoco_fixture, _write_vcr_fixture
 from tests.test_entrypoints import VOCAB, _write_vqa_fixture
+from tests.test_roberta_tokenizer import roberta_files  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = sorted(os.path.relpath(p, REPO) for p in
@@ -108,6 +111,29 @@ TEXTS = ["What is the cat doing?", "the RED dog, the blue cat!",
          "a " * 40]
 WORDPIECE_VOCAB = VOCAB + ["un", "##aff", "##able", "'", "s", ",", "!",
                            "the", "hello", "world", "猫", "a", "—"]
+
+
+ROBERTA_TEXTS = ["the cat sat on the dog", "the cat.", "dog, cat", "cat",
+                 "  the  cat\tsat\n", "snake_case don't abc123 café 中文",
+                 ""]
+
+
+def test_roberta_tokenizer_gives_the_same_ids(roberta_files):
+    """The port's copy of tokenization_roberta.py against the original on
+    tests/test_roberta_tokenizer.py's tiny local vocab: tokens, ids,
+    encode and the special ids."""
+    files = roberta_files
+    assert t_rob.bytes_to_unicode() == j_rob.bytes_to_unicode()
+    jt = j_rob.RobertaTokenizer.from_pretrained(files)
+    tt = t_rob.RobertaTokenizer.from_pretrained(files)
+    for text in ROBERTA_TEXTS:
+        toks = tt.tokenize(text)
+        assert toks == jt.tokenize(text), text
+        assert tt.convert_tokens_to_ids(toks) \
+            == jt.convert_tokens_to_ids(toks), text
+        assert tt.encode(text) == jt.encode(text), text
+    assert (tt.cls_id, tt.sep_id, tt.mask_id) \
+        == (jt.cls_id, jt.sep_id, jt.mask_id)
 
 
 def test_tokenizer_gives_the_same_ids(tmp_path):
@@ -255,17 +281,35 @@ def test_converter_name_rules_match(task):
             == j_convert.map_reference_name(jn), n
 
 
+@pytest.mark.parametrize("depth", [18, 34])
+def test_converter_name_rules_match_basic_block_resnets(depth):
+    """ResNet-18 / 34's names (BasicBlock: conv1, bn1, conv2, bn2 and the
+    downsample pair) map as the JAX converter maps them."""
+    from vlbert_tpu_torch.models.fast_rcnn import FastRCNN
+
+    fr = FastRCNN(num_layers=depth, final_dim=32, enable_cnn_reg_loss=True,
+                  device="meta")
+    names = ["module.image_feature_extractor." + n for n in fr.state_dict()]
+    assert any(".downsample.0." in n for n in names)
+    for n in names:
+        tn = t_convert.normalize_torch_name(n)
+        assert tn == j_convert.normalize_torch_name(n), n
+        mapped = t_convert.map_reference_name(tn)
+        assert mapped is not None and mapped \
+            == j_convert.map_reference_name(tn), n
+
+
 PRETRAIN_YAMLS = [y for y in YAMLS if y.startswith(
-    os.path.join("cfgs", "pretrain"))
-    and not y.endswith("vis_attention_maps_coco.yaml")]
+    os.path.join("cfgs", "pretrain"))]
 
 
 @pytest.mark.parametrize("yaml_file", PRETRAIN_YAMLS)
 def test_every_pretrain_yaml_builds_its_port_module(yaml_file):
-    """Each shipped pretraining config's module (the attention-vis config
-    aside, which is ROADMAP.md queue 1 #11) builds in the port with no
+    """Each shipped pretraining config's module builds in the port with no
     refusal, at tiny width on the CPU, with its heads, its masked-region
-    embeddings and the corpus rows' embedding where the config asks."""
+    embeddings and the corpus rows' embedding where the config asks (the
+    attention-vis config's ResNetVLBERTForAttentionVis too, which the JAX
+    package's registry lacks)."""
     cfg = t_config.load_config("pretrain", os.path.join(REPO, yaml_file))
     tm = _tiny_port_module("pretrain", cfg)
     names = set(tm.state_dict())

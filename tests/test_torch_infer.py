@@ -110,12 +110,20 @@ def test_vqa_server_matches_jax(kind):
 
 
 def test_vqa_server_refuses_int8_and_the_default_bucket_is_173():
+    """int8 is served now (tests/test_torch_quant.py holds it to JAX): at
+    the default min_size only the 4096-element weights are int8; any
+    other mode is refused."""
+    from vlbert_tpu_torch.ops.quant import quantizable_layers
+
     cfg = _vqa_server_cfg("1fc")
     tm = build_module(cfg, "vqa", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        VQAServer(tm, TinyTok(), ANSWERS, quantize="int8")
     with pytest.raises(ValueError, match="unknown quantize"):
         VQAServer(tm, TinyTok(), ANSWERS, quantize="fp8")
+    assert not any(m.quantized for _, m in quantizable_layers(tm))
+    VQAServer(tm, TinyTok(), ANSWERS, quantize="int8")
+    assert {n for n, m in quantizable_layers(tm) if m.quantized} \
+        == {n for n, m in quantizable_layers(tm)
+            if m.weight.numel() >= 4096}
     srv = VQAServer(tm, TinyTok(), ANSWERS, feat_dim=16)
     b = srv.preprocess("what is the cat ?", np.zeros((3, 4), np.float32),
                        np.zeros((3, 16), np.float32), 100, 80)

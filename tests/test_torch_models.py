@@ -135,3 +135,101 @@ def test_visual_linguistic_bert_matches_jax(rng, fused_qkv, visual_ln):
     if probs_too:
         for g, w in zip(got[3], want[3]):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("dilated", [True, False])
+def test_resnet18_fast_rcnn_matches_jax_in_eval_and_a_gradient_step(
+        rng, dilated):
+    """ResNet-18 (BasicBlock; C4 256 and the RoI head 512 wide) through
+    FastRCNN from pixels with the CNN-reg head: eval outputs, then one
+    SGD step on sum(obj_reps^2) + the reg loss, gradient leaf by leaf and
+    the updated weights; the converter's rules both ways."""
+    from vlbert_tpu.training.convert import convert_state_dict
+
+    B, O = 1, 3
+    images = rng.normal(size=(B, 64, 64, 3)).astype(np.float32)
+    boxes = np.asarray([[[4, 4, 40, 40], [10, 8, 60, 50], [0, 0, 63, 63]]],
+                       np.float32)
+    mask = np.ones((B, O), bool)
+    im_info = np.asarray([[64, 64, 1, 1]], np.float32)
+    classes = np.asarray([[3, 7, 0]], np.int32)
+    kw = dict(image_feat_precomputed=False, num_layers=18, c5_dilated=dilated,
+              final_dim=16, enable_cnn_reg_loss=True)
+    jm = j_fast_rcnn.FastRCNN(**kw, frozen_stages=())
+    jargs = tuple(map(jnp.asarray, (images, boxes, mask, im_info, classes)))
+    v = jm.init(jax.random.PRNGKey(0), *jargs)
+    want = jm.apply(v, *jargs)
+
+    def loss_fn(p):
+        o = jm.apply({"params": p}, *jargs)
+        return jnp.sum(o["obj_reps"] ** 2) + o["cnn_regularization_loss"]
+
+    jgrads = {k: np.asarray(g) for k, g in flatten_params(
+        jax.device_get(jax.grad(loss_fn)(v["params"]))).items()}
+
+    flat = _flat(v)
+    tm = _load(FastRCNN(**kw), flat)
+    assert tm.backbone.layer3[0].conv1.weight.shape == (256, 128, 3, 3)
+    assert tm.roi_head_feature_extractor[2].conv2.weight.shape \
+        == (512, 512, 3, 3)
+    assert not hasattr(tm.backbone.layer1[0], "conv3")
+    # port names -> JAX paths: the JAX tree back, leaf for leaf
+    back, skipped = convert_state_dict(tm.state_dict())
+    assert not skipped and back.keys() == flat.keys()
+    for k in flat:
+        np.testing.assert_array_equal(back[k], flat[k], err_msg=k)
+
+    targs = [torch.from_numpy(a) for a in (images, boxes, mask, im_info,
+                                           classes)]
+    got = tm(*targs)
+    for key in ("obj_reps", "obj_reps_raw", "obj_logits",
+                "cnn_regularization_loss"):
+        np.testing.assert_allclose(got[key].detach().numpy(),
+                                   np.asarray(want[key]), **TOL, err_msg=key)
+    assert got["obj_reps_raw"].shape == (B, O, 512)
+    loss = got["obj_reps"].square().sum() + got["cnn_regularization_loss"]
+    loss.backward()
+    lr = 1e-2
+    sd_grads = state_dict_from_jax(jgrads, tm)
+    for name, p in tm.named_parameters():
+        # each leaf to rtol 1e-3 of its largest element plus atol 1e-4
+        # (tests/test_torch_train_e2e.py), the step to lr times that
+        g, jg = p.grad.numpy(), sd_grads[name].numpy()
+        atol = 1e-3 * np.abs(jg).max() + 1e-4
+        np.testing.assert_allclose(g, jg, rtol=0, atol=atol, err_msg=name)
+        with torch.no_grad():
+            p.sub_(lr * p.grad)
+        want_p = state_dict_from_jax(
+            {k: flat[k] - lr * jgrads[k] for k in flat}, tm)[name]
+        np.testing.assert_allclose(p.detach().numpy(), want_p.numpy(),
+                                   rtol=0, atol=lr * atol + 1e-7,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("depth", [18, 34])
+def test_basic_block_resnet_shapes_match_jax_on_meta(depth):
+    """ResNet-18 / 34's backbone and RoI head on the meta device against
+    JAX's under jax.eval_shape: every converted name, shape and count."""
+    jb = j_resnet.ResNetC4Backbone(num_layers=depth)
+    jh = j_resnet.ResNetRoIHead(num_layers=depth, average_pool=False)
+    vb = jax.eval_shape(jb.init, jax.random.PRNGKey(0),
+                        jnp.zeros((1, 64, 64, 3)))
+    vh = jax.eval_shape(jh.init, jax.random.PRNGKey(0),
+                        jnp.zeros((2, 14, 14, 256)))
+    flat = {}
+    for prefix, v in (("backbone.", vb), ("roi_head.", vh)):
+        flat.update({prefix + k: np.broadcast_to(np.zeros((), np.float32),
+                                                 s.shape)
+                     for k, s in flatten_params(v["params"]).items()})
+    holder = nn.Module()
+    holder.backbone = ResNetC4Backbone(depth, device="meta")
+    holder.roi_head_feature_extractor = ResNetRoIHead(depth, device="meta")
+    sd = state_dict_from_jax(flat, holder)        # strict: names and shapes
+    want = holder.state_dict()
+    assert sd.keys() == want.keys()
+    assert all(sd[k].shape == want[k].shape for k in sd)
+    assert sum(t.numel() for t in want.values()) \
+        == sum(a.size for a in flat.values())
+    blocks = {18: (2, 2, 2), 34: (3, 4, 6)}[depth]
+    assert tuple(len(getattr(holder.backbone, f"layer{i}"))
+                 for i in (1, 2, 3)) == blocks

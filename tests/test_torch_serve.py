@@ -92,8 +92,14 @@ def test_refcoco_server_matches_jax(rng):
     lat = srv.measure_latency([(img, cand, f"thing {i}") for i in range(3)],
                               warmup=1)
     assert lat["n"] == 3 and lat["p50_ms"] <= lat["p99_ms"]
-    with pytest.raises(NotImplementedError, match="int8"):
-        RefCOCOServer(tm, TinyTok(), None, quantize="int8")
+    # int8 is served now (tests/test_torch_quant.py holds it to JAX's
+    # int8 server): the same box, the logits moved a little
+    srv8 = RefCOCOServer(tm, TinyTok(), transform=None, max_text=12,
+                         max_boxes=6, quantize="int8")
+    got8 = srv8.infer(srv8.preprocess(img, cand, expr))["label_logits"]
+    assert np.isfinite(got8).all() and got8.shape == got["label_logits"] \
+        .shape
+    assert srv8.query(img, cand, expr)["best_index"] == r["best_index"]
 
 
 def test_demo_refcoco_torch_tiny_cpu():

@@ -8,7 +8,13 @@ assembled on the host, VL-BERT, the answer logits at the [MASK] slot.
 eval transform (``vlbert_tpu_torch.data.transforms.build_transforms(cfg,
 "test")``) on the host, then ResNet C4 + ROIAlign + conv5 RoI head, [CLS]
 expr [SEP] text through VL-BERT, per-candidate grounding logits and the
-argmax box. int8 weight serving is not ported yet (ROADMAP.md queue 1).
+argmax box.
+
+``quantize="int8"`` on either server keeps the matmul and conv weights on
+the card as per-output-channel int8 with fp32 scales (``ops/quant.py``;
+the model is quantized in place, each weight of at least
+``quantize_min_size`` elements) and dequantizes each at its op; the
+launches a query are those of the fp32-weight server.
 """
 
 from __future__ import annotations
@@ -20,25 +26,22 @@ import torch
 
 from vlbert_tpu_torch.data.collate import (assemble_expression_text,
                                            assemble_qa_text, pad_to)
-
-
-def _check_quantize(quantize):
-    if quantize == "int8":
-        raise NotImplementedError(
-            "int8 weight serving is not ported yet; see ROADMAP.md "
-            "queue 1 (int8 serving)")
-    if quantize is not None:
-        raise ValueError(f"unknown quantize mode: {quantize!r}")
+from vlbert_tpu_torch.ops.quant import MIN_SIZE, quantize_module
 
 
 class _Server:
-    """Shared plumbing: the model in eval mode on its device, host numpy
-    batches in, host numpy outputs back, and the latency probe.
-    Subclasses define ``preprocess`` and ``_forward(*tensors)``."""
+    """Shared plumbing: the model in eval mode on its device (its weights
+    int8 under ``quantize="int8"``), host numpy batches in, host numpy
+    outputs back, and the latency probe. Subclasses define ``preprocess``
+    and ``_forward(*tensors)``."""
 
-    def __init__(self, model):
+    def __init__(self, model, quantize=None, quantize_min_size=MIN_SIZE):
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode: {quantize!r}")
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        if quantize == "int8":
+            quantize_module(model, quantize_min_size)
 
     def infer(self, batch):
         """Run one preprocessed batch; returns host numpy outputs. A None
@@ -83,9 +86,9 @@ class VQAServer(_Server):
     eval mode. ``answer_vocab`` lists the answers in logit order."""
 
     def __init__(self, model, tokenizer, answer_vocab, max_text=64,
-                 max_boxes=108, feat_dim=2048, quantize=None):
-        _check_quantize(quantize)
-        super().__init__(model)
+                 max_boxes=108, feat_dim=2048, quantize=None,
+                 quantize_min_size=MIN_SIZE):
+        super().__init__(model, quantize, quantize_min_size)
         self.tokenizer = tokenizer
         self.answer_vocab = answer_vocab
         self.max_text = max_text
@@ -136,9 +139,9 @@ class RefCOCOServer(_Server):
     """
 
     def __init__(self, model, tokenizer, transform, max_text=24,
-                 max_boxes=16, add_image_as_a_box=True, quantize=None):
-        _check_quantize(quantize)
-        super().__init__(model)
+                 max_boxes=16, add_image_as_a_box=True, quantize=None,
+                 quantize_min_size=MIN_SIZE):
+        super().__init__(model, quantize, quantize_min_size)
         self.tokenizer = tokenizer
         self.transform = transform
         self.max_text = max_text

@@ -94,10 +94,10 @@ class BertSelfAttention(nn.Module):
         d = self.compute_dtype
         shape = (B, L, self.num_heads, self.head_dim)
         if self.fused_qkv:
-            w = torch.cat([self.query.weight, self.key.weight,
-                           self.value.weight])
+            w = torch.cat([self.query.op_weight(d), self.key.op_weight(d),
+                           self.value.op_weight(d)])
             b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
-            qkv = F.linear(cast(hidden, d), cast(w, d), cast(b, d))
+            qkv = F.linear(cast(hidden, d), w, cast(b, d))
             q, k, v = qkv.view(B, L, 3, self.num_heads,
                                self.head_dim).unbind(2)
         else:

@@ -36,7 +36,8 @@ import torch
 from torch import nn
 
 from vlbert_tpu_torch.models.layers import Embedding, Linear
-from vlbert_tpu_torch.models.resnet import ResNetC4Backbone, ResNetRoIHead
+from vlbert_tpu_torch.models.resnet import (ResNetC4Backbone, ResNetRoIHead,
+                                            c4_channels)
 from vlbert_tpu_torch.ops.coord_embed import coordinate_embeddings
 from vlbert_tpu_torch.ops.dropout import Dropout
 from vlbert_tpu_torch.ops.image_norm import normalize_uint8_image
@@ -71,7 +72,8 @@ class FastRCNN(nn.Module):
         self.compute_dtype = dtype
         kw = dict(dtype=dtype, device=device)
         if not image_feat_precomputed:
-            visual_feat_dim = 2048
+            # the RoI head's channels: 2048, or 512 for ResNet-18 / 34
+            visual_feat_dim = 2 * c4_channels(num_layers)
             self.backbone = ResNetC4Backbone(num_layers, stride_in_1x1, **kw)
             # the head hands back its map: the mask multiply and the fp32
             # mean pool happen here, as in the JAX package

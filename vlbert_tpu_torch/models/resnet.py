@@ -27,14 +27,6 @@ RESNET_SPECS = {
 }
 
 
-def _bottleneck_layers(num_layers):
-    block, layers = RESNET_SPECS[num_layers]
-    if block != "bottleneck":
-        raise NotImplementedError(
-            f"ResNet-{num_layers} (BasicBlock) is not ported yet; see "
-            f"ROADMAP.md queue 1 ('other tasks and configs')")
-    return layers
-
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with constant statistics: a per-channel affine folded in
@@ -57,6 +49,34 @@ class FrozenBatchNorm(nn.Module):
         b = self.bias - self.running_mean * w
         d = self.compute_dtype
         return x * cast(w, d)[:, None, None] + cast(b, d)[:, None, None]
+
+
+class BasicBlock(nn.Module):
+    """3x3 -> 3x3 with expansion 1 (ResNet-18 and 34). Both convs take the
+    dilation, the first the stride; ``stride_in_1x1`` does not apply."""
+
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, dilation=1,
+                 downsample=False, stride_in_1x1=False, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, dilation, **kw)
+        self.bn1 = FrozenBatchNorm(planes, **kw)
+        self.conv2 = Conv2d(planes, planes, 3, 1, dilation, **kw)
+        self.bn2 = FrozenBatchNorm(planes, **kw)
+        self.downsample = None
+        if downsample:
+            self.downsample = nn.Sequential(
+                Conv2d(inplanes, planes, 1, stride, **kw),
+                FrozenBatchNorm(planes, **kw))
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return torch.relu(out + identity)
 
 
 class Bottleneck(nn.Module):
@@ -91,17 +111,22 @@ class Bottleneck(nn.Module):
         return torch.relu(out + identity)
 
 
-class ResNetStage(nn.Sequential):
-    """A stack of bottleneck blocks (torch ``_make_layer``); NCHW in/out."""
+BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
 
-    def __init__(self, inplanes, planes, blocks, stride=1, dilation=1,
+
+class ResNetStage(nn.Sequential):
+    """A stack of residual blocks (torch ``_make_layer``); NCHW in/out.
+    ``block``: "basic" or "bottleneck"."""
+
+    def __init__(self, block, inplanes, planes, blocks, stride=1, dilation=1,
                  stride_in_1x1=False, *, dtype=torch.float32, device=None):
-        need_ds = stride != 1 or inplanes != planes * 4
+        cls = BLOCKS[block]
+        out_ch = planes * cls.expansion
+        need_ds = stride != 1 or inplanes != out_ch
         super().__init__(*[
-            Bottleneck(inplanes if i == 0 else planes * 4, planes,
-                       stride if i == 0 else 1, dilation,
-                       need_ds and i == 0, stride_in_1x1,
-                       dtype=dtype, device=device)
+            cls(inplanes if i == 0 else out_ch, planes,
+                stride if i == 0 else 1, dilation, need_ds and i == 0,
+                stride_in_1x1, dtype=dtype, device=device)
             for i in range(blocks)])
 
 
@@ -111,9 +136,16 @@ def _to_nchw(x):
     return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
 
 
+def c4_channels(num_layers):
+    """Channels of body4, the C4 map: 256 for ResNet-18 / 34, 1024 for the
+    bottleneck depths; the RoI head's output has twice as many."""
+    block, _ = RESNET_SPECS[num_layers]
+    return 256 * BLOCKS[block].expansion
+
+
 class ResNetC4Backbone(nn.Module):
     """Stem + stages 1-3 (torch ``layer1..3``): [B, H, W, 3] NHWC ->
-    stride-16 body4 [B, H/16, W/16, 1024] NHWC-contiguous.
+    stride-16 body4 [B, H/16, W/16, c4_channels] NHWC-contiguous.
 
     Frozen stages are a training matter (``requires_grad``); serving runs
     the whole backbone as is.
@@ -122,15 +154,16 @@ class ResNetC4Backbone(nn.Module):
     def __init__(self, num_layers=101, stride_in_1x1=False, *,
                  dtype=torch.float32, device=None):
         super().__init__()
-        layers = _bottleneck_layers(num_layers)
+        block, layers = RESNET_SPECS[num_layers]
+        e = BLOCKS[block].expansion
         kw = dict(dtype=dtype, device=device)
         self.conv1 = Conv2d(3, 64, 7, 2, **kw)
         self.bn1 = FrozenBatchNorm(64, **kw)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
-        self.layer1 = ResNetStage(64, 64, layers[0], 1, **kw)
-        self.layer2 = ResNetStage(256, 128, layers[1], 2,
+        self.layer1 = ResNetStage(block, 64, 64, layers[0], 1, **kw)
+        self.layer2 = ResNetStage(block, 64 * e, 128, layers[1], 2,
                                   stride_in_1x1=stride_in_1x1, **kw)
-        self.layer3 = ResNetStage(512, 256, layers[2], 2,
+        self.layer3 = ResNetStage(block, 128 * e, 256, layers[2], 2,
                                   stride_in_1x1=stride_in_1x1, **kw)
         self.to(memory_format=torch.channels_last)
 
@@ -142,19 +175,20 @@ class ResNetC4Backbone(nn.Module):
 
 
 class ResNetRoIHead(ResNetStage):
-    """conv5 stage applied to RoI features: 3 bottleneck blocks for every
-    depth, as the reference builds it. ``c5_dilated`` gives stride 1 and
-    dilation 2. [N, 14, 14, 1024] NHWC -> the unpooled map [N, h, w, 2048]
-    NHWC in the compute dtype (h = w = 14 dilated, 7 otherwise); FastRCNN
-    applies the instance masks and pools, as the JAX package's
-    ``average_pool=False`` head leaves it to."""
+    """conv5 stage applied to RoI features: 3 blocks of the depth's kind
+    for every depth, as the reference builds it. ``c5_dilated`` gives
+    stride 1 and dilation 2. [N, 14, 14, C4] NHWC -> the unpooled map
+    [N, h, w, 2 C4] NHWC in the compute dtype (C4 = ``c4_channels``: 2048
+    out for the bottleneck depths, 512 for ResNet-18 / 34; h = w = 14
+    dilated, 7 otherwise); FastRCNN applies the instance masks and pools,
+    as the JAX package's ``average_pool=False`` head leaves it to."""
 
     def __init__(self, num_layers=101, c5_dilated=False, stride_in_1x1=False,
                  *, dtype=torch.float32, device=None):
-        _bottleneck_layers(num_layers)
+        block, _ = RESNET_SPECS[num_layers]
         stride, dilation = (1, 2) if c5_dilated else (2, 1)
-        super().__init__(1024, 512, 3, stride, dilation, stride_in_1x1,
-                         dtype=dtype, device=device)
+        super().__init__(block, c4_channels(num_layers), 512, 3, stride,
+                         dilation, stride_in_1x1, dtype=dtype, device=device)
         self.to(memory_format=torch.channels_last)
 
     def forward(self, x):

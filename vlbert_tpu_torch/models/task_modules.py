@@ -8,7 +8,9 @@ the VCR models, train and eval (``ResNetVLBERTForVCR`` for Q2A and QA2R,
 head), each from precomputed features or from pixels; and the multitask
 pretraining model (``ResNetVLBERTForPretrainingMultitask``: MLM on
 captions and a text corpus, MVRC, the optional relationship task), which
-``ResNetVLBERTForPretraining`` builds without the corpus rows. Text
+``ResNetVLBERTForPretraining`` builds without the corpus rows, and its
+``attention_vis`` (the attention-map dump's forward, registered as
+``ResNetVLBERTForAttentionVis`` too). Text
 arrives pre-assembled by the host; boxes stay in the static [B, O] layout
 with a mask. A module in training mode returns (outputs, loss) and in
 eval mode its outputs.
@@ -571,6 +573,30 @@ class ResNetVLBERTForPretrainingMultitask(nn.Module):
             return outputs
         return outputs, rel_loss + mlm_loss_wvc + mlm_loss_aux + mvrc_loss
 
+    def attention_vis(self, image, boxes, im_info, text):
+        """Every layer's attention probabilities, [B, layers, heads, L, L]
+        fp32 with L = T + O + 1, from a deterministic forward (dropout off
+        whatever the module's mode): zero text tags, so each token's
+        visual embedding is the whole-image box's; the generic object
+        linguistic embedding; ``text > 0`` as the text mask. The encoder
+        takes its plain attention route here, since the kernels never
+        write the probs."""
+        box_mask = boxes[:, :, 0] > -1.5
+        was_training = self.training
+        self.eval()
+        try:
+            obj_reps = self.image_feature_extractor(
+                image, boxes, box_mask, im_info)["obj_reps"]
+            text_visual = collect_obj_reps(torch.zeros_like(text), obj_reps)
+            obj_vl = generic_obj_vl_embeddings(
+                self.object_linguistic_embeddings, obj_reps)
+            _, _, probs = VisualLinguisticBert.forward(
+                self.vlbert, text, torch.zeros_like(text), text_visual,
+                text > 0, obj_vl, box_mask, output_attention_probs=True)
+        finally:
+            self.train(was_training)
+        return torch.stack(probs, dim=1).to(torch.float32)
+
 
 def _pad_t(x, t, value=0):
     """``x`` [N, T', ...] padded with ``value`` to T = t along dim 1."""
@@ -585,6 +611,11 @@ MODULES = {"ResNetVLBERT:refcoco": ResNetVLBERTForRefCOCO,
            "ResNetVLBERTForPretraining:pretrain":
                ResNetVLBERTForPretrainingMultitask,
            "ResNetVLBERTForPretrainingMultitask:pretrain":
+               ResNetVLBERTForPretrainingMultitask,
+           # cfgs/pretrain/vis_attention_maps_coco.yaml's module, which the
+           # JAX package's registry lacks: the pretraining model without
+           # the corpus rows, whose attention_vis the dump runs
+           "ResNetVLBERTForAttentionVis:pretrain":
                ResNetVLBERTForPretrainingMultitask}
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
