@@ -196,7 +196,27 @@ its own line:
      once a batch and K2 never, the same dumps with the plain ROIAlign
      within 1e-4, ms an image; (b) one RefCOCO+ query at IMAGE_NUM_LAYERS
      18 (BasicBlock) behind RefCOCOServer, fp32 kernels vs plain versions
-     at phase 5's bar, and bf16 launches.
+     at phase 5's bar, and bf16 launches;
+  19. float16 training (TRAIN.FP16 with TPU.FP16_PARITY_MODE): (a) each
+     kernel's fp16 route against its plain version in fp16 (K1 at the
+     serve, VCR and pretraining cases to fp16 and fp32 out; K1b at VCR's
+     and pretraining's shapes, repeated bit for bit; K2 at L = 1, 41, 64,
+     65, 128, 173, K3 / K4 at L = 41, 128, 173, at 12 and 16 heads, masks
+     and a K4 repeat bit for bit; K5 over phase 6's cases), each timed
+     beside its bf16 route and an fp16 library call at VCR-large's
+     shapes; (b) ``python -m vlbert_tpu_torch.engine.train --task vcr``
+     from cfgs/vcr/large_q2a_4x16G_fp16.yaml on phase 15's fixture and
+     overrides with TPU.FP16_PARITY_MODE and TRAIN.FP16_LOSS_SCALE 128 (the
+     shipped 'dynamic' shown to raise before a model is built): the seed-0
+     weights' per-stage max |activation| in fp16 beside bf16 and, where
+     fp16 overflows, each frozen BN calibrated from one fp32 forward of
+     the first batch (given to the run as NETWORK.IMAGE_PRETRAINED); 4 SGD
+     steps of 4 micro-steps and one validation run with exact launches,
+     every one on an fp16 route, finite losses and unscaled gradients,
+     the first step's largest K4 and K1b outputs; its step p50 and peak
+     beside phase 15a's; that batch's step in fp16 and bf16 against fp32
+     (plain versions), and an fp32 step with the scale against one
+     without, bit for bit.
 
 Any failure raises. Every file the phases write lives under one temporary
 directory, removed on exit. On every exit it stops the processes it
@@ -241,7 +261,9 @@ SEED = 0
 # fp32 sums straddle a rounding boundary) plus K1_ATOL
 K1_ATOL = 1e-4
 K1_BF16_RTOL = 2.0 ** -7
-K2_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# the same for fp16 output: one fp16 step, 2**-10 |b|
+K1_FP16_RTOL = 2.0 ** -10
+K2_ATOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 1e-2}
 E2E_ATOL = 1e-3
 # training kernels. K5 does one IEEE multiply per kept element, the same
 # one the plain version does: exact. K3 as K2. K4 and K2's backward: fp32
@@ -249,8 +271,12 @@ E2E_ATOL = 1e-3
 # (2**-8 relative), relative to max(1, max |reference|)
 DROP_RATE = 0.1
 K5_ATOL = 0.0
-K3_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
-BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+K3_ATOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 1e-2}
+BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 1e-2}
+# fp16 (phase 19): the same roundings as bf16's at 2**-11 relative instead
+# of 2**-8 (P for P V, the output; dS and Pd for the gradients), where one
+# fp16 step of an output below 8 is 2**-8: half the bf16 tolerances hold
+# them with room
 VQA_CFG = os.path.join(REPO, "cfgs", "vqa", "base_v5e_bf16.yaml")
 # fp32 step agreement: loss and gradient norm to rounding of sums over
 # ~110M parameters. Each leaf's gradient, relative to that leaf's largest
@@ -283,7 +309,8 @@ IMAGE_LEAF_PREFIX = "image_feature_extractor."
 # 700 W power limit): the roofline that bound_ms is reckoned against. Each
 # input byte is counted read once and each output byte written once.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 494.7e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
+                  "tf32": 494.7e12}
 # int32 ALU lanes per SM and clock on Hopper: the integer issue rate that
 # a Philox evaluation's instructions are reckoned against
 INT_LANES_PER_SM = 64
@@ -305,7 +332,7 @@ def attention_bound(B, L, H, D, dtype, backward=False):
     on the CUDA cores or, as three TF32 products (the split that keeps
     fp32 accuracy), on the tensor cores, whichever is faster; bound_by
     names the route: "operations (fp32)" or "operations (tf32 x3)"."""
-    es = 2 if dtype == "bfloat16" else 4
+    es = 4 if dtype == "float32" else 2
     t = B * L * H * D * es
     if backward:
         nbytes, ops = 7 * t + 2 * B * L * 4, 10 * B * H * L * L * D
@@ -3108,6 +3135,7 @@ def vcr_large_phase(root, vocab_dir):
     res = {k: run[k] for k in ("rc", "wall_s", "steps", "val", "total",
                                "peak_gib", "saves")}
     res.update(
+        data_dir=data_dir,
         overrides={k: v for k, v in overrides.items()
                    if not k.startswith(("DATASET.", "NETWORK.BERT"))},
         loss=hist["loss"], val_acc=[v["Acc"] for v in hist["val"]],
@@ -3127,7 +3155,10 @@ def vcr_large_phase(root, vocab_dir):
     batch = run["batch"]
     seconds = {"train": time.perf_counter() - t0}
     t0 = time.perf_counter()
-    res["profile"] = profile_steps(model, cfg, "vcr", n=2, batch=batch)
+    # a window of one step: two steps a window took 38.9 s of the run on
+    # the card (device_by_name takes a window again, up to three times,
+    # when a kernel's count in it is not a multiple of the steps)
+    res["profile"] = profile_steps(model, cfg, "vcr", n=1, batch=batch)
     del model, run, hist
     torch.cuda.empty_cache()
     seconds["profile"] = time.perf_counter() - t0
@@ -4407,6 +4438,838 @@ def int8_and_vis_phases(cfg, model, queries, cfg9, best, root, vocab13,
     return r17a, r17b, r18a, r18b
 
 
+# Phase 19: float16 training (TRAIN.FP16 with TPU.FP16_PARITY_MODE, the
+# static loss scale), the fp16 routes of K1-K5 and K1b
+# 19a: the parity cases of each kernel's fp16 route
+K1_FP16_CASES = ("serve", "vcr_B4_O108", "pretrain_B8_O108")
+K2_FP16_CASES = ((1, 1), (1, 41), (1, 64), (1, 65), (16, 128), (16, 173))
+K34_FP16_CASES = ((4, 41), (16, 128), (16, 173))
+# fp16's largest finite value: a padded slot's g in 19a's K1b cases, which
+# must not reach dF (1e6, phase 13's, overflows fp16)
+FP16_MAX = 65504.0
+# the fixed batch of 19b's per-stage maxima and step comparison: each
+# ResNet stage and the conv5 head by module, and the encoder's output
+STAGES = {"stem": "image_feature_extractor.backbone.maxpool",
+          "stage2": "image_feature_extractor.backbone.layer1",
+          "stage3": "image_feature_extractor.backbone.layer2",
+          "stage4": "image_feature_extractor.backbone.layer3",
+          "conv5_head": "image_feature_extractor.roi_head_feature_extractor",
+          "encoder": "vlbert.encoder"}
+FP16_LOSS_SCALE = 128.0
+# fp16's smallest normal value: below it an element keeps fewer bits
+FP16_MIN_NORMAL = 2.0 ** -14
+
+
+def _fp16_qkv(g, dev, B, L, H):
+    """q, k, v [B, L, H, 64] fp16 views of one fused projection and a
+    [B,1,1,L] fp32 bias with the last 5 keys masked (k2_parity's inputs
+    at H heads)."""
+    import torch
+
+    qkv = torch.randn(B, L, 3 * H * 64, generator=g, device=dev).half()
+    q, k, v = qkv.view(B, L, 3, H, 64).unbind(2)
+    m = torch.ones(B, L, device=dev)
+    m[:, -5:] = 0
+    return q, k, v, ((1.0 - m) * -10000.0)[:, None, None, :].contiguous()
+
+
+def fp16_kernel_parity(dev):
+    """19a: each kernel's fp16 route against its plain version run in fp16
+    on the same card. K1 on K1_FP16_CASES (fp16 map, fp16 and fp32 out,
+    the cases' sampling ratios); K1b at VCR's and pretraining's shapes
+    (fp16 g and dF, the padded slots' g at FP16_MAX), each repeated bit for
+    bit; K2 at K2_FP16_CASES and K3 / K4 (explicit bits and Philox) at
+    K34_FP16_CASES, at 12 and 16 heads, their keep masks read back bit for
+    bit (B=16 L=128), a K4 repeat bit for bit; K5 over K5_CASES, both
+    modes, exact, and its Philox mask. Then the times of each fp16 route
+    beside its bf16 route and one fp16 library call, at the VCR-large
+    step's shapes. Returns (errs, times)."""
+    import torch
+    from vlbert_tpu_torch.ops import roi_align as troi
+    from vlbert_tpu_torch.ops.attention import (
+        attention_bits, fused_attention, fused_attention_dropout,
+        plain_attention, plain_attention_dropout)
+    from vlbert_tpu_torch.ops.dropout import (flat_index_bits, hw_dropout,
+                                              keep_mask, plain_dropout)
+
+    f16 = torch.float16
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    errs = {}
+    cases = {c[0]: c for c in k1_cases(dev)}
+    for name in K1_FP16_CASES:
+        _, feat, boxes, mask, ratios = cases[name]
+        f = feat.to(f16)
+        for out_dtype in (torch.float32, f16):
+            for sr in ratios:
+                kw = dict(sampling_ratio=sr, out_dtype=out_dtype)
+                a = troi.roi_align(f, boxes, mask, **kw)
+                b = troi.roi_align_plain(f, boxes, mask, **kw)
+                diff = (a.float() - b.float()).abs()
+                rtol = K1_FP16_RTOL if out_dtype == f16 else 0.0
+                excess = (diff - (rtol * b.float().abs() + K1_ATOL)).max()
+                key = f"K1/{name}/float16->{str(out_dtype)[6:]}/sr{sr}"
+                if not (a.dtype == out_dtype and excess.item() <= 0
+                        and torch.all(a[~mask] == 0)):
+                    raise AssertionError(f"{key}: max abs err "
+                                         f"{diff.max().item()}, excess "
+                                         f"{excess.item()}")
+                errs[key] = diff.max().item()
+    for case in ("vcr", "pretrain"):
+        feat, boxes, mask, _ = k1b_inputs(dev, case)
+        B, H, W, C = feat.shape
+        gf = torch.randn(B, boxes.shape[1], 14, 14, C, generator=g,
+                         device=dev)
+        gf[~mask] = FP16_MAX
+        gh = gf.to(f16)
+        args = (gh, boxes, mask, feat.shape, f16, 14, 14, 1.0 / 16, 1)
+        a = troi._roi_align_bwd_cuda(*args)
+        again = troi._roi_align_bwd_cuda(*args)
+        b = troi.roi_align_bwd_plain(feat.to(f16), boxes, mask, gh,
+                                     sampling_ratio=1)
+        scale = max(1.0, b.float().abs().max().item())
+        diff = (a.float() - b.float()).abs()
+        excess = (diff - (K1B_RTOL * scale
+                          + K1_FP16_RTOL * b.float().abs())).max().item()
+        if not (a.dtype == f16 and excess <= 0 and torch.equal(a, again)
+                and torch.isfinite(a).all()):
+            raise AssertionError(f"K1b fp16 {case}: max abs err "
+                                 f"{diff.max().item()} (largest |dF| "
+                                 f"{scale}), excess {excess}, repeat "
+                                 f"{bool(torch.equal(a, again))}")
+        errs[f"K1b/{case}/float16"] = diff.max().item() / scale
+    for H in (12, 16):
+        for B, L in K2_FP16_CASES:
+            q, k, v, bias = _fp16_qkv(g, dev, B, L, H)
+            err = _maxerr(fused_attention(q, k, v, bias),
+                          plain_attention(q, k, v, bias))
+            if not err <= K2_ATOL["float16"]:
+                raise AssertionError(f"K2 fp16 B={B} L={L} H={H}: max abs "
+                                     f"err {err}")
+            errs[f"K2/B{B}_L{L}_H{H}/float16"] = err
+        for B, L in K34_FP16_CASES:
+            qkv, (q, k, v), bias = _train_qkv(g, dev, f16, B=B, L=L, H=H)
+            gy = torch.randn(q.shape, generator=g, device=dev).to(f16)
+            bits = torch.randint(0, 65536, (B, H, L, L), generator=g,
+                                 device=dev, dtype=torch.int32)
+            for mode, kw in (("bits", dict(bits=bits)),
+                             ("philox", dict(seed=SEED + 12))):
+                a = fused_attention_dropout(q, k, v, bias, DROP_RATE, **kw)
+                ga = torch.autograd.grad(a, (qkv, bias), gy)
+                b = plain_attention_dropout(q, k, v, bias, DROP_RATE, **kw)
+                gb = torch.autograd.grad(b, (qkv, bias), gy)
+                e3 = _maxerr(a, b)
+                e4 = max(_rel_err(x, y) for x, y in zip(ga, gb))
+                key = f"B{B}_L{L}_H{H}/float16/{mode}"
+                if not (e3 <= K3_ATOL["float16"]
+                        and e4 <= BWD_RTOL["float16"]):
+                    raise AssertionError(f"K3/K4 {key}: out err {e3}, grad "
+                                         f"rel err {e4}")
+                errs[f"K3/{key}"], errs[f"K4/{key}"] = e3, e4
+            if L == 173:
+                a = fused_attention_dropout(q, k, v, bias, DROP_RATE,
+                                            seed=SEED + 13)
+                g1, g2 = (torch.autograd.grad(a, (qkv, bias), gy,
+                                              retain_graph=True)
+                          for _ in range(2))
+                if not all(map(torch.equal, g1, g2)):
+                    raise AssertionError(f"K4 fp16 H={H}: a repeat gave "
+                                         f"other gradients")
+        for seed in (SEED + 31, SEED + 32):
+            fwd, bwd = _attention_masks(dev, seed, f16, H=H)
+            want = keep_mask(attention_bits(16, H, 128, seed, dev),
+                             DROP_RATE, False)
+            if not (torch.equal(fwd, want) and torch.equal(bwd, want)):
+                raise AssertionError(f"K3/K4 fp16 H={H} seed {seed}: keep "
+                                     f"bits differ from the plain Philox's")
+    for shape, skip in K5_CASES:
+        n = math.prod(shape)
+
+        def view(t):
+            return t.to(f16)[skip:].view(shape)
+
+        x = view(torch.randn(n + skip, generator=g, device=dev)) \
+            .requires_grad_()
+        gy = view(torch.randn(n + skip, generator=g, device=dev))
+        bits = torch.randint(0, 65536, (n + skip,), generator=g, device=dev,
+                             dtype=torch.int32)[skip:].view(shape)
+        for mode, kw in (("bits", dict(bits=bits)),
+                         ("philox", dict(seed=SEED + 11))):
+            a = hw_dropout(x, DROP_RATE, **kw)
+            (da,) = torch.autograd.grad(a, x, gy)
+            b = plain_dropout(x, DROP_RATE, **kw)
+            (db,) = torch.autograd.grad(b, x, gy)
+            err = max(_maxerr(a, b), _maxerr(da, db))
+            key = f"K5/{'x'.join(map(str, shape))}+{skip}/float16/{mode}"
+            if not err <= K5_ATOL:
+                raise AssertionError(f"{key}: max abs err {err}")
+            errs[key] = err
+    B, L, H = LARGE_ATTN
+    ones = torch.ones(B, L, H * 64, device=dev, dtype=f16)
+    keep = hw_dropout(ones, DROP_RATE, seed=SEED + 21) != 0
+    if not torch.equal(keep, keep_mask(flat_index_bits(ones.shape,
+                                                       SEED + 21, dev),
+                                       DROP_RATE, False)):
+        raise AssertionError("K5 fp16: the kernel's mask is not the plain "
+                             "Philox mask")
+    return errs, fp16_times(dev)
+
+
+def fp16_times(dev):
+    """Each fp16 route beside its bf16 route in this run and one fp16
+    library call, at the VCR-large step's shapes: K2, K3, K4 at B=16
+    L=173 H=16, K5 at [16, 173, 1024], K1 and K1b at VCR's training shape
+    (the vcr_B4_O108 case, 16-bit map, output and g); the plain version in
+    fp16. Returns {kernel: {"float16": (ms, call ms), "bfloat16": (ms,
+    call ms), "plain_ms": ms, "library": (ms, kernel names)}}."""
+    import torch
+    import torch.nn.functional as F
+    from vlbert_tpu_torch.ops import roi_align as troi
+    from vlbert_tpu_torch.ops.attention import (fused_attention,
+                                                fused_attention_dropout,
+                                                plain_attention,
+                                                plain_attention_dropout)
+    from vlbert_tpu_torch.ops.dropout import hw_dropout, plain_dropout
+
+    B, L, H = LARGE_ATTN
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    out = {k: {} for k in ("K1", "K1b", "K2", "K3", "K4", "K5")}
+    for dtype in (torch.bfloat16, torch.float16):
+        dn = str(dtype)[6:]
+        _, (q, k, v), bias = _train_qkv(g, dev, dtype, B=B, L=L, H=H)
+        q, k, v, bias = (t.detach() for t in (q, k, v, bias))
+        leaves = [t.contiguous().requires_grad_() for t in (q, k, v)]
+        gy = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+        o = fused_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED)
+        x = torch.randn(B, L, H * 64, generator=g, device=dev).to(dtype)
+        feat, boxes, mask, gb = k1b_inputs(dev, "vcr")
+        feat, gb = feat.to(dtype), gb.to(dtype)
+        k1b = (gb, boxes, mask, feat.shape, dtype, 14, 14, 1.0 / 16, 1)
+        with torch.no_grad():
+            out["K2"][dn] = cuda_ms(lambda: fused_attention(q, k, v, bias))
+            out["K3"][dn] = cuda_ms(lambda: fused_attention_dropout(
+                q, k, v, bias, DROP_RATE, seed=SEED))
+            out["K5"][dn] = cuda_ms(lambda: hw_dropout(x, DROP_RATE,
+                                                       seed=SEED))
+            t1 = time_calls(lambda: troi.roi_align(
+                feat, boxes, mask, sampling_ratio=1, out_dtype=dtype),
+                K1_KERNEL)
+            t1b = time_calls(lambda: troi._roi_align_bwd_cuda(*k1b),
+                             K1B_KERNEL)
+        out["K1"][dn] = (t1["ms"], t1["call_ms"])
+        out["K1b"][dn] = (t1b["ms"], t1b["call_ms"])
+        out["K4"][dn] = cuda_ms(lambda: torch.autograd.grad(
+            o, leaves, gy, retain_graph=True))
+    # plain versions in fp16 (the last loop's tensors), CUDA events
+    po = plain_attention_dropout(*leaves, bias, DROP_RATE, seed=SEED)
+    with torch.no_grad():
+        out["K2"]["plain_ms"] = event_ms(lambda: plain_attention(q, k, v,
+                                                                 bias))
+        out["K3"]["plain_ms"] = event_ms(lambda: plain_attention_dropout(
+            q, k, v, bias, DROP_RATE, seed=SEED))
+        out["K5"]["plain_ms"] = event_ms(lambda: plain_dropout(
+            x, DROP_RATE, seed=SEED))
+        out["K1"]["plain_ms"] = event_ms(lambda: troi.roi_align_plain(
+            feat, boxes, mask, sampling_ratio=1, out_dtype=torch.float16))
+        out["K1b"]["plain_ms"] = event_ms(lambda: troi.roi_align_bwd_plain(
+            feat, boxes, mask, gb, sampling_ratio=1))
+    out["K4"]["plain_ms"] = event_ms(lambda: torch.autograd.grad(
+        po, leaves, gy, retain_graph=True))
+    # the fp16 library calls
+    sdpa = _sdpa_args(q, k, v, bias)
+    with torch.no_grad():
+        out["K2"]["library"] = library_ms(
+            lambda: F.scaled_dot_product_attention(*sdpa[:3],
+                                                   attn_mask=sdpa[3]))
+        out["K3"]["library"] = library_ms(
+            lambda: F.scaled_dot_product_attention(
+                *sdpa[:3], attn_mask=sdpa[3], dropout_p=DROP_RATE))
+        out["K5"]["library"] = library_ms(lambda: F.dropout(
+            x, DROP_RATE, training=True))
+    lib_leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v)]
+    lo = F.scaled_dot_product_attention(*lib_leaves, attn_mask=sdpa[3],
+                                        dropout_p=DROP_RATE)
+    gl = gy.transpose(1, 2).contiguous()
+    out["K4"]["library"] = library_ms(lambda: torch.autograd.grad(
+        lo, lib_leaves, gl, retain_graph=True))
+    Bm, Hm, Wm, C = feat.shape
+    grid, _ = k1_grid(boxes, Hm, Wm)
+    kw = dict(mode="bilinear", padding_mode="border", align_corners=True)
+    fn = feat.permute(0, 3, 1, 2).detach().requires_grad_()
+    gs = F.grid_sample(fn, grid.to(torch.float16), **kw)
+    with torch.no_grad():
+        out["K1"]["library"] = library_ms(lambda: F.grid_sample(
+            fn, grid.to(torch.float16), **kw))
+    gg = gb.permute(0, 4, 1, 2, 3).reshape(gs.shape)
+    out["K1b"]["library"] = library_ms(lambda: torch.autograd.grad(
+        gs, fn, gg, retain_graph=True))
+    return out
+
+
+def _stage_maxima(model, batch):
+    """The largest |activation| of each STAGES module in one eval-mode
+    forward of ``model`` on ``batch`` (its labels left out), as floats
+    (inf where a value overflowed)."""
+    import torch
+
+    found, hooks = {}, []
+    mods = dict(model.named_modules())
+
+    def tensors(out):
+        if torch.is_tensor(out):
+            return [out]
+        return [t for o in out for t in tensors(o)] \
+            if isinstance(out, (tuple, list)) else []
+
+    for name, path in STAGES.items():
+        def hook(_m, _i, out, name=name):
+            found[name] = torch.stack([t.detach().float().abs().max()
+                                       for t in tensors(out)]).max()
+        hooks.append(mods[path].register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            model.eval()(*batch[:-1])
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: float(v) for k, v in found.items()}
+
+
+def calibrate_frozen_bn(model, batch):
+    """Each frozen BN's running_mean and running_var set from its input's
+    per-channel mean and variance in one fp32 forward of ``batch``, in
+    forward order, so that each BN sees the inputs of the BNs before it
+    already calibrated: the state a pretrained ResNet's frozen BN is in."""
+    import torch
+    from vlbert_tpu_torch.models.resnet import FrozenBatchNorm
+
+    def pre(m, args):
+        x = args[0].float()
+        m.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        m.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(pre) for m in model.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    try:
+        with torch.no_grad():
+            model.eval()(*batch[:-1])
+    finally:
+        for h in hooks:
+            h.remove()
+    return len(hooks)
+
+
+def save_resnet_warm_start(model, path):
+    """The image feature extractor's backbone and conv5 head as a raw
+    torchvision-layout ResNet file (``layer4.*`` the head), the form
+    NETWORK.IMAGE_PRETRAINED reads."""
+    import torch
+
+    fe = model.image_feature_extractor
+    sd = {k: v.detach().cpu() for k, v in fe.backbone.state_dict().items()}
+    sd.update({f"layer4.{k}": v.detach().cpu() for k, v in
+               fe.roi_head_feature_extractor.state_dict().items()})
+    torch.save(sd, path)
+    return path
+
+
+@contextlib.contextmanager
+def fp16_step_records():
+    """Records what 19b's run hands the kernels and the optimizer: the
+    dtypes each kernel wrapper's launch takes; the largest |dq|, |dk|, |dv|
+    (K4) and |dF| (K1b) of the first optimizer step, their non-finite
+    elements and the share of their elements below fp16's smallest normal
+    (subnormal: fewer than 11 bits kept); each step's grad norm and
+    whether every unscaled gradient is finite. Yields the record."""
+    import torch
+    from vlbert_tpu_torch.ops import attention as tattn
+    from vlbert_tpu_torch.ops import dropout as tdrop
+    from vlbert_tpu_torch.ops import roi_align as troi
+    from vlbert_tpu_torch.training.optim import Optimizer
+
+    rec = {"dtypes": {}, "grads": {"dq": [], "dk": [], "dv": [], "dF": []},
+           "norms": [], "finite": [], "first": True}
+
+    def note(name, *dtypes):
+        rec["dtypes"].setdefault(name, set()).add(
+            "->".join(str(d)[6:] for d in dtypes))
+
+    def first_step(**ts):
+        if rec["first"]:
+            for k, t in ts.items():
+                a = t.detach().float().abs()
+                rec["grads"][k].append(torch.stack(
+                    [a.max(), (~torch.isfinite(a)).sum().float(),
+                     ((a > 0) & (a < FP16_MIN_NORMAL)).sum().float(),
+                     torch.tensor(float(a.numel()), device=a.device)]))
+
+    saved = (troi._roi_align_cuda, troi._roi_align_bwd_cuda,
+             tattn._attention_launch, tattn._attention_dropout_launch,
+             tattn._attention_dropout_bwd_launch, tdrop._dropout_launch,
+             Optimizer.step)
+
+    def k1(features, *a):
+        note("K1", features.dtype, a[-1])
+        return saved[0](features, *a)
+
+    def k1b(g, boxes, mask, shape, dtype, *a):
+        note("K1b", g.dtype, dtype)
+        df = saved[1](g, boxes, mask, shape, dtype, *a)
+        first_step(dF=df)
+        return df
+
+    def k2(q, *a):
+        note("K2", q.dtype)
+        return saved[2](q, *a)
+
+    def k3(q, *a):
+        note("K3", q.dtype)
+        return saved[3](q, *a)
+
+    def k4(q, k, v, bias, g, *a):
+        note("K4", q.dtype, g.dtype)
+        dq, dk, dv, dbias = saved[4](q, k, v, bias, g, *a)
+        first_step(dq=dq, dk=dk, dv=dv)
+        return dq, dk, dv, dbias
+
+    def k5(x, *a):
+        note("K5", x.dtype)
+        return saved[5](x, *a)
+
+    def opt_step(self, grads):
+        rec["finite"].append(bool(torch.stack(
+            [torch.isfinite(t).all() for t in grads]).all()))
+        norm = saved[6](self, grads)
+        rec["norms"].append(float(norm))
+        rec["first"] = False
+        return norm
+
+    (troi._roi_align_cuda, troi._roi_align_bwd_cuda, tattn._attention_launch,
+     tattn._attention_dropout_launch, tattn._attention_dropout_bwd_launch,
+     tdrop._dropout_launch, Optimizer.step) = (k1, k1b, k2, k3, k4, k5,
+                                               opt_step)
+    try:
+        yield rec
+    finally:
+        (troi._roi_align_cuda, troi._roi_align_bwd_cuda,
+         tattn._attention_launch, tattn._attention_dropout_launch,
+         tattn._attention_dropout_bwd_launch, tdrop._dropout_launch,
+         Optimizer.step) = saved
+        for k, v in rec["grads"].items():
+            if v:
+                s = torch.stack(v)
+                rec["grads"][k] = (s[:, 0].max().item(),
+                                   int(s[:, 1].sum().item()),
+                                   (s[:, 2].sum() / s[:, 3].sum()).item())
+
+
+def _kept_step(model, cfg, batch, seed, plain=None):
+    """One optimizer step of ``model`` on ``batch`` (the config's
+    accumulation and loss scale): (loss, {name: the unscaled fp32 gradient
+    the optimizer took}, launches)."""
+    import torch
+    from vlbert_tpu_torch.training.loop import make_train_step
+    from vlbert_tpu_torch.training.optim import Optimizer
+
+    opt = Optimizer(cfg, model, 4)
+    kept, opt_step = {}, opt.step
+
+    def step_and_keep(grads):
+        kept.update((n, g.detach().clone()) for n, g in zip(opt.names,
+                                                            grads))
+        return opt_step(grads)
+
+    opt.step = step_and_keep
+    accum = max(int(cfg.TRAIN.GRAD_ACCUMULATE_STEPS), 1)
+    _zero_counts()
+    with plain() if plain else contextlib.nullcontext():
+        loss, _ = make_train_step(model, opt, "vcr", cfg, accum)(batch, seed)
+        torch.cuda.synchronize()
+    return float(loss), kept, _launch_counts()
+
+
+def scale_bit_for_bit(cfg, dev):
+    """One fp32 optimizer step of ``cfg``'s model (the kernels' fp32
+    routes, cuDNN and torch held to deterministic algorithms) with the
+    loss scale FP16_LOSS_SCALE and with none, from the same weights, seed
+    and batch: the losses and every updated parameter must be equal bit
+    for bit (a power-of-two scale is exact in fp32). Returns (equal
+    parameters, of how many, the two losses)."""
+    import torch
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.training.loop import make_train_step
+    from vlbert_tpu_torch.training.optim import (Optimizer,
+                                                 apply_trainable_mask)
+
+    task = "vqa"
+    one = cfg.clone()
+    one.TPU.PROCESS_WORKERS = False
+    batch = first_train_batch(one, task, dev)
+    scaled = cfg.clone()
+    scaled.TRAIN.FP16 = True
+    scaled.TPU.FP16_PARITY_MODE = True
+    scaled.TRAIN.FP16_LOSS_SCALE = FP16_LOSS_SCALE
+    accum = max(int(cfg.TRAIN.GRAD_ACCUMULATE_STEPS), 1)
+    params, losses = [], []
+    saved_modes = (torch.backends.cudnn.deterministic,
+                   torch.are_deterministic_algorithms_enabled(),
+                   torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for c in (cfg, scaled):
+            model = build_module(c, task, dtype=torch.float32, device=dev)
+            init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
+            apply_trainable_mask(model, c)
+            loss, _ = make_train_step(model, Optimizer(c, model, 4), task, c,
+                                      accum)(batch, SEED + 5)
+            losses.append(float(loss))
+            params.append(dict(model.named_parameters()))
+    finally:
+        torch.backends.cudnn.deterministic = saved_modes[0]
+        torch.use_deterministic_algorithms(saved_modes[1],
+                                           warn_only=saved_modes[2])
+    equal = sum(torch.equal(p, params[1][k]) for k, p in params[0].items())
+    return equal, len(params[0]), losses
+
+
+def vcr_large_fp16_phase(root, vocab_dir, data_dir=None, cfg7=None):
+    """19b: ``python -m vlbert_tpu_torch.engine.train --task vcr`` from the
+    shipped large Q2A config with phase 15's overrides and
+    TPU.FP16_PARITY_MODE, TRAIN.FP16_LOSS_SCALE FP16_LOSS_SCALE (the
+    config's 'dynamic' is shown to raise first, before a model is built):
+    float16 compute, 4 SGD steps of 4 micro-steps and one validation run
+    on phase 15's fixture (``data_dir``; written under ``root`` when None).
+    The seed-0 weights' per-stage maxima in fp16 beside bf16 on the first
+    batch; where a stage overflows fp16, each frozen BN is calibrated from
+    one fp32 forward of that batch and the run starts from those weights
+    through NETWORK.IMAGE_PRETRAINED. Exact launches, every one on an fp16
+    route; grad norms and finite unscaled gradients each step; the first
+    step's largest K4 and K1b outputs; step p50 and peak. Then the first
+    step's batch in fp16 (kernels) against fp32 (plain versions) from the
+    same weights and seed, and an fp32 step with the scale against one
+    without (``cfg7``, phase 7's VQA config; made under ``root`` when
+    None), bit for bit. Returns results."""
+    import gc
+
+    import torch
+    import vlbert_tpu_torch.engine.train as t_train
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.training.optim import apply_trainable_mask
+    from vlbert_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    seconds = {}
+    if data_dir is None:
+        data_dir, _ = write_vcr_fixture(root, n_train=VCR_TRAIN_QUESTIONS)
+    rows = sum(1 for _ in open(os.path.join(data_dir, "val.jsonl")))
+    base = {**e2e_overrides(root, data_dir, vocab_dir),
+            "DATASET.TRAIN_ANNOTATION_FILE": "train.jsonl",
+            "DATASET.VAL_ANNOTATION_FILE": "val.jsonl",
+            "OUTPUT_PATH": os.path.join(root, "out19"),
+            "TRAIN.END_EPOCH": 1, "VAL_FREQUENT": 1, "LOG_FREQUENT": 4,
+            "TRAIN.LR": 6.25e-4, "TPU.FP16_PARITY_MODE": True}
+    src = LARGE_CFGS["vcr"]
+    # the shipped 'dynamic' scale raises before anything is built
+    dyn = write_train_yaml(src, os.path.join(root, "fp16_dynamic.yaml"),
+                           base)
+    built = []
+    saved_build = t_train.build_module
+    t_train.build_module = lambda *a, **kw: built.append(1)
+    try:
+        t_train.main(["--task", "vcr", "--cfg", dyn])
+        dynamic = "no error"
+    except ValueError as e:
+        dynamic = str(e)
+    finally:
+        t_train.build_module = saved_build
+    overrides = dict(base, **{"TRAIN.FP16_LOSS_SCALE": FP16_LOSS_SCALE})
+    path = write_train_yaml(src, os.path.join(root, "fp16.yaml"), overrides)
+    cfg = load_config("vcr", path)
+    dtype, scale = t_train.compute_policy(cfg)
+    one = cfg.clone()
+    one.TPU.PROCESS_WORKERS = False
+    batch = first_train_batch(one, "vcr", "cuda")
+
+    # the seed-0 weights' maxima, fp16 beside bf16; the BN calibration
+    def seed0(dt):
+        m = build_module(cfg, "vcr", dtype=dt, device="cuda")
+        init_weights(m, torch.Generator(device="cuda").manual_seed(SEED))
+        return m
+
+    maxima, models = {}, {}
+    for dt in (torch.bfloat16, torch.float16):
+        models[dt] = seed0(dt)
+        maxima[str(dt)[6:]] = _stage_maxima(models[dt], batch)
+    overflow = sorted(k for k, v in maxima["float16"].items()
+                      if not math.isfinite(v))
+    calibrated, n_bn = None, 0
+    if overflow:
+        ref = seed0(torch.float32)
+        n_bn = calibrate_frozen_bn(ref, batch)
+        bn = {k: v for k, v in ref.state_dict().items()
+              if k.endswith(("running_mean", "running_var"))}
+        for m in models.values():
+            m.load_state_dict(bn, strict=False)
+        calibrated = {str(dt)[6:]: _stage_maxima(m, batch)
+                      for dt, m in models.items()}
+        warm = save_resnet_warm_start(ref, os.path.join(root,
+                                                        "resnet_bn.model"))
+        overrides["NETWORK.IMAGE_PRETRAINED"] = warm
+        path = write_train_yaml(src, path, overrides)
+        cfg = load_config("vcr", path)
+        del ref
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_counts()
+    seconds["setup"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with fp16_step_records() as recs:
+        run = e2e_train_run("vcr", path, record_writes=True)
+    seconds["train"] = time.perf_counter() - t0
+    hist, model = run["history"], run["model"]
+    accum = cfg.TRAIN.GRAD_ACCUMULATE_STEPS
+    micro = cfg.TRAIN.BATCH_IMAGES
+    n_val = -(-rows // cfg.VAL.BATCH_IMAGES)
+    want_step = e2e_launches("vcr", accum, layers=LARGE_LAYERS)
+    want_val = e2e_launches("vcr", 0, n_val, layers=LARGE_LAYERS)
+    kinds = {k: sorted(v) for k, v in recs["dtypes"].items()}
+    want_kinds = {"K1": ["float16->float16"], "K1b": ["float16->float16"],
+                  "K2": ["float16"], "K3": ["float16"],
+                  "K4": ["float16->float16"], "K5": ["float16"]}
+    res = {"dynamic": dynamic, "dynamic_built": len(built),
+           "policy": (str(dtype)[6:], scale), "maxima": maxima,
+           "overflow": overflow, "calibrated": calibrated,
+           "n_bn": n_bn,
+           "overrides": {k: v for k, v in overrides.items()
+                         if not k.startswith(("DATASET.", "NETWORK.BERT",
+                                              "OUTPUT"))},
+           "loss": hist["loss"], "val_acc": [v["Acc"] for v in hist["val"]],
+           "norms": recs["norms"], "finite": recs["finite"],
+           "first_step_grads": recs["grads"], "dtypes": kinds,
+           "steps": run["steps"], "val": run["val"], "total": run["total"],
+           "want_step": want_step, "want_val": want_val, "accum": accum,
+           "micro": micro, "step_ms": hist["step_ms"],
+           "peak_gib": run["peak_gib"], "wall_s": run["wall_s"]}
+    res["checks"] = {
+        "dynamic raises before a build": "FP16_LOSS_SCALE" in dynamic
+        and not built,
+        "policy": res["policy"] == ("float16", FP16_LOSS_SCALE),
+        "rc": run["rc"] == 0,
+        "steps": len(run["steps"]) == VCR_TRAIN_QUESTIONS // (accum * micro)
+        and all(c == want_step for c in run["steps"]),
+        "val": len(run["val"]) == 1 and run["val"][0] == want_val,
+        "fp16 routes": kinds == want_kinds,
+        "finite loss": all(map(math.isfinite, hist["loss"])),
+        "finite gradients": len(recs["finite"]) == len(hist["loss"])
+        and all(recs["finite"])}
+    batch = run["batch"]
+    del run, hist
+    torch.cuda.empty_cache()
+
+    # the first step's batch, fp16 with the kernels against fp32 with the
+    # plain versions, from the run's initial weights and one seed
+    t0 = time.perf_counter()
+    init = build_module(cfg, "vcr", dtype=torch.float32, device="cuda")
+    init_weights(init, torch.Generator(device="cuda").manual_seed(SEED))
+    t_train.apply_warm_starts(init, cfg)
+    state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = cfg.clone()
+    cfg32.TRAIN.FP16 = False
+    cfg_bf16 = cfg.clone()
+    cfg_bf16.TPU.FP16_PARITY_MODE = False
+    steps = {}
+    for dt, c, plain in ((torch.float16, cfg, None),
+                         (torch.bfloat16, cfg_bf16, None),
+                         (torch.float32, cfg32, plain_e2e_training)):
+        m = build_module(c, "vcr", dtype=dt, device="cuda")
+        m.load_state_dict(state)
+        apply_trainable_mask(m, c)
+        steps[str(dt)[6:]] = _kept_step(m, c, batch, SEED + 5, plain)
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l16, g16, c16), (l32, g32, c32) = steps["float16"], steps["float32"]
+    lb, gb, _ = steps["bfloat16"]
+
+    def rel_l2(g):
+        out = {}
+        for name, prefix in E2E_LEAF_GROUPS.items():
+            keys = [k for k in g32 if k.startswith(prefix)]
+            num = sum(float((g[k] - g32[k]).double().pow(2).sum())
+                      for k in keys)
+            den = sum(float(g32[k].double().pow(2).sum()) for k in keys)
+            out[name] = (num / max(den, 1e-300)) ** 0.5
+        return out
+
+    res["vs_fp32"] = {"loss": (l16, l32), "loss_rel": abs(l16 - l32)
+                      / abs(l32), "grad_rel_l2": rel_l2(g16),
+                      "bf16_loss_rel": abs(lb - l32) / abs(l32),
+                      "bf16_grad_rel_l2": rel_l2(gb),
+                      "launches": (c16, c32)}
+    res["checks"]["vs fp32 launches"] = c16 == want_step \
+        and not any(c32.values())
+    res["checks"]["vs fp32 finite"] = math.isfinite(l16) and all(
+        bool(torch.isfinite(g).all()) for g in g16.values())
+    seconds["vs_fp32"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if cfg7 is None:
+        cfg7, _ = vqa_train_config(os.path.join(root, "vqa7"))
+    equal, n_params, losses = scale_bit_for_bit(cfg7, "cuda")
+    res["scale_fp32"] = {"equal": equal, "params": n_params,
+                         "loss": losses}
+    res["checks"]["fp32 scale bit for bit"] = equal == n_params \
+        and losses[0] == losses[1]
+    seconds["scale_fp32"] = time.perf_counter() - t0
+    res["seconds"] = seconds
+    return res
+
+
+def _ms(t):
+    """'ms (call ms)' of a (device ms, call ms) pair."""
+    return f"{t[0]:.4f} ({t[1]:.4f})"
+
+
+def print_fp16_parity(errs, times, card):
+    """19a's line."""
+    by_kernel = {}
+    for key, err in errs.items():
+        k = key.split("/")[0]
+        by_kernel[k] = max(by_kernel.get(k, 0.0), err)
+    print(f"[19a parity fp16] each kernel's fp16 route against its plain "
+          f"version in fp16, max err by kernel {by_kernel} over {len(errs)} "
+          f"cases: K1 on {list(K1_FP16_CASES)} to fp16 (one fp16 step "
+          f"{K1_FP16_RTOL} |b| + {K1_ATOL}) and fp32 out (atol {K1_ATOL}); "
+          f"K1b at VCR's and pretraining's shapes (rel to max(1, |dF|) "
+          f"{K1B_RTOL} + one fp16 step), repeated bit for bit, the padded "
+          f"slots' g at {FP16_MAX} unread; K2 (B, L) {list(K2_FP16_CASES)}, "
+          f"K3 / K4 {list(K34_FP16_CASES)} at H = 12 and 16, bits and "
+          f"Philox (atol {K2_ATOL['float16']}, {K3_ATOL['float16']}, rtol "
+          f"{BWD_RTOL['float16']}: no looser than bf16's), keep masks bit "
+          f"for bit at both H, a K4 repeat bit for bit; K5 over "
+          f"{len(K5_CASES)} shapes and views, exact. Device ms (call ms) at "
+          f"VCR-large's shapes, fp16 / bf16 / plain fp16 (CUDA events) / "
+          f"library fp16: "
+          + "; ".join(f"{k} {_ms(t['float16'])} / {_ms(t['bfloat16'])} / "
+                      f"{t['plain_ms']:.4f} / {t['library'][0]:.4f} "
+                      f"{t['library'][1][:3]}" for k, t in times.items())
+          + f" ({card})", flush=True)
+
+
+def print_fp16_train(r, r15, card, seconds):
+    """19b's lines."""
+    p50 = step_p50(r["step_ms"])
+    fs = r["first_step_grads"]
+    print(f"[19b train VCR-large fp16] python -m vlbert_tpu_torch.engine."
+          f"train --task vcr from {LARGE_CFGS['vcr']} with phase 15's "
+          f"overrides and {json.dumps(r['overrides'])}: the shipped "
+          f"FP16_LOSS_SCALE 'dynamic' raises before a model is built "
+          f"({r['dynamic'][:90]}...; builds {r['dynamic_built']}); "
+          f"compute_policy {r['policy']}; seed-0 per-stage max |activation| "
+          f"on the first batch (eval): {r['maxima']}; overflow in fp16 "
+          f"{r['overflow']}"
+          + (f"; each of {r['n_bn']} frozen BNs calibrated from one fp32 "
+             f"forward of that batch, stage by stage, and the run started "
+             f"from those weights through NETWORK.IMAGE_PRETRAINED: "
+             f"{r['calibrated']}" if r["overflow"] else "")
+          + f" ({card})", flush=True)
+    print(f"[19b train VCR-large fp16] {len(r['loss'])} SGD steps of "
+          f"{r['accum']} micro-steps x {r['micro']} images x 4 choices, "
+          f"loss {[round(x, 4) for x in r['loss']]}, grad norm (unscaled) "
+          f"{[round(x, 4) for x in r['norms']]}, every unscaled gradient "
+          f"finite {r['finite']}; val Acc {r['val_acc']}; launches per step "
+          f"{r['want_step']} and per validation run {r['want_val']} on every "
+          f"one, total {r['total']}; kernel dtypes {r['dtypes']}; first "
+          f"step's largest |output| (non-finite elements, share below "
+          f"fp16's smallest normal) of K4 dq "
+          f"{fs['dq']}, dk {fs['dk']}, dv {fs['dv']}, K1b dF {fs['dF']} "
+          f"(gradients x {FP16_LOSS_SCALE}); step p50 {p50:.2f} ms against "
+          f"phase 15a's bf16 {step_p50(r15['step_ms']):.2f}; peak device "
+          f"memory {r['peak_gib']:.2f} GiB against {r15['peak_gib']:.2f}; "
+          f"{r['wall_s']:.2f} s of main ({card})", flush=True)
+    v = r["vs_fp32"]
+    sf = r["scale_fp32"]
+    print(f"[19b step fp16 vs fp32] the first step's batch from the run's "
+          f"initial weights and seed, fp16 with the kernels and the loss "
+          f"scale against fp32 with the plain versions: loss "
+          f"{v['loss'][0]:.6f} vs {v['loss'][1]:.6f} (rel {v['loss_rel']:.3e}"
+          f"), relative L2 gradient difference by leaf group "
+          f"{ {k: f'{x:.3e}' for k, x in v['grad_rel_l2'].items()} }; the "
+          f"same step in bf16 (kernels, no scale) against fp32: loss rel "
+          f"{v['bf16_loss_rel']:.3e}, by leaf group "
+          f"{ {k: f'{x:.3e}' for k, x in v['bf16_grad_rel_l2'].items()} }; "
+          f"launches {v['launches'][0]}, plain {v['launches'][1]}; an fp32 "
+          f"VQA step (phase 7's config) with the loss scale "
+          f"{FP16_LOSS_SCALE} against none: {sf['equal']} of {sf['params']} "
+          f"parameters bit-identical, loss {sf['loss']}; phase 19 seconds "
+          f"{ {k: round(x, 1) for k, x in {**seconds, **r['seconds']}.items()} } "
+          f"({card})", flush=True)
+
+
+# kernel record name -> its launch counter and 19a's key
+FP16_KEYS = {"roi_align_fwd": "K1", "roi_align_bwd": "K1b",
+             "attention_fwd": "K2", "attention_dropout_fwd": "K3",
+             "attention_dropout_bwd": "K4", "dropout": "K5"}
+
+
+def add_fp16_records(kernels, errs, times, r19):
+    """Each kernel record's fp16 route: its parity error, ms beside the
+    bf16 route's in the same run, plain, bound (the bf16 bound: the same
+    bytes, the same tensor-core rate) and library time at VCR-large's
+    shapes, and its launches in 19b's run."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    B, L, H = LARGE_ATTN
+    n5 = B * L * H * 64
+    feat, boxes, mask, g = k1b_inputs(dev, "vcr")
+    live = int(mask.sum())
+    Bm, Hm, Wm, C = feat.shape
+    bounds = {
+        "K1": roofline(feat.numel() * 2 + mask.numel() * 17
+                       + mask.numel() * 196 * C * 2,
+                       2 * 4 * live * 196 * C, "float32"),
+        "K1b": k1b_bound(feat, mask, g),
+        "K2": attention_bound(B, L, H, 64, "float16"),
+        "K3": attention_bound(B, L, H, 64, "float16"),
+        "K4": attention_bound(B, L, H, 64, "float16", backward=True),
+        "K5": roofline(2 * n5 * 2, n5, "float16")}
+    shapes = {"K1": f"map [{Bm},{Hm},{Wm},{C}] fp16, {live} of "
+                    f"{mask.numel()} slots live, out fp16",
+              "K1b": f"g [{Bm},108,14,14,{C}] fp16 ({live} live), dF fp16",
+              "K5": f"[{B},{L},{H * 64}] fp16"}
+    total = r19["total"]
+    counts = {"K1": total["K1"], "K1b": total["K1b"], "K2": total["K2"],
+              "K3": total["K3"], "K4": total["K4"],
+              "K5": (total["K5_fwd"], total["K5_bwd"])}
+    per = dict(r19["want_step"], K2=r19["want_val"]["K2"],
+               K5=(r19["want_step"]["K5_fwd"], r19["want_step"]["K5_bwd"]))
+    for record in kernels:
+        k = FP16_KEYS[record["name"]]
+        t = times[k]
+        bound = bounds[k]
+        record["fp16"] = {
+            "route": "cuda", "source": record["source"],
+            "shape": shapes.get(k, f"B={B} L={L} H={H} D=64 fp16"),
+            "launches": counts[k],
+            "launches_per_step_or_val_run": per[k],
+            "max_abs_err": max(v for key, v in errs.items()
+                               if key.split("/")[0] == k),
+            "ms": t["float16"][0], "call_ms": t["float16"][1],
+            "bf16_ms": t["bfloat16"][0], "plain_ms": t["plain_ms"],
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": t["library"][0],
+            "library_kernels": t["library"][1]}
+
+
 def main():
     import numpy as np
     import torch
@@ -5111,6 +5974,21 @@ def main():
         # --- 17-18: int8 serving, the attention dump, ResNet-18 ---
         r17a, r17b, r18a, r18b = int8_and_vis_phases(
             cfg, model, queries, cfg9, r9["best"], root, vocab13, card)
+
+        # --- 19: float16 training ---
+        del model
+        torch.cuda.empty_cache()
+        t19 = time.perf_counter()
+        f16_errs, f16_t = fp16_kernel_parity(dev)
+        print_fp16_parity(f16_errs, f16_t, card)
+        s19a = time.perf_counter() - t19
+        r19 = vcr_large_fp16_phase(root15, vocab13, r15["data_dir"], cfg7)
+        if not all(r19["checks"].values()):
+            shown = ("dynamic", "dtypes", "finite", "steps", "val", "maxima")
+            raise AssertionError(f"float16 training: {r19['checks']}; "
+                                 f"{ {k: r19[k] for k in shown} }")
+        print_fp16_train(r19, r15, card,
+                         {"19a": s19a, "19": time.perf_counter() - t19})
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5488,7 +6366,8 @@ def main():
     for record in kernels:
         if record["name"] in int8_vis:
             record["launches_int8_vis"] = int8_vis[record["name"]]
-    print(f"[total] phases 1-18 in {time.perf_counter() - t_run:.1f} s, "
+    add_fp16_records(kernels, f16_errs, f16_t, r19)
+    print(f"[total] phases 1-19 in {time.perf_counter() - t_run:.1f} s, "
           f"the kernels' build included ({card})", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -21,16 +21,18 @@ from vlbert_tpu_torch.ops import dropout as tdrop
 T = torch.from_numpy
 
 
-def _bf16_np(x, dtype):
+def _round_np(x, dtype):
+    """x rounded to ``dtype`` (a jnp name), as fp32 numpy."""
     return x if dtype == "float32" else np.asarray(
-        jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+        jnp.asarray(x, getattr(jnp, dtype)).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.25, 1.0])
 def test_plain_dropout_matches_jax_bits16(rng, rate, dtype):
     # tolerance 0: both sides do one multiply by the same scale rounded to
-    # x's dtype (bf16: 1/(1-0.1) is 1.109375) and round once
+    # x's dtype (1/(1-0.1) is 1.109375 in bf16, 1.111328125 in fp16) and
+    # round once
     shape = (3, 5, 40)
     x = rng.normal(size=shape).astype(np.float32)
     g = rng.normal(size=shape).astype(np.float32)
@@ -55,12 +57,14 @@ def test_plain_dropout_matches_jax_bits16(rng, rate, dtype):
                                   np.asarray(jgrad.astype(jnp.float32)))
     if 0 < rate < 1:
         kept = out.float().detach().numpy() != 0
-        scale = 1.109375 if (dtype == "bfloat16" and rate == 0.1) \
-            else float(np.asarray(jnp.asarray(1 / (1 - rate), jd)
-                                  .astype(jnp.float32)))
+        scale = float(np.asarray(jnp.asarray(1 / (1 - rate), jd)
+                                 .astype(jnp.float32)))
+        if rate == 0.1 and dtype != "float32":
+            assert scale == {"bfloat16": 1.109375,
+                             "float16": 1.111328125}[dtype]
         np.testing.assert_array_equal(
             out.float().detach().numpy()[kept],
-            _bf16_np(_bf16_np(x, dtype)[kept] * scale, dtype))
+            _round_np(_round_np(x, dtype)[kept] * scale, dtype))
 
 
 @pytest.mark.parametrize("ctr,key,want", [
@@ -125,7 +129,8 @@ def test_flat_index_bits_take_word_i_mod_4_of_group_i_div_4():
         assert int(got) == int(words[i % 4]), i
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("skip", range(8))
 def test_k5_buffers_meet_16_byte_boundaries_at_the_same_element(dtype,
                                                                 skip):

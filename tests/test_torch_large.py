@@ -37,7 +37,7 @@ from vlbert_tpu.models.task_modules import build_module as j_build_module
 from vlbert_tpu.training.checkpoint import flatten_params
 from vlbert_tpu.training.convert import convert_state_dict, fuse_qkv_params
 from vlbert_tpu.utils.config import load_config as j_load_config
-from vlbert_tpu_torch.engine.train import check_unported
+from vlbert_tpu_torch.engine.train import compute_policy
 from vlbert_tpu_torch.models.layers import init_weights
 from vlbert_tpu_torch.models.task_modules import build_module
 from vlbert_tpu_torch.models.vlbert import (TIED_DECODER,
@@ -232,11 +232,16 @@ def test_every_large_yaml_is_covered():
 
 @pytest.mark.parametrize("yaml_path", OTHER_LARGE)
 def test_other_large_yamls_build_on_meta(yaml_path):
-    """(d) Each builds at 24 x 1024 x 16 on the meta device and passes
-    check_unported (TRAIN.FP16 trains in bf16)."""
+    """(d) Each builds at 24 x 1024 x 16 on the meta device, and its dtype
+    policy is the JAX package's (TRAIN.FP16 trains in bf16 with no loss
+    scale; its 'dynamic' scale is read only under FP16_PARITY_MODE)."""
     task = yaml_path.split("/")[0]
     cfg = load_config(task, os.path.join(CFGS, yaml_path))
-    check_unported(cfg)
+    dtype, scale = compute_policy(cfg)
+    assert scale == 1.0
+    assert dtype == (torch.bfloat16 if cfg.TRAIN.FP16 else
+                     {"bfloat16": torch.bfloat16, "float16": torch.float16}
+                     .get(cfg.TPU.COMPUTE_DTYPE, torch.float32))
     tm = _quiet_build(cfg, task, device="meta")
     enc = tm.vlbert.encoder
     assert len(enc.layer) == 24

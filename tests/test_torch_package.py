@@ -221,9 +221,10 @@ def test_ctypes_signatures_match_the_c_entry_points():
             where[m.group(1)] = src.name
     assert set(found) == set(build.SIGNATURES)
     assert {"roi_align_fwd", "roi_align_bwd", "attention_fwd_f32",
-            "attention_fwd_bf16",
+            "attention_fwd_bf16", "attention_fwd_fp16",
             "attention_dropout_fwd_f32", "attention_dropout_bwd_f32",
-            "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16"} \
+            "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16",
+            "attention_dropout_fwd_fp16", "attention_dropout_bwd_fp16"} \
         <= set(found)
     for name, types_ in found.items():
         assert list(build.SIGNATURES[name]) == types_, name
@@ -234,10 +235,19 @@ def test_ctypes_signatures_match_the_c_entry_points():
     assert found["attention_fwd_f32"] == found["attention_fwd_bf16"]
     assert (found["attention_dropout_bwd_f32"]
             == found["attention_dropout_bwd_bf16"])
-    # feat, feat_is_bf16, boxes, box_mask, out, out_is_bf16, ...
+    # fp16 attention: the bf16 source's entry points, with their arguments
+    for kind in ("fwd", "dropout_fwd", "dropout_bwd"):
+        name = f"attention_{kind}_fp16"
+        assert where[name] == "attention_dropout_mma.cu"
+        assert found[name] == found[f"attention_{kind}_bf16"]
+    # feat, feat_dtype, boxes, box_mask, out, out_dtype, ...: a dtype code
+    # (0 fp32, 1 bf16, 2 fp16) for the map and for the output
+    assert found["roi_align_fwd"][:2] == [ctypes.c_void_p, ctypes.c_int]
     assert found["roi_align_fwd"][4:6] == [ctypes.c_void_p, ctypes.c_int]
     assert len(found["roi_align_fwd"]) == 17
-    # g, g_is_bf16, boxes, box_mask, dfeat, dfeat_is_bf16, ...: K1b takes
+    # x, out, n, dtype, ...
+    assert found["dropout_fwd"][3] == ctypes.c_int
+    # g, g_dtype, boxes, box_mask, dfeat, dfeat_dtype, ...: K1b takes
     # K1's arguments in K1's order, g and dF in place of map and output
     assert found["roi_align_bwd"] == found["roi_align_fwd"]
 

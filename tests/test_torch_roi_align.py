@@ -7,6 +7,7 @@ bf16 outputs are held within one bf16 step of the JAX package's fp32
 result rounded to bf16 (|a - b| <= 2**-7 |b| + 1e-4, chip_smoke's K1
 tolerance): the fp32 sums are taken in another order, so where they
 straddle a rounding boundary the two round to neighbouring bf16 values.
+fp16 outputs likewise within one fp16 step (2**-10 |b| + 1e-4).
 """
 
 import types
@@ -17,7 +18,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from chip_smoke import K1_ATOL, K1_BF16_RTOL, K1_SERVE_BOXES, K1_SERVE_LIVE
+from chip_smoke import (K1_ATOL, K1_BF16_RTOL, K1_FP16_RTOL, K1_SERVE_BOXES,
+                        K1_SERVE_LIVE)
 from vlbert_tpu.ops.roi_align import roi_align as j_roi_align
 from vlbert_tpu_torch import ops
 from vlbert_tpu_torch.kernels import build
@@ -27,6 +29,9 @@ from vlbert_tpu_torch.ops import roi_align as troi
 
 T = torch.from_numpy
 BF16 = torch.bfloat16
+F16 = torch.float16
+# one step of a 16-bit type, relative
+STEP = {"bfloat16": K1_BF16_RTOL, "float16": K1_FP16_RTOL}
 
 
 def _edge_case(rng, C=16):
@@ -47,7 +52,7 @@ def _edge_case(rng, C=16):
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
-@pytest.mark.parametrize("feat_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("feat_dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("sampling_ratio", [0, 1, 2])
 def test_plain_bf16_out_matches_jax_cast(rng, impl, feat_dtype,
                                          sampling_ratio):
@@ -68,6 +73,27 @@ def test_plain_bf16_out_matches_jax_cast(rng, impl, feat_dtype,
     assert excess.max() <= 0, excess.max()
     assert np.all(got[~mask] == 0)
     assert np.abs(want).max() > 1.0     # the boxes do read the map
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("feat_dtype", ["float32", "float16"])
+def test_plain_fp16_out_matches_jax_cast(rng, impl, feat_dtype):
+    """roi_align_plain(..., out_dtype=fp16) against the JAX package's
+    roi_align(...).astype(float16), as its FastRCNN computes it under
+    float16 compute: within one fp16 step."""
+    feat, boxes, mask = _edge_case(rng)
+    want = j_roi_align(jnp.asarray(feat).astype(feat_dtype),
+                       jnp.asarray(boxes), jnp.asarray(mask), impl=impl,
+                       sampling_ratio=0).astype(jnp.float16)
+    want = np.asarray(want.astype(jnp.float32))
+    got = troi.roi_align_plain(T(feat).to(getattr(torch, feat_dtype)),
+                               T(boxes), T(mask), sampling_ratio=0,
+                               out_dtype=F16)
+    assert got.dtype == F16 and got.shape == (2, 16, 14, 14, 16)
+    got = got.float().numpy()
+    excess = np.abs(got - want) - (K1_FP16_RTOL * np.abs(want) + K1_ATOL)
+    assert excess.max() <= 0, excess.max()
+    assert np.all(got[~mask] == 0)
 
 
 @pytest.mark.parametrize("sampling_ratio", [0, 1, 2])
@@ -122,23 +148,26 @@ def _shifted(shape, dtype, elements):
     ("fp32 C=6", ValueError, "not a multiple of 4"),
     ("bf16 map 2 bytes in", ValueError, "16-byte boundary"),
     ("fp32 map 4 bytes in", ValueError, "16-byte boundary"),
-    ("out fp16", TypeError, "out_dtype"),
+    ("out fp64", TypeError, "out_dtype"),
+    ("bf16 map fp16 out", TypeError, "not mixed"),
 ])
 def test_cuda_route_refuses_what_the_kernel_cannot_take(cuda_route, case,
                                                         exc, match):
-    """The kernel moves 16 bytes of channels a thread and stores fp32 or
-    bf16: C off the vector width, a map off a 16-byte boundary or another
-    output type is refused before any launch, never handed to the plain
-    version."""
+    """The kernel moves 16 bytes of channels a thread and stores fp32,
+    bf16 or fp16 (not one 16-bit type from the other): C off the vector
+    width, a map off a 16-byte boundary or another output type is refused
+    before any launch, never handed to the plain version."""
     kw = {}
     feat = {"bf16 C=12": lambda: torch.zeros(1, 6, 7, 12, dtype=BF16),
             "fp32 C=6": lambda: torch.zeros(1, 6, 7, 6),
             "bf16 map 2 bytes in": lambda: _shifted((1, 6, 7, 8), BF16, 1),
             "fp32 map 4 bytes in": lambda: _shifted((1, 6, 7, 8),
                                                     torch.float32, 1),
-            "out fp16": lambda: torch.zeros(1, 6, 7, 8, dtype=BF16)}[case]()
-    if case == "out fp16":
-        kw["out_dtype"] = torch.float16
+            "out fp64": lambda: torch.zeros(1, 6, 7, 8, dtype=BF16),
+            "bf16 map fp16 out": lambda: torch.zeros(1, 6, 7, 8,
+                                                     dtype=BF16)}[case]()
+    kw["out_dtype"] = {"out fp64": torch.float64,
+                       "bf16 map fp16 out": F16}.get(case, torch.float32)
     assert feat.is_contiguous()
     with pytest.raises(exc, match=match):
         troi.roi_align(feat, torch.zeros(1, 2, 4),
@@ -171,7 +200,7 @@ def test_cuda_route_reads_a_bool_mask_in_place(cuda_route, out_dtype):
     (args,) = cuda_route.calls
     assert args[2] == boxes.data_ptr() and args[3] == mask.data_ptr()
     assert args[4] == out.data_ptr()
-    assert (args[1], args[5]) == (1, int(out_dtype == BF16))
+    assert (args[1], args[5]) == (1, ops.DTYPE_CODES[out_dtype])
     assert out.dtype == out_dtype and out.shape == (1, 3, 14, 14, 16)
     assert troi.roi_align.launches == 1
     # a mask of another dtype is converted to bytes first
@@ -179,7 +208,7 @@ def test_cuda_route_reads_a_bool_mask_in_place(cuda_route, out_dtype):
     assert cuda_route.calls[1][3] != mask.data_ptr()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16, F16])
 def test_fast_rcnn_asks_roi_align_for_its_compute_dtype(rng, monkeypatch,
                                                         dtype):
     """The end-to-end FastRCNN takes ROIAlign's output in its compute dtype
@@ -208,7 +237,7 @@ def test_fast_rcnn_asks_roi_align_for_its_compute_dtype(rng, monkeypatch,
 # ------------------------------------------------- K1b (the dF backward)
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
-@pytest.mark.parametrize("feat_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("feat_dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("sampling_ratio", [0, 1, 2])
 def test_bwd_plain_matches_jax_vjp(rng, impl, feat_dtype, sampling_ratio):
     """roi_align_bwd_plain against jax.vjp of the JAX package's roi_align
@@ -216,8 +245,8 @@ def test_bwd_plain_matches_jax_vjp(rng, impl, feat_dtype, sampling_ratio):
     the kernel in interpret mode) and through autodiff of the einsums
     (impl="xla"), on the K1 edge boxes (off the map, the edges, sub-pixel
     boxes, padded slots). fp32: rtol 1e-3 / atol 1e-4 (sums in another
-    order); a bf16 map gets its gradient in bf16, held within one bf16
-    step of JAX's, as K1's bf16 output is."""
+    order); a bf16 (fp16) map gets its gradient in bf16 (fp16), held
+    within one step of that type of JAX's, as K1's 16-bit output is."""
     import jax
 
     feat, boxes, mask = _edge_case(rng)
@@ -237,7 +266,8 @@ def test_bwd_plain_matches_jax_vjp(rng, impl, feat_dtype, sampling_ratio):
     if feat_dtype == "float32":
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
     else:
-        excess = np.abs(got - want) - (K1_BF16_RTOL * np.abs(want) + K1_ATOL)
+        excess = np.abs(got - want) - (STEP[feat_dtype] * np.abs(want)
+                                       + K1_ATOL)
         assert excess.max() <= 0, excess.max()
     assert np.abs(want).max() > 1.0     # the boxes do cover the map
 
@@ -285,7 +315,7 @@ def _fake_kernels(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16, F16])
 def test_cuda_route_under_grad_runs_k1_then_k1b(rng, monkeypatch, dtype):
     """A CUDA map that requires grad goes through the autograd Function:
     one K1 forward (in the output dtype asked for), one K1b backward in
@@ -314,7 +344,8 @@ class _FakeBwdLib(_FakeLib):
 
 @pytest.mark.parametrize("g_dtype,f_dtype", [
     (torch.float32, torch.float32), (BF16, BF16), (torch.float32, BF16),
-    (BF16, torch.float32)])
+    (BF16, torch.float32), (F16, F16), (torch.float32, F16),
+    (F16, torch.float32)])
 def test_k1b_launch_reads_g_and_the_mask_in_place(monkeypatch, g_dtype,
                                                   f_dtype):
     """K1b's wrapper hands the kernel g's own storage (a contiguous g is
@@ -332,16 +363,17 @@ def test_k1b_launch_reads_g_and_the_mask_in_place(monkeypatch, g_dtype,
                                   14, 1.0 / 16, 2)
     ((name, *args),) = lib.calls
     assert name == "bwd" and df.shape == (2, 5, 6, 16) and df.dtype == f_dtype
-    assert args[0] == g.data_ptr() and args[1] == int(g_dtype == BF16)
+    assert args[0] == g.data_ptr() and args[1] == ops.DTYPE_CODES[g_dtype]
     assert args[2] == boxes.data_ptr() and args[3] == mask.data_ptr()
-    assert args[4] == df.data_ptr() and args[5] == int(f_dtype == BF16)
+    assert args[4] == df.data_ptr() and args[5] == ops.DTYPE_CODES[f_dtype]
     assert args[6:13] == [2, 5, 6, 16, 3, 14, 14]
     assert args[13:16] == [1.0 / 16, 2, troi.MAX_GRID]
 
 
 @pytest.mark.parametrize("case,exc,match", [
     ("g shape", ValueError, "g must be"),
-    ("g fp16", TypeError, "fp32 or bf16"),
+    ("g fp64", TypeError, "fp32, bf16 or fp16"),
+    ("g fp16 dF bf16", TypeError, "not mixed"),
     ("pooled 17", ValueError, "pooled sizes up to 16"),
     ("bf16 C=12", ValueError, "16 bytes of channels"),
     ("fp32 C=4100", ValueError, "at most 512"),
@@ -350,9 +382,11 @@ def test_k1b_refuses_what_the_kernel_cannot_take(monkeypatch, case, exc,
                                                  match):
     lib = _FakeBwdLib()
     monkeypatch.setattr(build, "load", lambda: lib)
-    C, P, dtype, shape = 16, 14, torch.float32, None
-    if case == "g fp16":
-        dtype = torch.float16
+    C, P, dtype, shape, f_dtype = 16, 14, torch.float32, None, torch.float32
+    if case == "g fp64":
+        dtype = torch.float64
+    if case == "g fp16 dF bf16":
+        dtype, f_dtype = F16, BF16
     if case == "pooled 17":
         P = 17
     if case == "bf16 C=12":
@@ -365,7 +399,7 @@ def test_k1b_refuses_what_the_kernel_cannot_take(monkeypatch, case, exc,
     with pytest.raises(exc, match=match):
         troi._roi_align_bwd_cuda(g, torch.zeros(1, 2, 4),
                                  torch.ones(1, 2, dtype=torch.bool),
-                                 shape or (1, 5, 6, C), torch.float32, P, P,
+                                 shape or (1, 5, 6, C), f_dtype, P, P,
                                  1.0 / 16, 1)
     assert lib.calls == []
 

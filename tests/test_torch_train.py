@@ -366,41 +366,60 @@ def test_train_net_refuses_what_is_not_ported(tmp_path):
 
 
 def test_fp16_parity_mode_is_refused(tmp_path):
-    """TRAIN.FP16 with TPU.FP16_PARITY_MODE is float16 compute in the JAX
-    package; the port's kernels take fp32 and bf16 only, so it raises.
-    TRAIN.FP16 alone trains in bf16."""
-    from vlbert_tpu_torch.engine.train import check_unported, train_net
+    """No longer refused: TRAIN.FP16 with TPU.FP16_PARITY_MODE trains in
+    float16 with the static loss scale, as the JAX package does (on the
+    CPU through the plain versions): the tiny fixture's two epochs run,
+    the model computes in float16 and the loss falls. TRAIN.FP16 alone
+    trains in bfloat16."""
+    from vlbert_tpu_torch.engine.train import compute_policy, train_net
 
     data_dir, vocab_dir = _write_vqa_fixture(tmp_path)
     cfg = _tiny_vqa_cfg(tmp_path, data_dir, vocab_dir)
+    cfg.DATASET.PRECOMPUTED_FEAT_DIM = 32
+    cfg.TPU.PROCESS_WORKERS = False
+    cfg.TRAIN.LR, cfg.TRAIN.WARMUP = 1e-3, False
+    cfg.RNG_SEED = 0
     cfg.TRAIN.FP16 = True
-    check_unported(cfg)
+    assert compute_policy(cfg) == (torch.bfloat16, 1.0)
     cfg.TPU.FP16_PARITY_MODE = True
+    cfg.TRAIN.FP16_LOSS_SCALE = 128.0
+    assert compute_policy(cfg) == (torch.float16, 128.0)
     args = types.SimpleNamespace(model_dir="", device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="FP16_PARITY_MODE.*float32 and bfloat16 only"):
-        train_net(args, cfg, "vqa")
-    cfg.TRAIN.FP16 = False
-    check_unported(cfg)
+    model, history = train_net(args, cfg, "vqa")
+    assert {m.compute_dtype for m in model.modules()
+            if hasattr(m, "compute_dtype")} == {torch.float16}
+    loss = history["loss"]
+    assert len(loss) == 16 and np.isfinite(loss).all()
+    assert np.mean(loss[-4:]) < np.mean(loss[:4])
 
 
-def test_compute_dtype_float16_is_refused(tmp_path):
-    """TPU.COMPUTE_DTYPE float16 trains in float16 in the JAX package; the
-    port's kernels take fp32 and bf16 only, so it raises before anything
-    is built (it trained in fp32 unannounced before). Under TRAIN.FP16
-    without the parity mode the JAX package takes bfloat16, and so does
-    the port."""
-    from vlbert_tpu_torch.engine.train import check_unported, train_net
+def test_compute_dtype_float16_is_refused(tmp_path, monkeypatch):
+    """No longer refused: TPU.COMPUTE_DTYPE float16 builds the model in
+    float16 with no loss scale, as the JAX package does (it trained in
+    fp32 unannounced before it was refused). Under TRAIN.FP16 without the
+    parity mode both packages take bfloat16; float32 stays float32."""
+    import vlbert_tpu_torch.engine.train as t_train
 
     data_dir, vocab_dir = _write_vqa_fixture(tmp_path)
     cfg = _tiny_vqa_cfg(tmp_path, data_dir, vocab_dir)
     cfg.TPU.COMPUTE_DTYPE = "float16"
     args = types.SimpleNamespace(model_dir="", device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="COMPUTE_DTYPE float16.*float32 and bfloat16"):
-        train_net(args, cfg, "vqa")
+    built = []
+
+    class Built(Exception):
+        pass
+
+    def stop(*a, dtype=None, **kw):
+        built.append(dtype)
+        raise Built
+
+    monkeypatch.setattr(t_train, "build_module", stop)
+    with pytest.raises(Built):
+        t_train.train_net(args, cfg, "vqa")
+    assert built == [torch.float16]
+    assert t_train.compute_policy(cfg) == (torch.float16, 1.0)
     cfg.TRAIN.FP16 = True
-    check_unported(cfg)
+    assert t_train.compute_policy(cfg) == (torch.bfloat16, 1.0)
     cfg.TPU.COMPUTE_DTYPE = "float32"
     cfg.TRAIN.FP16 = False
-    check_unported(cfg)
+    assert t_train.compute_policy(cfg) == (torch.float32, 1.0)

@@ -284,27 +284,36 @@ def test_bf16_attention_route_refuses_rows_off_16_byte_boundaries(
 
 
 def test_attention_kernels_are_chosen_by_dtype():
-    """bf16 launches the tensor-core kernels of attention_dropout_mma.cu
-    (K2, K3, K4); fp32 launches K2, K3 and K4 of attention_f32_mma.cu (the
-    tensor cores by a three-product TF32 split). Each entry point is
-    defined in that one source."""
+    """bf16 and fp16 launch the tensor-core kernels of
+    attention_dropout_mma.cu (K2, K3, K4), each type its own entry points;
+    fp32 launches K2, K3 and K4 of attention_f32_mma.cu (the tensor cores
+    by a three-product TF32 split). Each entry point is defined in that
+    one source; no other dtype has a kernel."""
     import re
     import types
 
     from vlbert_tpu_torch.kernels import build
 
     lib = types.SimpleNamespace(**{n: n for n in (
-        "attention_fwd_bf16", "attention_fwd_f32",
+        "attention_fwd_bf16", "attention_fwd_f32", "attention_fwd_fp16",
         "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16",
-        "attention_dropout_fwd_f32", "attention_dropout_bwd_f32")})
+        "attention_dropout_fwd_f32", "attention_dropout_bwd_f32",
+        "attention_dropout_fwd_fp16", "attention_dropout_bwd_fp16")})
     q16 = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16)
     q32 = q16.float()
+    qh = q16.half()
     assert tattn._attention_kernel(lib, q16) == "attention_fwd_bf16"
     assert tattn._attention_kernel(lib, q32) == "attention_fwd_f32"
+    assert tattn._attention_kernel(lib, qh) == "attention_fwd_fp16"
     assert tattn._dropout_kernels(lib, q16) == (
         "attention_dropout_fwd_bf16", "attention_dropout_bwd_bf16")
     assert tattn._dropout_kernels(lib, q32) == (
         "attention_dropout_fwd_f32", "attention_dropout_bwd_f32")
+    assert tattn._dropout_kernels(lib, qh) == (
+        "attention_dropout_fwd_fp16", "attention_dropout_bwd_fp16")
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
+        tattn._check_cuda_args(q32.double(), q32.double(), q32.double(),
+                               torch.zeros(1, 1, 1, 2), "fused_attention")
     defined = {}
     for src in build.sources():
         for name in re.findall(r'extern "C" int (\w+)\(', src.read_text()):
@@ -313,6 +322,9 @@ def test_attention_kernels_are_chosen_by_dtype():
         "attention_fwd_bf16": ["attention_dropout_mma.cu"],
         "attention_dropout_fwd_bf16": ["attention_dropout_mma.cu"],
         "attention_dropout_bwd_bf16": ["attention_dropout_mma.cu"],
+        "attention_fwd_fp16": ["attention_dropout_mma.cu"],
+        "attention_dropout_fwd_fp16": ["attention_dropout_mma.cu"],
+        "attention_dropout_bwd_fp16": ["attention_dropout_mma.cu"],
         "attention_fwd_f32": ["attention_f32_mma.cu"],
         "attention_dropout_bwd_f32": ["attention_f32_mma.cu"],
         "attention_dropout_fwd_f32": ["attention_f32_mma.cu"]}

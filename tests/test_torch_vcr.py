@@ -444,23 +444,26 @@ def test_vcr_val_pairs_the_two_models_as_jax_does(tmp_path, monkeypatch):
 
 def test_vcr_training_on_the_card_is_refused_before_a_step(tmp_path):
     """With K1b (the ROIAlign backward) VCR trains from pixels on the card:
-    check_unported accepts it, and train_net on a machine without a card
-    gets past it to the device check, which refuses without falling back
-    to the CPU. What stays refused before a step is TRAIN.FP16 with
-    TPU.FP16_PARITY_MODE."""
+    its dtype policy is accepted, and train_net on a machine without a
+    card gets past it to the device check, which refuses without falling
+    back to the CPU. TRAIN.FP16 with TPU.FP16_PARITY_MODE trains in fp16
+    with the static loss scale; what stays refused before a step is the
+    shipped fp16 configs' 'dynamic' scale under it."""
     import types
 
-    from vlbert_tpu_torch.engine.train import check_unported, train_net
+    from vlbert_tpu_torch.engine.train import compute_policy, train_net
 
     cfg = _cfg()
     cfg.NETWORK.IMAGE_FEAT_PRECOMPUTED = False
-    check_unported(cfg)
+    assert compute_policy(cfg) == (torch.bfloat16, 1.0)
     if not torch.cuda.is_available():
         args = types.SimpleNamespace(model_dir=str(tmp_path), device="cuda")
         with pytest.raises(RuntimeError, match="cuda is not available"):
             train_net(args, cfg, "vcr")
     cfg.TRAIN.FP16 = True
-    check_unported(cfg)
+    assert compute_policy(cfg) == (torch.bfloat16, 1.0)
     cfg.TPU.FP16_PARITY_MODE = True
-    with pytest.raises(NotImplementedError, match="FP16_PARITY_MODE"):
-        check_unported(cfg)
+    assert compute_policy(cfg) == (torch.float16, 128.0)
+    cfg.TRAIN.FP16_LOSS_SCALE = "dynamic"
+    with pytest.raises(ValueError, match="FP16_LOSS_SCALE"):
+        compute_policy(cfg)

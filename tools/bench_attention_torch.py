@@ -18,7 +18,11 @@ calls a window, in bf16 and in fp32:
 
 Each entry is chip_smoke.py's ``time_calls``: the summed device time of
 the kernels a call runs (torch.profiler), the CUDA-event time per call,
-and the device ms by kernel name.
+and the device ms by kernel name. ``sha256`` holds a digest of each
+kernel's result on its own seeded inputs (K2's and K3's output, K4's dq,
+dk, dv and dbias, and K5's output at [16,128,768] in Philox and
+explicit-bits mode), in bf16 and fp32, so that two trees' outputs are
+compared bit for bit.
 
 --tree DIR times the vlbert_tpu_torch package of another checkout (an
 earlier commit unpacked with ``git archive``) with this checkout's harness,
@@ -45,6 +49,46 @@ def _harness():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def digests(h, dev):
+    """{kernel/dtype/L: sha256 of its result}, each on inputs made from
+    chip_smoke.py's seed."""
+    import hashlib
+
+    import torch
+    from vlbert_tpu_torch.ops.attention import (fused_attention,
+                                                fused_attention_dropout)
+    from vlbert_tpu_torch.ops.dropout import hw_dropout
+
+    def sha(*ts):
+        m = hashlib.sha256()
+        for t in ts:
+            m.update(t.detach().contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        return m.hexdigest()[:16]
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype)[6:]
+        for L in (41, 128, 173):
+            g = torch.Generator(device=dev).manual_seed(h.SEED + L)
+            qkv, (q, k, v), bias = h._train_qkv(g, dev, dtype, L=L)
+            gy = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+            with torch.no_grad():
+                out[f"K2/{dn}/L{L}"] = sha(fused_attention(q, k, v, bias))
+            a = fused_attention_dropout(q, k, v, bias, h.DROP_RATE,
+                                        seed=h.SEED)
+            out[f"K3/{dn}/L{L}"] = sha(a)
+            out[f"K4/{dn}/L{L}"] = sha(*torch.autograd.grad(a, (qkv, bias),
+                                                            gy))
+        g = torch.Generator(device=dev).manual_seed(h.SEED + 5)
+        x = torch.randn(16, 128, 768, generator=g, device=dev).to(dtype)
+        bits = torch.randint(0, 65536, x.shape, generator=g, device=dev,
+                             dtype=torch.int32)
+        out[f"K5/{dn}"] = sha(hw_dropout(x, h.DROP_RATE, seed=h.SEED),
+                              hw_dropout(x, h.DROP_RATE, bits=bits))
+    return out
 
 
 def main():
@@ -111,6 +155,7 @@ def main():
                 lambda: fused_attention(q1, k1, v1, b1))
         res[f"K4/{dn}"] = k4(dtype, 128)
         res[f"K4_L173/{dn}"] = k4(dtype, 173)
+    res["sha256"] = digests(h, dev)
     line = json.dumps(res)
     print(line)
     if args.json:

@@ -25,7 +25,9 @@ call and the kernels a call runs. Then K1b (bf16 g and dF, sampling ratio
 
 and k1b_sha256: a digest of K1b's dF on every case, dtype pair and
 sampling ratio of chip_smoke.py's k1b_parity, so that two trees' outputs
-are compared bit for bit. With --probes, also what bounds K1b:
+are compared bit for bit; k1_sha256 the same of K1's output over
+k1_parity's cases (fp32 and bf16 maps and outputs). With --probes,
+also what bounds K1b:
 
   k1b/padded        VCR's call with every slot padded: the launch, the
                     per-block set-up and the zero stores;
@@ -193,6 +195,19 @@ def main():
         probes["bytes"] = {"must_move": must_move, "tap_gathers": gathers,
                            "live_slots": live}
         res["probes"] = probes
+    digests = {}
+    for name, feat, boxes, mask, ratios in h.k1_cases(dev):
+        for dtype in (torch.float32, bf16):
+            for out_dtype in (torch.float32, bf16):
+                for sr in ratios:
+                    out = roi_align(feat.to(dtype), boxes, mask,
+                                    sampling_ratio=sr, out_dtype=out_dtype)
+                    key = (f"{name}/{str(dtype)[6:]}->{str(out_dtype)[6:]}"
+                           f"/sr{sr}")
+                    digests[key] = hashlib.sha256(
+                        out.view(torch.uint8).cpu().numpy().tobytes()
+                    ).hexdigest()[:16]
+    res["k1_sha256"] = digests
     if hasattr(troi, "_roi_align_bwd_cuda"):
         res.update(k1b(h, troi, dev, args.probes))
     line = json.dumps(res)

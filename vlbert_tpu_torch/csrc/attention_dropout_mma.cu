@@ -1,6 +1,10 @@
-// Attention on Hopper's tensor cores, bf16: the forward without dropout
-// (kernel K2), and with attention-prob dropout the forward (kernel K3) and
-// its deterministic recompute backward (kernel K4).
+// Attention on Hopper's tensor cores, bf16 and fp16: the forward without
+// dropout (kernel K2), and with attention-prob dropout the forward (kernel
+// K3) and its deterministic recompute backward (kernel K4). One source for
+// both 16-bit types: the element type T is a template parameter, and the
+// fp16 MMA (m16n8k16 .f16) has the bf16 one's fragment layout, so only the
+// instruction, the packs and the stores differ; the masks, tiles and
+// sweeps are the same code.
 //
 //   P   = softmax(Q K^T / sqrt(D) + bias)           (fp32, per (b, h))
 //   Pd  = keep ? P * drop_scale : 0                 (fp32 scale; K2: Pd = P)
@@ -21,7 +25,10 @@
 // -10000; rate == 1 gives zeros (drop_scale 0). The operands of the
 // products are bf16: q, k, v and g as given, P * keep rounded to bf16 for
 // P V (the rounding of p.astype(q.dtype) in the JAX package's XLA path),
-// dS and Pd rounded to bf16 for dQ, dK and dV. K2 rounds P to bf16 for P V
+// dS and Pd rounded to bf16 for dQ, dK and dV (in fp16 all of it
+// likewise in fp16: fp16 holds 3 more bits of mantissa and a narrower
+// range, 65504, which an fp16 caller's values stay within; the
+// accumulators and the statistics stay fp32). K2 rounds P to bf16 for P V
 // too, one MMA per product: the TPU kernel multiplies fp32 P by fp32 V, but
 // the rounding moves the output by at most 2^-9 of max |v| (about 8e-3 at
 // |v| <= 4), under chip_smoke.py's bf16 tolerance of 2e-2 and the same as
@@ -83,16 +90,18 @@
 //    with the fp32 kernels.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "attention_dropout.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kD = 64;          // head dim
 constexpr int kT = 64;          // rows per tile: query rows, keys
-constexpr int kS = kD + 8;      // shared-memory row stride, bf16
+constexpr int kS = kD + 8;      // shared-memory row stride, 16-bit elements
 constexpr int kThreads = 128;   // 4 warps x 16 rows
 // the backward kernels' blocks per SM: at most 168 registers a thread, so
 // the 384 blocks of the VQA training shape run in one wave on 132 SMs
@@ -100,11 +109,12 @@ constexpr int kThreads = 128;   // 4 warps x 16 rows
 constexpr int kBwdBlocksPerSM = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
-typedef bf16 Tile[kT][kS];
+template <typename T>
+using Tile = T[kT][kS];
 
 // ---------------------------------------------------------------- PTX
 
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -112,7 +122,7 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
       : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -120,31 +130,59 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
       : "memory");
 }
 
-// c (16 x 8, fp32) += a (16 x 16, bf16) b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c (16 x 8, fp32) += a (16 x 16, T) b (16 x 8, T)
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const unsigned (&a)[4],
+                                      unsigned b0, unsigned b1) {
+  if constexpr (std::is_same_v<T, bf16>)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
+// two fp32 values rounded to a T pair (nearest even), as one 32-bit word
+template <typename T>
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  } else {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
+  }
 }
 
-__device__ __forceinline__ float2 unpack_bf16(unsigned u) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&u);
-  return make_float2(__low2float(v), __high2float(v));
+template <typename T>
+__device__ __forceinline__ float2 unpack2(unsigned u) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&u);
+    return make_float2(__low2float(v), __high2float(v));
+  } else {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  }
+}
+
+// stores two fp32 values as a T pair at o
+template <typename T>
+__device__ __forceinline__ void store2(T* o, float lo, float hi) {
+  if constexpr (std::is_same_v<T, bf16>)
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(lo, hi);
+  else
+    *reinterpret_cast<__half2*>(o) = __floats2half2_rn(lo, hi);
 }
 
 // ---------------------------------------------------------------- tiles
 
 // Rows r0 .. r0 + 63 of one (b, h) slice (base, row stride sl elements)
 // into a tile, 16 bytes per copy; rows >= L are zero-filled.
-__device__ __forceinline__ void load_tile(Tile& s, const bf16* base,
+template <typename T>
+__device__ __forceinline__ void load_tile(Tile<T>& s, const T* base,
                                           long long sl, int r0, int L) {
 #pragma unroll
   for (int it = 0; it < kT * kD / 8 / kThreads; ++it) {
@@ -157,7 +195,8 @@ __device__ __forceinline__ void load_tile(Tile& s, const bf16* base,
 
 // A fragments of a warp's 16 tile rows from row0, over the 64 dims: a[ks]
 // covers dims 16 ks .. 16 ks + 15.
-__device__ __forceinline__ void load_a(unsigned (&a)[4][4], const Tile& s,
+template <typename T>
+__device__ __forceinline__ void load_a(unsigned (&a)[4][4], const Tile<T>& s,
                                        int row0) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -168,10 +207,10 @@ __device__ __forceinline__ void load_a(unsigned (&a)[4][4], const Tile& s,
 // c[n] = A B^T for n-tile n (n < NT): A is 16 rows x 64 dims in fragments,
 // B the tile's rows row0 + 8 n .. row0 + 8 n + 7 (64 dims each). S = Q K^T
 // and its kin.
-template <int NT>
+template <int NT, typename T>
 __device__ __forceinline__ void mma_abt(float (&c)[NT][4],
                                         const unsigned (&a)[4][4],
-                                        const Tile& s, int row0) {
+                                        const Tile<T>& s, int row0) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.0f;
@@ -182,33 +221,33 @@ __device__ __forceinline__ void mma_abt(float (&c)[NT][4],
       unsigned b[4];
       ldsm_x4(b, &s[row0 + 16 * np + (lane & 7) + 8 * (lane >> 4)]
                    [16 * ks + 8 * ((lane >> 3) & 1)]);
-      mma_bf16(c[2 * np], a[ks], b[0], b[1]);
-      mma_bf16(c[2 * np + 1], a[ks], b[2], b[3]);
+      mma16<T>(c[2 * np], a[ks], b[0], b[1]);
+      mma16<T>(c[2 * np + 1], a[ks], b[2], b[3]);
     }
   }
 }
 
 // acc (16 rows x 64 dims, C layout) += P T: P is 16 rows x 16 KS columns
-// in C layout (2 KS n-tiles, rounded to bf16 here), T the tile's rows
+// in C layout (2 KS n-tiles, rounded to T here), the tile's rows
 // row0 .. row0 + 16 KS - 1.
-template <int KS>
+template <int KS, typename T>
 __device__ __forceinline__ void mma_pt(float (&acc)[8][4],
                                        const float (&p)[2 * KS][4],
-                                       const Tile& s, int row0) {
+                                       const Tile<T>& s, int row0) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    const unsigned a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    const unsigned a[4] = {pack2<T>(p[2 * kk][0], p[2 * kk][1]),
+                           pack2<T>(p[2 * kk][2], p[2 * kk][3]),
+                           pack2<T>(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack2<T>(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
     for (int dp = 0; dp < 4; ++dp) {
       unsigned b[4];
       ldsm_x4_t(b, &s[row0 + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)]
                      [16 * dp + 8 * (lane >> 4)]);
-      mma_bf16(acc[2 * dp], a, b[0], b[1]);
-      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+      mma16<T>(acc[2 * dp], a, b[0], b[1]);
+      mma16<T>(acc[2 * dp + 1], a, b[2], b[3]);
     }
   }
 }
@@ -217,19 +256,22 @@ __device__ __forceinline__ void mma_pt(float (&acc)[8][4],
 
 // Key tiles double-buffered: K, V and the tile's bias (times log2 e, -inf
 // past L).
+template <typename T>
 struct KV {
-  Tile k[2], v[2];
+  Tile<T> k[2], v[2];
   float bias[2][kT];
 };
 
+template <typename T>
 struct Slice {  // one (b, h): k and v rows and the batch row's bias
-  const bf16* k;
-  const bf16* v;
+  const T* k;
+  const T* v;
   long long ksl, vsl;
   const float* bias;
 };
 
-__device__ __forceinline__ void load_kv(KV& s, int j, const Slice& sl,
+template <typename T>
+__device__ __forceinline__ void load_kv(KV<T>& s, int j, const Slice<T>& sl,
                                         int L) {
   const int buf = j & 1, k0 = j * kT;
   load_tile(s.k[buf], sl.k, sl.ksl, k0, L);
@@ -242,8 +284,9 @@ __device__ __forceinline__ void load_kv(KV& s, int j, const Slice& sl,
 
 // Tile j of nt: issue tile j + 1's copies into the other buffer (free
 // since the barrier that ended tile j - 1), then wait for tile j's.
-__device__ __forceinline__ void next_kv(KV& s, int j, int nt,
-                                        const Slice& sl, int L) {
+template <typename T>
+__device__ __forceinline__ void next_kv(KV<T>& s, int j, int nt,
+                                        const Slice<T>& sl, int L) {
   if (j + 1 < nt) {
     load_kv(s, j + 1, sl, L);
     cp_async_commit();
@@ -259,9 +302,9 @@ __device__ __forceinline__ void next_kv(KV& s, int j, int nt,
 // sum (the quad sums it); acc = sum_j keep_j 2^(x_j - m) v_j in C layout,
 // unnormalized (kDrop false: every keep_j is 1 and da is not read). Tile
 // 0's copies must have been issued and committed.
-template <bool kDrop>
+template <bool kDrop, typename T>
 __device__ __forceinline__ void forward_sweep(
-    KV& s, const unsigned (&qf)[4][4], const Slice& sl, int L, int bh,
+    KV<T>& s, const unsigned (&qf)[4][4], const Slice<T>& sl, int L, int bh,
     int qa, float scale_log2, const DropArgs& da, float (&m)[2],
     float (&l)[2], float (&acc)[8][4]) {
   const int t = threadIdx.x & 3, nt = (L + kT - 1) / kT;
@@ -318,26 +361,28 @@ __device__ __forceinline__ void forward_sweep(
 
 // ---------------------------------------------------------------- kernels
 
-__device__ __forceinline__ Slice slice_of(const bf16* k, const bf16* v,
-                                          const float* bias, const Strides& st,
-                                          int b, int h, int L) {
-  return Slice{k + b * st.ksb + h * st.ksh, v + b * st.vsb + h * st.vsh,
-               st.ksl, st.vsl, bias + (long long)b * L};
+template <typename T>
+__device__ __forceinline__ Slice<T> slice_of(const T* k, const T* v,
+                                             const float* bias,
+                                             const Strides& st, int b, int h,
+                                             int L) {
+  return Slice<T>{k + b * st.ksb + h * st.ksh, v + b * st.vsb + h * st.vsh,
+                  st.ksl, st.vsl, bias + (long long)b * L};
 }
 
 // K3 (kDrop) and K2 (no mask; da.drop_scale 1): one block per (64 query
 // rows, h, b).
-template <bool kDrop>
+template <bool kDrop, typename T>
 __global__ void __launch_bounds__(kThreads)
-    attn_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ bias,
-                 bf16* __restrict__ out, int L, int H, Strides st,
-                 float scale, DropArgs da) {
-  __shared__ __align__(16) Tile qs;
-  __shared__ __align__(16) KV kv;
+    attn_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 T* __restrict__ out, int L, int H, Strides st, float scale,
+                 DropArgs da) {
+  __shared__ __align__(16) Tile<T> qs;
+  __shared__ __align__(16) KV<T> kv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kT;
-  const Slice sl = slice_of(k, v, bias, st, b, h, L);
+  const Slice<T> sl = slice_of(k, v, bias, st, b, h, L);
   load_tile(qs, q + b * st.qsb + h * st.qsh, st.qsl, q0, L);
   load_kv(kv, 0, sl, L);
   cp_async_commit();
@@ -354,30 +399,29 @@ __global__ void __launch_bounds__(kThreads)
     const float f = da.drop_scale / quad_sum(l[r]);
     const int row = qa + 8 * r;
     if (row >= L) continue;
-    bf16* o = out + (((long long)b * L + row) * H + h) * kD + 2 * (lane & 3);
+    T* o = out + (((long long)b * L + row) * H + h) * kD + 2 * (lane & 3);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2 * r] * f, acc[n][2 * r + 1] * f);
+      store2(o + 8 * n, acc[n][2 * r] * f, acc[n][2 * r + 1] * f);
   }
 }
 
 // K4, rows pass: one block per (64 query rows, h, b); dq and the row
 // statistics (m in the log2 domain, l, D).
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
-    attn_drop_bwd_rows_mma(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
+    attn_drop_bwd_rows_mma(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
                            const float* __restrict__ bias,
-                           const bf16* __restrict__ g, bf16* __restrict__ dq,
+                           const T* __restrict__ g, T* __restrict__ dq,
                            float* __restrict__ stats, int L, int H,
                            Strides st, float scale, DropArgs da) {
-  __shared__ __align__(16) Tile qg;  // the Q tile, then the g tile
-  __shared__ __align__(16) KV kv;
+  __shared__ __align__(16) Tile<T> qg;  // the Q tile, then the g tile
+  __shared__ __align__(16) KV<T> kv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
   const int q0 = blockIdx.x * kT;
-  const Slice sl = slice_of(k, v, bias, st, b, h, L);
+  const Slice<T> sl = slice_of(k, v, bias, st, b, h, L);
   const long long gsl = (long long)H * kD;  // g is contiguous [B, L, H, D]
   load_tile(qg, q + b * st.qsb + h * st.qsh, st.qsl, q0, L);
   cp_async_commit();
@@ -406,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
     inv_l[r] = 1.0f / l[r];
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      const float2 gv = unpack_bf16(gf[n >> 1][2 * (n & 1) + r]);
+      const float2 gv = unpack2<T>(gf[n >> 1][2 * (n & 1) + r]);
       dd[r] += gv.x * acc[n][2 * r] + gv.y * acc[n][2 * r + 1];
     }
     dd[r] = quad_sum(dd[r]) * da.drop_scale * inv_l[r];
@@ -446,11 +490,10 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
   for (int r = 0; r < 2; ++r) {
     const int row = qa + 8 * r;
     if (row >= L) continue;
-    bf16* o = dq + (((long long)b * L + row) * H + h) * kD + 2 * t;
+    T* o = dq + (((long long)b * L + row) * H + h) * kD + 2 * t;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
-          dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
+      store2(o + 8 * n, dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
     if (t == 0) {
       float* s = stats + ((long long)bh * L + row) * 3;
       s[0] = m[r];
@@ -462,29 +505,30 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
 
 // Query tiles double-buffered for the keys pass: Q, g and each row's
 // statistics (m, 1 / l, D; zeros past L).
+template <typename T>
 struct QG {
-  Tile q[2], g[2];
+  Tile<T> q[2], g[2];
   float4 st[2][kT];
 };
 
 // K4, keys pass: one block per (64 keys, h, b); dk, dv and the per-head
 // dbias.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
-    attn_drop_bwd_keys_mma(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
+    attn_drop_bwd_keys_mma(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
                            const float* __restrict__ bias,
-                           const bf16* __restrict__ g,
+                           const T* __restrict__ g,
                            const float* __restrict__ stats,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           T* __restrict__ dk, T* __restrict__ dv,
                            float* __restrict__ dbias_h, int L, int H,
                            Strides st, float scale, DropArgs da) {
-  __shared__ __align__(16) QG s;
+  __shared__ __align__(16) QG<T> s;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
   const int k0 = blockIdx.x * kT;
-  const bf16* qb = q + b * st.qsb + h * st.qsh;
-  const bf16* gb = g + ((long long)b * L * H + h) * kD;
+  const T* qb = q + b * st.qsb + h * st.qsh;
+  const T* gb = g + ((long long)b * L * H + h) * kD;
   const long long gsl = (long long)H * kD;
   const float* sbh = stats + (long long)bh * L * 3;
 
@@ -572,11 +616,9 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
     const long long o = (((long long)b * L + key) * H + h) * kD + 2 * t;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * n) =
-          __floats2bfloat162_rn(dka[n][2 * r] * scale,
-                                dka[n][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * n) =
-          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
+      store2(dk + o + 8 * n, dka[n][2 * r] * scale,
+             dka[n][2 * r + 1] * scale);
+      store2(dv + o + 8 * n, dva[n][2 * r], dva[n][2 * r + 1]);
     }
     if (t == 0) dbias_h[(long long)bh * L + key] = db;
   }
@@ -593,20 +635,45 @@ bool aligned16(const void* q, const void* k, const void* v,
 }
 
 // K2 and K3: one block per (64 query rows, h, b)
-template <bool kDrop>
+template <bool kDrop, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                void* out, int B, int L, int H, int D, const Strides& st,
                float scale, const DropArgs& da, void* stream) {
   if (D != kD || !aligned16(q, k, v, st)) return (int)cudaErrorInvalidValue;
   if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
   const dim3 grid((L + kT - 1) / kT, H, B);
-  attn_fwd_mma<kDrop><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-      (bf16*)out, L, H, st, scale, da);
+  attn_fwd_mma<kDrop, T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out, L,
+      H, st, scale, da);
+  return (int)cudaGetLastError();
+}
+
+// K4: the rows pass, then the keys pass
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
+               const void* g, void* dq, void* dk, void* dv, void* dbias_h,
+               void* stats, int B, int L, int H, int D, const Strides& st,
+               float scale, const DropArgs& da, void* stream) {
+  if (D != kD || !aligned16(q, k, v, st) || (uintptr_t)g % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
+  const dim3 grid((L + kT - 1) / kT, H, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  attn_drop_bwd_rows_mma<T><<<grid, kThreads, 0, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+      (const T*)g, (T*)dq, (float*)stats, L, H, st, scale, da);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  attn_drop_bwd_keys_mma<T><<<grid, kThreads, 0, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
+      (const T*)g, (const float*)stats, (T*)dk, (T*)dv, (float*)dbias_h, L,
+      H, st, scale, da);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// The entry points: bf16, then fp16 with the same arguments
 
 extern "C" int attention_fwd_bf16(const void* q, const void* k,
                                   const void* v, const void* bias, void* out,
@@ -616,8 +683,8 @@ extern "C" int attention_fwd_bf16(const void* q, const void* k,
                                   long long vsl, long long vsh, float scale,
                                   void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
-  return launch_fwd<false>(q, k, v, bias, out, B, L, H, D, st, scale,
-                           DropArgs{nullptr, 0u, 1.0f, 0ull}, stream);
+  return launch_fwd<false, bf16>(q, k, v, bias, out, B, L, H, D, st, scale,
+                                DropArgs{nullptr, 0u, 1.0f, 0ull}, stream);
 }
 
 extern "C" int attention_dropout_fwd_bf16(
@@ -628,9 +695,9 @@ extern "C" int attention_dropout_fwd_bf16(
     unsigned thresh, float drop_scale, unsigned long long seed,
     void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
-  return launch_fwd<true>(q, k, v, bias, out, B, L, H, D, st, scale,
-                          DropArgs{(const int*)bits, thresh, drop_scale, seed},
-                          stream);
+  return launch_fwd<true, bf16>(
+      q, k, v, bias, out, B, L, H, D, st, scale,
+      DropArgs{(const int*)bits, thresh, drop_scale, seed}, stream);
 }
 
 // g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*H*L*3] fp32 scratch;
@@ -644,20 +711,48 @@ extern "C" int attention_dropout_bwd_bf16(
     unsigned thresh, float drop_scale, unsigned long long seed,
     void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
-  if (D != kD || !aligned16(q, k, v, st) || (uintptr_t)g % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
-  const DropArgs da{(const int*)bits, thresh, drop_scale, seed};
-  const dim3 grid((L + kT - 1) / kT, H, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  attn_drop_bwd_rows_mma<<<grid, kThreads, 0, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-      (const bf16*)g, (bf16*)dq, (float*)stats, L, H, st, scale, da);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  attn_drop_bwd_keys_mma<<<grid, kThreads, 0, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)bias,
-      (const bf16*)g, (const float*)stats, (bf16*)dk, (bf16*)dv,
-      (float*)dbias_h, L, H, st, scale, da);
-  return (int)cudaGetLastError();
+  return launch_bwd<bf16>(
+      q, k, v, bias, g, dq, dk, dv, dbias_h, stats, B, L, H, D, st, scale,
+      DropArgs{(const int*)bits, thresh, drop_scale, seed}, stream);
+}
+
+extern "C" int attention_fwd_fp16(const void* q, const void* k,
+                                  const void* v, const void* bias, void* out,
+                                  int B, int L, int H, int D, long long qsb,
+                                  long long qsl, long long qsh, long long ksb,
+                                  long long ksl, long long ksh, long long vsb,
+                                  long long vsl, long long vsh, float scale,
+                                  void* stream) {
+  const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
+  return launch_fwd<false, f16>(q, k, v, bias, out, B, L, H, D, st, scale,
+                                DropArgs{nullptr, 0u, 1.0f, 0ull}, stream);
+}
+
+extern "C" int attention_dropout_fwd_fp16(
+    const void* q, const void* k, const void* v, const void* bias, void* out,
+    int B, int L, int H, int D, long long qsb, long long qsl, long long qsh,
+    long long ksb, long long ksl, long long ksh, long long vsb,
+    long long vsl, long long vsh, float scale, const void* bits,
+    unsigned thresh, float drop_scale, unsigned long long seed,
+    void* stream) {
+  const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
+  return launch_fwd<true, f16>(
+      q, k, v, bias, out, B, L, H, D, st, scale,
+      DropArgs{(const int*)bits, thresh, drop_scale, seed}, stream);
+}
+
+// g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*H*L*3] fp32 scratch;
+// dbias_h: [B, H, L] fp32 (summed over H by the caller).
+extern "C" int attention_dropout_bwd_fp16(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* g, void* dq, void* dk, void* dv, void* dbias_h, void* stats,
+    int B, int L, int H, int D, long long qsb, long long qsl, long long qsh,
+    long long ksb, long long ksl, long long ksh, long long vsb,
+    long long vsl, long long vsh, float scale, const void* bits,
+    unsigned thresh, float drop_scale, unsigned long long seed,
+    void* stream) {
+  const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
+  return launch_bwd<f16>(
+      q, k, v, bias, g, dq, dk, dv, dbias_h, stats, B, L, H, D, st, scale,
+      DropArgs{(const int*)bits, thresh, drop_scale, seed}, stream);
 }

@@ -2,11 +2,19 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+// Element types of the C entry points' dtype codes (the wrappers pass
+// 0 for fp32, 1 for bf16, 2 for fp16)
+enum DtypeCode { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 static __device__ __forceinline__ float to_f(float x) { return x; }
 static __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+static __device__ __forceinline__ float to_f(__half x) {
+  return __half2float(x);
 }
 
 template <typename T>
@@ -16,6 +24,10 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);  // round to nearest even, as torch's cast
 }
 
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,

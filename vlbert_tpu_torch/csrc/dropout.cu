@@ -15,9 +15,10 @@
 // parity tests against the JAX package.
 //
 // Semantics kept: scale is passed already rounded to x's dtype (in bf16,
-// 1/(1-0.1) is 1.109375), and the product is rounded to x's dtype, as
-// `x * jnp.asarray(scale, x.dtype)` does: one IEEE multiply per kept
-// element.
+// 1/(1-0.1) is 1.109375, in fp16 1.111328125), and the product is rounded
+// to x's dtype, as `x * jnp.asarray(scale, x.dtype)` does: one IEEE
+// multiply per kept element (the product of two bf16 or two fp16 values
+// is exact in fp32, so one rounding after the fp32 multiply gives it).
 //
 // What bounds it on the H100: at the VQA training shape [16,128,768] bf16
 // a call moves 6.3 MB (1.9 us at 3.35 TB/s). One Philox evaluation of all
@@ -27,7 +28,7 @@
 // four elements puts that floor at 1.3 us, under the bytes.
 //
 // Design: each thread of a grid-stride loop moves one 16-byte chunk of x
-// (8 bf16 or 4 fp32 elements), and of the explicit bits 16 bytes at a
+// (8 bf16 or fp16, or 4 fp32 elements), and of the explicit bits 16 bytes at a
 // time, with one Philox evaluation per four elements; no shared memory.
 // A contiguous view keeps its storage offset, so x may start anywhere: the
 // chunks start at x's first 16-byte boundary, and the wrapper allocates
@@ -83,8 +84,9 @@ __device__ __forceinline__ unsigned chunk_keep(const int* __restrict__ bits,
   return m;
 }
 
-// One 32-bit word of a chunk: its element (fp32) or two elements (bf16)
-// times scale where kept, else 0; bit 0 (and 1) of keep are its elements.
+// One 32-bit word of a chunk: its element (fp32) or two elements (bf16,
+// fp16) times scale where kept, else 0; bit 0 (and 1) of keep are its
+// elements.
 __device__ __forceinline__ unsigned scale_word(unsigned w, unsigned keep,
                                                float scale, float) {
   return keep & 1 ? __float_as_uint(__uint_as_float(w) * scale) : 0u;
@@ -96,6 +98,15 @@ __device__ __forceinline__ unsigned scale_word(unsigned w, unsigned keep,
   const __nv_bfloat162 r =
       __floats2bfloat162_rn(keep & 1 ? __low2float(h) * scale : 0.0f,
                             keep & 2 ? __high2float(h) * scale : 0.0f);
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
+__device__ __forceinline__ unsigned scale_word(unsigned w, unsigned keep,
+                                               float scale, __half) {
+  const __half2 h = *reinterpret_cast<const __half2*>(&w);
+  const __half2 r =
+      __floats2half2_rn(keep & 1 ? __low2float(h) * scale : 0.0f,
+                        keep & 2 ? __high2float(h) * scale : 0.0f);
   return *reinterpret_cast<const unsigned*>(&r);
 }
 
@@ -181,15 +192,23 @@ int launch(const T* x, T* out, long long n, const int* bits,
 
 }  // namespace
 
-extern "C" int dropout_fwd(const void* x, void* out, long long n,
-                           int is_bf16, const void* bits, unsigned thresh,
-                           float scale, unsigned long long seed,
-                           void* stream) {
+// dtype: the DtypeCode of x and out (common.cuh)
+extern "C" int dropout_fwd(const void* x, void* out, long long n, int dtype,
+                           const void* bits, unsigned thresh, float scale,
+                           unsigned long long seed, void* stream) {
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch((const __nv_bfloat16*)x, (__nv_bfloat16*)out, n,
-                  (const int*)bits, thresh, scale, seed, s);
-  return launch((const float*)x, (float*)out, n, (const int*)bits, thresh,
-                scale, seed, s);
+  switch (dtype) {
+    case kF32:
+      return launch((const float*)x, (float*)out, n, (const int*)bits,
+                    thresh, scale, seed, s);
+    case kBF16:
+      return launch((const __nv_bfloat16*)x, (__nv_bfloat16*)out, n,
+                    (const int*)bits, thresh, scale, seed, s);
+    case kF16:
+      return launch((const __half*)x, (__half*)out, n, (const int*)bits,
+                    thresh, scale, seed, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -14,8 +14,8 @@
 // are computed with unfused multiplies and adds, as the plain version does,
 // so a sample that lands exactly on the map's edge is kept or dropped alike.
 // Padded roi slots (box_mask == 0) are written as zeros. Accumulation is
-// fp32; the output is fp32 or bf16 [B,O,P,Q,C] (rounded to nearest even,
-// as torch's cast).
+// fp32; the map is fp32, bf16 or fp16, the output fp32 or a 16-bit type
+// [B,O,P,Q,C] (rounded to nearest even, as torch's cast).
 //
 // What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W; measured with
 // tools/bench_k1_torch.py --probes, numbers in PERF.md section 6). At the
@@ -163,7 +163,7 @@ int launch(const Tin* feat, const float* boxes, const uint8_t* mask,
            Tout* out, int B, int H, int W, int C, int O, int P, int Q,
            float scale, int sampling_ratio, int max_grid, cudaStream_t s) {
   constexpr int V = kAlign / sizeof(Tin);
-  // a thread stores V outputs: 16 bytes, or 8 (fp32 map, bf16 out)
+  // a thread stores V outputs: 16 bytes, or 8 (fp32 map, 16-bit out)
   const size_t out_align = std::min<size_t>(kAlign, V * sizeof(Tout));
   if (C % V != 0 || (uintptr_t)feat % kAlign != 0 ||
       (uintptr_t)out % out_align != 0)
@@ -186,9 +186,11 @@ int launch(const Tin* feat, const float* boxes, const uint8_t* mask,
 
 }  // namespace
 
-extern "C" int roi_align_fwd(const void* feat, int feat_is_bf16,
+// feat_dtype, out_dtype: DtypeCodes (common.cuh); the output is fp32 or a
+// 16-bit type, bf16 and fp16 not mixed
+extern "C" int roi_align_fwd(const void* feat, int feat_dtype,
                              const void* boxes, const void* box_mask,
-                             void* out, int out_is_bf16, int B, int H, int W,
+                             void* out, int out_dtype, int B, int H, int W,
                              int C, int O, int P, int Q, float spatial_scale,
                              int sampling_ratio, int max_grid, void* stream) {
   // sampling_ratio <= 0 is the adaptive grid, as in the reference
@@ -198,18 +200,11 @@ extern "C" int roi_align_fwd(const void* feat, int feat_is_bf16,
   cudaStream_t s = (cudaStream_t)stream;
   const float* bx = (const float*)boxes;
   const uint8_t* m = (const uint8_t*)box_mask;
-  if (feat_is_bf16) {
-    const __nv_bfloat16* f = (const __nv_bfloat16*)feat;
-    if (out_is_bf16)
-      return launch(f, bx, m, (__nv_bfloat16*)out, B, H, W, C, O, P, Q,
-                    spatial_scale, sampling_ratio, max_grid, s);
-    return launch(f, bx, m, (float*)out, B, H, W, C, O, P, Q, spatial_scale,
-                  sampling_ratio, max_grid, s);
-  }
-  const float* f = (const float*)feat;
-  if (out_is_bf16)
-    return launch(f, bx, m, (__nv_bfloat16*)out, B, H, W, C, O, P, Q,
-                  spatial_scale, sampling_ratio, max_grid, s);
-  return launch(f, bx, m, (float*)out, B, H, W, C, O, P, Q, spatial_scale,
-                sampling_ratio, max_grid, s);
+  return roi::with_input(feat_dtype, feat, [&](auto f) {
+    using Tin = std::remove_cv_t<std::remove_pointer_t<decltype(f)>>;
+    return roi::with_output<Tin>(out_dtype, out, [&](auto o) {
+      return launch(f, bx, m, o, B, H, W, C, O, P, Q, spatial_scale,
+                    sampling_ratio, max_grid, s);
+    });
+  });
 }

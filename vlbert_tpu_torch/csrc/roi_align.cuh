@@ -14,6 +14,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -102,6 +103,15 @@ __device__ __forceinline__ void widen(uint4 a, float (&v)[V]) {
   if constexpr (sizeof(T) == 4) {
     v[0] = __uint_as_float(a.x), v[1] = __uint_as_float(a.y);
     v[2] = __uint_as_float(a.z), v[3] = __uint_as_float(a.w);
+  } else if constexpr (std::is_same_v<T, __half>) {
+    const unsigned w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // fp16 -> fp32 is exact
+      const float2 f =
+          __half22float2(*reinterpret_cast<const __half2*>(&w[k]));
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
   } else {
     const unsigned w[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
@@ -119,7 +129,7 @@ __device__ __forceinline__ void load_chunk(const T* p, float (&v)[V]) {
 }
 
 // V fp32 values stored as V elements of the output's type (rounded to
-// nearest even for bf16, as torch's cast)
+// nearest even for bf16 and fp16, as torch's cast)
 template <int V>
 __device__ __forceinline__ void store_chunk(float* o, const float (&a)[V]) {
 #pragma unroll
@@ -144,6 +154,49 @@ __device__ __forceinline__ void store_chunk(__nv_bfloat16* o,
     *reinterpret_cast<uint2*>(o) =
         make_uint2(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]));
   }
+}
+
+__device__ __forceinline__ unsigned pack_f16(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <int V>
+__device__ __forceinline__ void store_chunk(__half* o, const float (&a)[V]) {
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint4*>(o) =
+        make_uint4(pack_f16(a[0], a[1]), pack_f16(a[2], a[3]),
+                   pack_f16(a[4], a[5]), pack_f16(a[6], a[7]));
+  } else {
+    *reinterpret_cast<uint2*>(o) =
+        make_uint2(pack_f16(a[0], a[1]), pack_f16(a[2], a[3]));
+  }
+}
+
+// The entry points' dispatch on dtype codes (common.cuh): fn(p) with p
+// cast to the element type of `code` (fp32, bf16, fp16)
+template <typename Fn>
+int with_input(int code, const void* p, Fn fn) {
+  switch (code) {
+    case kF32: return fn((const float*)p);
+    case kBF16: return fn((const __nv_bfloat16*)p);
+    case kF16: return fn((const __half*)p);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// fn(p) with the output p of an input of type Tin: fp32, or a 16-bit type
+// other than Tin's other 16-bit twin (bf16 and fp16 do not mix)
+template <typename Tin, typename Fn>
+int with_output(int code, void* p, Fn fn) {
+  if (code == kF32) return fn((float*)p);
+  if (code == kBF16) {
+    if constexpr (!std::is_same_v<Tin, __half>)
+      return fn((__nv_bfloat16*)p);
+  } else if (code == kF16) {
+    if constexpr (!std::is_same_v<Tin, __nv_bfloat16>) return fn((__half*)p);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace roi

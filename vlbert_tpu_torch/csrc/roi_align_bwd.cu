@@ -17,9 +17,9 @@
 // (box_mask == 0) contribute nothing. The samples are placed by the
 // forward's own rules (roi_align.cuh), so sampling_ratio 1 (the main path,
 // a compile-time instance), 0 (adaptive) and 2-8 agree with K1 and with
-// the plain version. g is read in fp32 or bf16, sums are fp32, dF is
-// stored in the features' dtype (fp32, or bf16 rounded to nearest even as
-// torch's cast).
+// the plain version. g is read in fp32, bf16 or fp16, sums are fp32, dF is
+// stored in the features' dtype (fp32, or bf16 or fp16 rounded to nearest
+// even as torch's cast).
 //
 // What bounds it on the H100: every live slot's g read once and dF
 // written once. At VCR's training shape (g [4,108,14,14,1024] bf16 with
@@ -279,7 +279,7 @@ int launch(const Tg* g, const float* boxes, const uint8_t* mask, Tout* dfeat,
            int B, int H, int W, int C, int O, int P, int Q, float scale,
            int sampling_ratio, int max_grid, cudaStream_t s) {
   constexpr int V = kAlign / sizeof(Tg);
-  // a thread stores V outputs: 16 bytes, or 8 (fp32 g, bf16 dF)
+  // a thread stores V outputs: 16 bytes, or 8 (fp32 g, 16-bit dF)
   const size_t out_align = std::min<size_t>(kAlign, V * sizeof(Tout));
   const int chunks = C / V;
   // warps a pixel takes, and the tile's pixels
@@ -307,9 +307,10 @@ int launch(const Tg* g, const float* boxes, const uint8_t* mask, Tout* dfeat,
 
 }  // namespace
 
-extern "C" int roi_align_bwd(const void* g, int g_is_bf16, const void* boxes,
+// g_dtype, dfeat_dtype: DtypeCodes (common.cuh), as roi_align_fwd's
+extern "C" int roi_align_bwd(const void* g, int g_dtype, const void* boxes,
                              const void* box_mask, void* dfeat,
-                             int dfeat_is_bf16, int B, int H, int W, int C,
+                             int dfeat_dtype, int B, int H, int W, int C,
                              int O, int P, int Q, float spatial_scale,
                              int sampling_ratio, int max_grid, void* stream) {
   // sampling_ratio <= 0 is the adaptive grid, as in the forward
@@ -319,18 +320,11 @@ extern "C" int roi_align_bwd(const void* g, int g_is_bf16, const void* boxes,
   cudaStream_t s = (cudaStream_t)stream;
   const float* bx = (const float*)boxes;
   const uint8_t* m = (const uint8_t*)box_mask;
-  if (g_is_bf16) {
-    const __nv_bfloat16* gp = (const __nv_bfloat16*)g;
-    if (dfeat_is_bf16)
-      return launch(gp, bx, m, (__nv_bfloat16*)dfeat, B, H, W, C, O, P, Q,
-                    spatial_scale, sampling_ratio, max_grid, s);
-    return launch(gp, bx, m, (float*)dfeat, B, H, W, C, O, P, Q,
-                  spatial_scale, sampling_ratio, max_grid, s);
-  }
-  const float* gp = (const float*)g;
-  if (dfeat_is_bf16)
-    return launch(gp, bx, m, (__nv_bfloat16*)dfeat, B, H, W, C, O, P, Q,
-                  spatial_scale, sampling_ratio, max_grid, s);
-  return launch(gp, bx, m, (float*)dfeat, B, H, W, C, O, P, Q, spatial_scale,
-                sampling_ratio, max_grid, s);
+  return roi::with_input(g_dtype, g, [&](auto gp) {
+    using Tg = std::remove_cv_t<std::remove_pointer_t<decltype(gp)>>;
+    return roi::with_output<Tg>(dfeat_dtype, dfeat, [&](auto o) {
+      return launch(gp, bx, m, o, B, H, W, C, O, P, Q, spatial_scale,
+                    sampling_ratio, max_grid, s);
+    });
+  });
 }

@@ -55,11 +55,11 @@ from vlbert_tpu_torch.data.build import (dist_rank_world, make_dataloader,
 from vlbert_tpu_torch.data.tokenization import BertTokenizer
 from vlbert_tpu_torch.engine.val import make_validation_fn
 from vlbert_tpu_torch.models.layers import init_weights
-from vlbert_tpu_torch.models.task_modules import build_module
+from vlbert_tpu_torch.models.task_modules import _DTYPES, build_module
 from vlbert_tpu_torch.parallel import dist as dist_lib
 from vlbert_tpu_torch.training import checkpoint as ckpt_lib
 from vlbert_tpu_torch.training import convert as cvt
-from vlbert_tpu_torch.training.loop import fit
+from vlbert_tpu_torch.training.loop import fit, loss_scale
 from vlbert_tpu_torch.training.optim import Optimizer, apply_trainable_mask
 from vlbert_tpu_torch.utils.misc import summary_parameters
 
@@ -79,24 +79,21 @@ def setup_logger(output_path, rank=0):
         force=True)
 
 
-def check_unported(config):
-    """Raise on what the config asks for that the port does not do, before
-    anything is built. Every task the port trains, trains on the CPU and
-    on the card, from precomputed features and from pixels; what is
-    refused is float16 compute, which the JAX package trains in under
-    TRAIN.FP16 with TPU.FP16_PARITY_MODE and under TPU.COMPUTE_DTYPE
-    float16."""
-    if config.TRAIN.FP16 and config.TPU.get("FP16_PARITY_MODE", False):
-        raise NotImplementedError(
-            "TRAIN.FP16 with TPU.FP16_PARITY_MODE asks for float16 compute "
-            "with a static loss scale; the port's kernels take float32 and "
-            "bfloat16 only (unset TPU.FP16_PARITY_MODE: TRAIN.FP16 then "
-            "trains in bfloat16)")
-    if config.TPU.COMPUTE_DTYPE == "float16" and not config.TRAIN.FP16:
-        raise NotImplementedError(
-            "TPU.COMPUTE_DTYPE float16 asks for float16 training; the "
-            "port's kernels take float32 and bfloat16 only (set "
-            "COMPUTE_DTYPE to bfloat16 or float32)")
+def compute_policy(config):
+    """(compute dtype, static loss scale) of a training run, resolved as
+    the JAX package's train_net and train step resolve them:
+    TRAIN.FP16 with TPU.FP16_PARITY_MODE trains in float16 with the scale
+    TRAIN.FP16_LOSS_SCALE (the reference's Apex O2 with a fixed scale);
+    TRAIN.FP16 alone in bfloat16 with no scale, whatever COMPUTE_DTYPE
+    says; otherwise TPU.COMPUTE_DTYPE (bfloat16, float16; anything else
+    float32) with no scale. Raises ValueError on a scale that is not a
+    number (``loss_scale``), before anything is built."""
+    scale = loss_scale(config)
+    name = config.TPU.COMPUTE_DTYPE
+    if config.TRAIN.FP16:
+        name = "float16" if config.TPU.get("FP16_PARITY_MODE", False) \
+            else "bfloat16"
+    return _DTYPES.get(name, torch.float32), scale
 
 
 def nsp_to_binary_classifier_surgery(sd, config):
@@ -231,16 +228,22 @@ def train_net(args, config, task):
     logger.info("config: %s", dict(config))
     model_prefix = model_prefix_of(config, output_path)
     device = torch.device(getattr(args, "device", None) or "cuda")
-    check_unported(config)
+    dtype, scale = compute_policy(config)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda requested but torch.cuda is not "
                            "available")
-
-    dtype_name = config.TPU.COMPUTE_DTYPE
-    if config.TRAIN.FP16:
-        logger.info("TRAIN.FP16 -> bf16 compute (no loss scale needed)")
-        dtype_name = "bfloat16"
-    dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
+    if dtype == torch.float16:
+        # cuBLAS may otherwise reduce a split-K fp16 GEMM in fp16; XLA's
+        # fp16 dots accumulate in fp32
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction \
+            = False
+        logger.info("float16 compute, static loss scale %g; fp16 GEMMs "
+                    "reduce in fp32 (allow_fp16_reduced_precision_reduction"
+                    " off)", scale)
+    elif config.TRAIN.FP16:
+        logger.info("TRAIN.FP16 -> bf16 compute (no loss scale); set "
+                    "TPU.FP16_PARITY_MODE for float16 with the static loss "
+                    "scale")
     seed = max(int(config.RNG_SEED), 0)
     # TPU.REMAT: each encoder layer activation-checkpointed, as the JAX
     # package's train_net builds its model

@@ -40,7 +40,8 @@ _STRIDES = (_L,) * 9         # q, k, v strides over (b, l, h)
 
 _ATTN_FWD = (_P, _P, _P, _P, _P, _I, _I, _I, _I, *_STRIDES, _F, _P)
 
-# attention with prob dropout takes the same arguments in fp32 and bf16:
+# attention with prob dropout takes the same arguments in fp32, bf16 and
+# fp16:
 # q, k, v, bias, out, B, L, H, D, strides, scale, bits (or NULL), thresh,
 # drop_scale, seed, stream
 _ATTN_DROP_FWD = (_P, _P, _P, _P, _P, _I, _I, _I, _I, *_STRIDES, _F, _P, _U,
@@ -50,26 +51,33 @@ _ATTN_DROP_FWD = (_P, _P, _P, _P, _P, _I, _I, _I, _I, *_STRIDES, _F, _P, _U,
 _ATTN_DROP_BWD = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                   *_STRIDES, _F, _P, _U, _F, _Q, _P)
 
-# C signatures of the entry points (pointers and the stream as void*)
+# C signatures of the entry points (pointers and the stream as void*). A
+# "dtype" int is an element type's code (csrc/common.cuh DtypeCode, the
+# wrappers' ops.DTYPE_CODES): 0 fp32, 1 bf16, 2 fp16; the attention
+# kernels have an entry point for each type instead
 SIGNATURES = {
-    # feat, feat_is_bf16, boxes, box_mask, out, out_is_bf16, B, H, W, C,
-    # O, P, Q, spatial_scale, sampling_ratio, max_grid, stream
+    # feat, feat_dtype, boxes, box_mask, out, out_dtype, B, H, W, C, O, P,
+    # Q, spatial_scale, sampling_ratio, max_grid, stream
     "roi_align_fwd": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _F, _I, _I, _P),
-    # g, g_is_bf16, boxes, box_mask, dfeat, dfeat_is_bf16, B, H, W, C, O,
-    # P, Q, spatial_scale, sampling_ratio, max_grid, stream
+    # g, g_dtype, boxes, box_mask, dfeat, dfeat_dtype, B, H, W, C, O, P,
+    # Q, spatial_scale, sampling_ratio, max_grid, stream
     "roi_align_bwd": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _F, _I, _I, _P),
-    # attention without dropout in fp32 and bf16: q, k, v, bias, out, B,
-    # L, H, D, q strides (b, l, h), k strides, v strides, scale, stream
+    # attention without dropout in fp32, bf16 and fp16: q, k, v, bias,
+    # out, B, L, H, D, q strides (b, l, h), k strides, v strides, scale,
+    # stream
     "attention_fwd_f32": _ATTN_FWD,
     "attention_fwd_bf16": _ATTN_FWD,
-    # x, out, n, is_bf16, bits (or NULL), thresh, scale, seed, stream
+    "attention_fwd_fp16": _ATTN_FWD,
+    # x, out, n, dtype, bits (or NULL), thresh, scale, seed, stream
     "dropout_fwd": (_P, _P, _L, _I, _P, _U, _F, _Q, _P),
     "attention_dropout_fwd_f32": _ATTN_DROP_FWD,
     "attention_dropout_bwd_f32": _ATTN_DROP_BWD,
     "attention_dropout_fwd_bf16": _ATTN_DROP_FWD,
     "attention_dropout_bwd_bf16": _ATTN_DROP_BWD,
+    "attention_dropout_fwd_fp16": _ATTN_DROP_FWD,
+    "attention_dropout_bwd_fp16": _ATTN_DROP_BWD,
 }
 
 

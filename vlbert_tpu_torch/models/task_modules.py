@@ -618,7 +618,8 @@ MODULES = {"ResNetVLBERT:refcoco": ResNetVLBERTForRefCOCO,
            "ResNetVLBERTForAttentionVis:pretrain":
                ResNetVLBERTForPretrainingMultitask}
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float32": torch.float32}
 
 # TPU knobs the port accepts and ignores, each with the reason
 _IGNORED_KNOBS = {

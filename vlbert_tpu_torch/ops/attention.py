@@ -7,9 +7,9 @@ Inference / rate 0:
   * kernel K2, launched by ``fused_attention`` for CUDA tensors inside a
     ``torch.autograd.Function`` whose backward is ``attention_bwd_plain``,
     the JAX package's recompute ``_bwd`` in plain PyTorch (JAX runs it in
-    XLA, not in Pallas): on the tensor cores, for bf16 K3's kernel with the
-    mask compiled out (``csrc/attention_dropout_mma.cu``), for fp32 a
-    three-product TF32 split that keeps fp32 accuracy
+    XLA, not in Pallas): on the tensor cores, for bf16 and fp16 K3's
+    kernel with the mask compiled out (``csrc/attention_dropout_mma.cu``),
+    for fp32 a three-product TF32 split that keeps fp32 accuracy
     (``csrc/attention_f32_mma.cu``).
 
 Training (prob dropout, 0 < rate <= 1):
@@ -18,10 +18,10 @@ Training (prob dropout, 0 < rate <= 1):
   * kernels K3 (forward) and K4 (recompute backward), launched by
     ``fused_attention_dropout`` for CUDA tensors inside a
     ``torch.autograd.Function`` that saves only (q, k, v, bias, seed or
-    bits): on the tensor cores, for bf16 ``csrc/attention_dropout_mma.cu``,
-    for fp32 the same TF32 split as K2's (``csrc/attention_f32_mma.cu``;
-    K3 is K2's kernel with the keep mask on the exponentials entering
-    P V).
+    bits): on the tensor cores, for bf16 and fp16
+    ``csrc/attention_dropout_mma.cu``, for fp32 the same TF32 split as
+    K2's (``csrc/attention_f32_mma.cu``; K3 is K2's kernel with the keep
+    mask on the exponentials entering P V).
 
 The fp32 tensor-core kernels split each operand x into big = x rounded to
 TF32 and small = (x - big) rounded to TF32, and sum small*big + big*small
@@ -56,6 +56,12 @@ MAX_L = 512
 # bytes: the tensor-core K2/K3/K4 copy rows of q, k, v and g in 16-byte
 # pieces
 _ALIGN = 16
+
+# the entry points' suffix for q's dtype, all on the tensor cores: bf16
+# and fp16 in ``attention_dropout_mma.cu``, fp32 by the TF32 split in
+# ``attention_f32_mma.cu``
+_KERNELS = {torch.bfloat16: "bf16", torch.float16: "fp16",
+            torch.float32: "f32"}
 
 
 def _check_bias(q, bias):
@@ -229,8 +235,9 @@ def _check_cuda_args(q, k, v, bias, name, **more):
                             f"{q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name}: {n} on {t.device}, q on {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} kernel takes fp32 or bf16, got {q.dtype}")
+    if q.dtype not in _KERNELS:
+        raise TypeError(f"{name} kernel takes fp32, bf16 or fp16, got "
+                        f"{q.dtype}")
     for n, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: {n} needs unit stride on the head "
@@ -275,12 +282,8 @@ def _drop_args(q, rate, seed, bits):
 
 
 def _attention_kernel(lib, q):
-    """K2's entry point for q's dtype, both on the tensor cores: bf16
-    (``attention_dropout_mma.cu``) or fp32 by the TF32 split
-    (``attention_f32_mma.cu``)."""
-    if q.dtype == torch.bfloat16:
-        return lib.attention_fwd_bf16
-    return lib.attention_fwd_f32
+    """K2's entry point for q's dtype."""
+    return getattr(lib, f"attention_fwd_{_KERNELS[q.dtype]}")
 
 
 def _attention_launch(q, k, v, bias):
@@ -299,12 +302,10 @@ def _attention_launch(q, k, v, bias):
 
 
 def _dropout_kernels(lib, q):
-    """K3 and K4's entry points for q's dtype, all on the tensor cores:
-    bf16 (``attention_dropout_mma.cu``) or fp32 by the TF32 split
-    (``attention_f32_mma.cu``)."""
-    if q.dtype == torch.bfloat16:
-        return lib.attention_dropout_fwd_bf16, lib.attention_dropout_bwd_bf16
-    return lib.attention_dropout_fwd_f32, lib.attention_dropout_bwd_f32
+    """K3 and K4's entry points for q's dtype."""
+    suffix = _KERNELS[q.dtype]
+    return (getattr(lib, f"attention_dropout_fwd_{suffix}"),
+            getattr(lib, f"attention_dropout_bwd_{suffix}"))
 
 
 def _attention_dropout_launch(q, k, v, bias, rate, seed, bits):

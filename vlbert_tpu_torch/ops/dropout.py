@@ -1,9 +1,9 @@
 """Dropout with integer-threshold masks (port of vlbert_tpu/ops/dropout.py).
 
 torch-dropout semantics: keep probability ``1 - rate``, kept values scaled
-by ``1 / (1 - rate)`` rounded to the input's dtype (in bf16, 1/(1-0.1) is
-1.109375), dropped values 0. The mask compares raw random bits with an
-integer threshold:
+by ``1 / (1 - rate)`` rounded to the input's dtype (1/(1-0.1) is 1.109375
+in bf16, 1.111328125 in fp16), dropped values 0. The mask compares raw
+random bits with an integer threshold:
 
   * Philox mode (the training path): 32-bit words of Philox4x32-10 keyed by
     a 64-bit seed, one evaluation per four consecutive elements: flat index
@@ -243,8 +243,9 @@ def _aligned_like(x, dtype):
 def _dropout_launch(x, rate, seed, bits):
     from vlbert_tpu_torch.kernels import build
 
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"dropout kernel takes fp32 or bf16, got {x.dtype}")
+    if x.dtype not in ops.DTYPE_CODES:
+        raise TypeError(f"dropout kernel takes fp32, bf16 or fp16, got "
+                        f"{x.dtype}")
     if not 0.0 < rate < 1.0:
         raise ValueError(f"dropout kernel needs 0 < rate < 1, got {rate}")
     x = x.contiguous()
@@ -260,7 +261,7 @@ def _dropout_launch(x, rate, seed, bits):
     lib = build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.dropout_fwd(x.data_ptr(), out.data_ptr(), x.numel(),
-                          int(x.dtype == torch.bfloat16), bits_ptr,
+                          ops.DTYPE_CODES[x.dtype], bits_ptr,
                           threshold(rate, bits is not None),
                           _scale(rate, x.dtype),
                           0 if seed is None else int(seed), stream)

@@ -20,9 +20,11 @@ Two versions of the forward and of the map's gradient:
     ``torch.autograd.Function``. Boxes come from data: they get no
     gradient, and asking for one on CUDA raises.
 
-Both take ``out_dtype`` (fp32, the JAX kernel's contract, or bf16): the
-fp32 result rounded once to it, so a caller that computes in bf16 gets its
-input in one pass, with no cast after it.
+Both take ``out_dtype`` (fp32, the JAX kernel's contract, bf16 or fp16):
+the fp32 result rounded once to it, so a caller that computes in bf16 or
+fp16 gets its input in one pass, with no cast after it. The kernels do not
+mix the two 16-bit types: a bf16 map gives fp32 or bf16, an fp16 map fp32
+or fp16 (and so for K1b's g and dF).
 
 Layout: features are NHWC; boxes are [B, O, 4] padded per image with a
 validity mask [B, O]; padded slots produce zeros.
@@ -37,11 +39,11 @@ from vlbert_tpu_torch import ops
 # Cap on the adaptive sampling grid, as in the JAX package. An explicit
 # sampling_ratio above it is rejected.
 MAX_GRID = 8
-# the output types the kernel stores; the accumulation is fp32 in both
-OUT_DTYPES = (torch.float32, torch.bfloat16)
+# the output types the kernel stores; the accumulation is fp32 in all
+OUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # the kernel moves 16 bytes of channels a thread: C must be a multiple of
 # this many elements, and the map must start on a 16-byte boundary
-VECTOR_ELEMENTS = {torch.float32: 4, torch.bfloat16: 8}
+VECTOR_ELEMENTS = {torch.float32: 4, torch.bfloat16: 8, torch.float16: 8}
 # K1b keeps one roi pass's weights in shared memory for pooled sizes up to
 # this, and gives a pixel at most the 8 warps of its block, 64 16-byte
 # chunks of its channels each
@@ -127,8 +129,18 @@ def roi_align_weights(boxes, fm_h, fm_w, pooled_h, pooled_w,
 
 def _check_out_dtype(out_dtype):
     if out_dtype not in OUT_DTYPES:
-        raise TypeError(f"roi_align: out_dtype must be torch.float32 or "
-                        f"torch.bfloat16, got {out_dtype}")
+        raise TypeError(f"roi_align: out_dtype must be torch.float32, "
+                        f"torch.bfloat16 or torch.float16, got {out_dtype}")
+
+
+def _check_kernel_dtypes(name, src, dst):
+    """The kernels' types: ``src`` (the map, or K1b's g) and ``dst`` (the
+    output, or dF) each fp32, bf16 or fp16, the two 16-bit types not
+    mixed."""
+    if src not in OUT_DTYPES or dst not in OUT_DTYPES or (
+            torch.float32 not in (src, dst) and src != dst):
+        raise TypeError(f"{name} takes and gives fp32, bf16 or fp16, bf16 "
+                        f"and fp16 not mixed: got {src} -> {dst}")
 
 
 def roi_align_plain(features, boxes, box_mask, *, pooled_h=14, pooled_w=14,
@@ -157,11 +169,13 @@ def roi_align(features, boxes, box_mask, *, pooled_h=14, pooled_w=14,
     """Batched ROIAlign; launches kernel K1 for CUDA tensors.
 
     Args:
-      features: [B, H, W, C] NHWC feature map, fp32 or bf16 (compute fp32)
+      features: [B, H, W, C] NHWC feature map, fp32, bf16 or fp16
+        (compute fp32)
       boxes:    [B, O, 4] (x1, y1, x2, y2) image coords, padded
       box_mask: [B, O] validity (padded slots produce zeros)
-      out_dtype: torch.float32 (the JAX package's contract) or
-        torch.bfloat16: the fp32 sums rounded once, in the kernel's store
+      out_dtype: torch.float32 (the JAX package's contract),
+        torch.bfloat16 or torch.float16: the fp32 sums rounded once, in
+        the kernel's store
     Returns:
       [B, O, pooled_h, pooled_w, C] in ``out_dtype``
 
@@ -258,9 +272,7 @@ def _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
         raise ValueError(f"roi_align: features must be [B,H,W,C], got "
                          f"{tuple(features.shape)}")
     B, H, W, C = features.shape
-    if features.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"roi_align kernel takes fp32 or bf16 features, got "
-                        f"{features.dtype}")
+    _check_kernel_dtypes("roi_align kernel", features.dtype, out_dtype)
     if not features.is_contiguous():
         raise ValueError("roi_align kernel needs NHWC-contiguous features")
     vec = VECTOR_ELEMENTS[features.dtype]
@@ -278,9 +290,9 @@ def _roi_align_cuda(features, boxes, box_mask, pooled_h, pooled_w,
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.roi_align_fwd(
-        features.data_ptr(), int(features.dtype == torch.bfloat16),
+        features.data_ptr(), ops.DTYPE_CODES[features.dtype],
         boxes.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), B, H, W, C, O, pooled_h, pooled_w,
+        ops.DTYPE_CODES[out_dtype], B, H, W, C, O, pooled_h, pooled_w,
         float(spatial_scale), int(sampling_ratio), MAX_GRID, stream)
     build.check(err, "roi_align_fwd")
     roi_align.launches += 1
@@ -299,9 +311,7 @@ def _roi_align_bwd_cuda(g, boxes, box_mask, shape, dtype, pooled_h,
         raise ValueError(f"roi_align backward: g must be "
                          f"{(B, O, pooled_h, pooled_w, C)}, got "
                          f"{tuple(g.shape)}")
-    if g.dtype not in OUT_DTYPES or dtype not in OUT_DTYPES:
-        raise TypeError(f"roi_align backward kernel takes and gives fp32 or "
-                        f"bf16, got g {g.dtype}, features {dtype}")
+    _check_kernel_dtypes("roi_align backward kernel", g.dtype, dtype)
     if max(pooled_h, pooled_w) > MAX_POOLED:
         raise ValueError(f"roi_align backward kernel takes pooled sizes up "
                          f"to {MAX_POOLED}, got {pooled_h}x{pooled_w}")
@@ -317,8 +327,8 @@ def _roi_align_bwd_cuda(g, boxes, box_mask, shape, dtype, pooled_h,
     lib = build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.roi_align_bwd(
-        g.data_ptr(), int(g.dtype == torch.bfloat16), boxes.data_ptr(),
-        mask.data_ptr(), df.data_ptr(), int(dtype == torch.bfloat16), B, H,
+        g.data_ptr(), ops.DTYPE_CODES[g.dtype], boxes.data_ptr(),
+        mask.data_ptr(), df.data_ptr(), ops.DTYPE_CODES[dtype], B, H,
         W, C, O, pooled_h, pooled_w, float(spatial_scale),
         int(sampling_ratio), MAX_GRID, stream)
     build.check(err, "roi_align_bwd")

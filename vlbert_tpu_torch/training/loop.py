@@ -8,6 +8,14 @@ pre-clip global norm is recorded, and the optimizer applies the update.
 Frozen parameters have ``requires_grad`` off, so they get no gradient and
 no update. A non-finite loss raises.
 
+Under TRAIN.FP16 with TPU.FP16_PARITY_MODE (float16 compute) each
+microbatch's loss is multiplied by the static TRAIN.FP16_LOSS_SCALE before
+its backward, and the summed gradients are divided by it once, with the
+accumulation's mean: the clip, the recorded norm and the reported loss see
+unscaled values, as in the JAX package (the reference's Apex O2 with a
+fixed scale). A non-finite gradient is neither skipped nor rescaled; the
+step's grad norm shows it.
+
 Under a process group (TPU.PARTITION_MODE dp, ``parallel/dist.py``) the
 step is the global batch's: each rank's seed folds in its rank, so the
 ranks draw different dropout masks; the losses' data-dependent
@@ -57,6 +65,25 @@ def _add(a, b):
     return {k: (a[k][0] + b[k][0], a[k][1] + b[k][1]) for k in a}
 
 
+def loss_scale(config):
+    """The static loss scale of a training run: TRAIN.FP16_LOSS_SCALE under
+    TRAIN.FP16 with TPU.FP16_PARITY_MODE, else 1 (the JAX package's
+    training/loop.py). Raises ValueError on a value that is not a number,
+    such as the shipped fp16 configs' 'dynamic'."""
+    if not (config.TRAIN.FP16 and config.TPU.get("FP16_PARITY_MODE", False)):
+        return 1.0
+    value = config.TRAIN.FP16_LOSS_SCALE
+    try:
+        return float(value)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"TRAIN.FP16_LOSS_SCALE {value!r}: under TPU.FP16_PARITY_MODE "
+            f"the loss scale is a static number (the reference's fixed "
+            f"128); dynamic loss scaling is not implemented, and the JAX "
+            f"package's train step fails on this value too (its float() "
+            f"of the scale raises)") from None
+
+
 def make_train_step(model, optimizer, task, config, grad_accum=1):
     """Returns ``train_step(batch, seed) -> (loss, device metrics)``.
 
@@ -65,6 +92,10 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
     same on every rank."""
     params = optimizer.params
     rank, world = dist_lib.rank_world()
+    scale = loss_scale(config)
+    # the accumulation's mean and the unscale in one division: with a
+    # power-of-two scale it rounds as the unscaled step's mean does
+    divisor = grad_accum * scale
 
     def counts():
         if dist_lib.is_distributed():
@@ -80,7 +111,7 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
             with dropout_seeds(seed if grad_accum == 1
                                else fold_in(seed, i)), counts():
                 outputs, loss = model(*micro)
-            loss.backward()
+            (loss * scale if scale != 1.0 else loss).backward()
             dm = metrics_lib.device_metrics(task, config, outputs)
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -93,7 +124,7 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
         # a parameter the forward did not reach has gradient 0 (it still
         # takes weight decay, as in the JAX package)
         grads = [torch.zeros_like(p) if p.grad is None
-                 else p.grad / grad_accum if grad_accum > 1 else p.grad
+                 else p.grad / divisor if divisor != 1.0 else p.grad
                  for p in params]
         dist_lib.all_reduce_mean_(grads)
         dm_sum["grad_total_norm"] = (optimizer.step(grads), 1)
