@@ -1613,7 +1613,7 @@ def checkpoint_writes_recorded():
     saved, calls = ckpt.save_checkpoint, []
 
     def record(prefix, epoch, model, optimizer, extra=None, async_write=False,
-               mirror_best_to=None):
+               mirror_best_to=None, write=True):
         calls.append((epoch, mirror_best_to is not None))
         return f"{prefix}-{epoch:04d}.model"
 
@@ -1674,10 +1674,11 @@ def first_train_batch(cfg, task, dev):
         loader.shutdown()
 
 
-def profile_steps(model, cfg, task="vqa", n=4, batch=None):
+def profile_steps(model, cfg, task="vqa", n=4, batch=None, counts=False):
     """Device busy time and top kernels over ``n`` optimizer steps of
     ``model`` (a fresh optimizer, the config's gradient accumulation) on
-    ``batch``, by default the phase's first."""
+    ``batch``, by default the phase's first; with ``counts`` also {kernel
+    name: launches a step}."""
     import torch
     from vlbert_tpu_torch.training.loop import make_train_step
     from vlbert_tpu_torch.training.optim import Optimizer
@@ -1693,10 +1694,14 @@ def profile_steps(model, cfg, task="vqa", n=4, batch=None):
         step(batch, SEED + i)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    by_name = device_us_by_name(lambda: step(batch, SEED), n)
+    timed = device_by_name(lambda: step(batch, SEED), n)
+    by_name = {k: us for k, (us, _) in timed.items()}
     busy_ms = sum(by_name.values()) / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return wall_ms, busy_ms, [(k[:60], v / 1e3 / n) for k, v in top]
+    out = wall_ms, busy_ms, [(k[:60], v / 1e3 / n) for k, v in top]
+    if counts:
+        return out + ({k: c / n for k, (_, c) in timed.items()},)
+    return out
 
 
 # leaf groups whose worst gradient gap step_agreement reports apart:
@@ -3510,13 +3515,22 @@ def rank_job(job_path):
     return 0
 
 
+def full_params(model):
+    """{name: the parameter whole, fp32, on the CPU}; FSDP2's sharded
+    parameters gathered (collective)."""
+    from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
+
+    return {n: fsdp_lib.plain(p).detach().float().cpu()
+            for n, p in model.named_parameters()}
+
+
 def params_digest(model):
     """sha256 of every parameter's fp32 bytes, in order."""
     import hashlib
 
     h = hashlib.sha256()
-    for p in model.parameters():
-        h.update(p.detach().float().cpu().numpy().tobytes())
+    for p in full_params(model).values():
+        h.update(p.numpy().tobytes())
     return h.hexdigest()
 
 
@@ -3563,9 +3577,12 @@ def rank_train(job):
                     step_launches=list(rec["steps"]),
                     val_launches=list(rec["val"]), total=_launch_counts(),
                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if job.get("params_out"):
+            torch.save(full_params(model), job["params_out"])
         if job.get("profile") and history["loss"]:
-            kept["profile"] = profile_steps(model, config, task, n=2,
-                                            batch=rec["batch"])
+            prof = profile_steps(model, config, task, n=2,
+                                 batch=rec["batch"], counts=True)
+            kept["profile"], kept["kernels_per_step"] = prof[:3], prof[3]
         return model, history
 
     _zero_counts()
@@ -3585,7 +3602,8 @@ def rank_train(job):
             "wall_s": time.perf_counter() - t0, "loss": h["loss"],
             "step_ms": h["step_ms"], "val": h["val"],
             "begin_epoch": h["begin_epoch"],
-            "resumed_count": h["resumed_count"], "saves": saves, **kept}
+            "resumed_count": h["resumed_count"],
+            "state_elements": h["state_elements"], "saves": saves, **kept}
 
 
 def dist_step_model(cfg, dev):
@@ -3665,10 +3683,11 @@ def interleave(shards, accum):
     return torch.cat([p[i] for i in range(accum) for p in parts])
 
 
-def dist_train_yaml(root, data_dir, vocab_dir, answer_file, name, epochs):
+def dist_train_yaml(root, data_dir, vocab_dir, answer_file, name, epochs,
+                    extra=None):
     """cfgs/vqa/base_v5e_bf16.yaml on phase 16's set with phase 7's
-    overrides, ``epochs`` epochs, validation batches of 16, the output
-    under ``root/name``."""
+    overrides and ``extra``, ``epochs`` epochs, validation batches of 16,
+    the output under ``root/name``."""
     overrides = {
         "NETWORK.PARTIAL_PRETRAIN": "", "NETWORK.BERT_MODEL_NAME": vocab_dir,
         "DATASET.DATASET_PATH": data_dir, "DATASET.ROOT_PATH": data_dir,
@@ -3678,7 +3697,8 @@ def dist_train_yaml(root, data_dir, vocab_dir, answer_file, name, epochs):
         "OUTPUT_PATH": os.path.join(root, name), "RNG_SEED": SEED,
         "TRAIN.END_EPOCH": epochs, "LOG_FREQUENT": 4,
         "TRAIN.WARMUP": False, "TRAIN.LR": 6.25e-6,
-        "TRAIN.AUTO_RESUME": True, "VAL.BATCH_IMAGES": DIST_VAL_BATCH}
+        "TRAIN.AUTO_RESUME": True, "VAL.BATCH_IMAGES": DIST_VAL_BATCH,
+        **(extra or {})}
     path = write_train_yaml(VQA_CFG, os.path.join(root, f"{name}.yaml"),
                             overrides)
     return path, overrides
@@ -3697,7 +3717,12 @@ def dist_phase(root, root14, vocab_dir):
     cfgs/pretrain/base_prec_4x16G_fp32.yaml (MLM + MVRC, masked
     normalisers) on phase 14's precomputed-feature fixture, dropout off,
     the ranks' masked counts unequal, against one process's step on the
-    concatenated batch at phase 8's bar. Returns results."""
+    concatenated batch at phase 8's bar. (d) beside (a), the same run
+    under TPU.PARTITION_MODE fsdp (FSDP2 at one NCCL rank): equal to (a)'s
+    dp run bit for bit, or within FSDP_RTOL, with dp's launches; its
+    gathered -0000.model laid out as (b)'s dp file; its AUTO_RESUME beside
+    (b)'s. (a), (d) and (b) run as one group of processes, and (b)'s
+    resume beside (d)'s and (c)'s ranks. Returns results."""
     import torch
     from vlbert_tpu_torch.data.build import make_dataloader
     from vlbert_tpu_torch.engine.val import make_validation_fn
@@ -3716,29 +3741,37 @@ def dist_phase(root, root14, vocab_dir):
     fixture = (data_dir, vocab16, answer_file)
     base = ["--task", "vqa", "--cfg"]
 
-    # (a) NCCL at world 1 beside the same run without a process group
+    # one group: (a) NCCL at world 1 beside the same run without a
+    # process group; (d) the same run with PARTITION_MODE fsdp (FSDP2),
+    # its checkpoint written; (b) gloo, two ranks on cuda:0, 2 epochs
     t0 = time.perf_counter()
     plain_yaml, overrides = dist_train_yaml(root, *fixture, "a_plain", 1)
     nccl_yaml, _ = dist_train_yaml(root, *fixture, "a_nccl", 1)
-    res["a"] = run_ranks(
+    fsdp_yaml, _ = dist_train_yaml(root, *fixture, "d_fsdp", 1,
+                                   {"TPU.PARTITION_MODE": "fsdp"})
+    fsdp_argv = base + [fsdp_yaml, "--dist", "--dist-backend", "nccl"]
+    params_out = {k: os.path.join(root, f"{k}_params.pt") for k in "ad"}
+    b_yaml, _ = dist_train_yaml(root, *fixture, "b", 2)
+    argv = base + [b_yaml, "--dist", "--dist-backend", "gloo", "--device",
+                   "cuda:0"]
+    port = free_port()
+    out = run_ranks(
         [{"kind": "train", "argv": base + [plain_yaml],
           "record_writes": True},
          {"kind": "train", "argv": base + [nccl_yaml, "--dist",
                                            "--dist-backend", "nccl"],
           "record_writes": True, "profile": True,
-          "env": torchrun_env(0, 1, free_port())}], root, "a")
-    seconds["a"] = time.perf_counter() - t0
-
-    # (b) gloo, two ranks on cuda:0, then AUTO_RESUME past the last epoch
-    t0 = time.perf_counter()
-    b_yaml, _ = dist_train_yaml(root, *fixture, "b", 2)
-    argv = base + [b_yaml, "--dist", "--dist-backend", "gloo", "--device",
-                   "cuda:0"]
-    port = free_port()
-    res["b"] = run_ranks(
-        [{"kind": "train", "argv": argv, "profile": True,
-          "env": torchrun_env(r, 2, port)} for r in range(2)], root, "b")
-    seconds["b"] = time.perf_counter() - t0
+          "params_out": params_out["a"],
+          "env": torchrun_env(0, 1, free_port())},
+         {"kind": "train", "argv": fsdp_argv, "profile": True,
+          "params_out": params_out["d"],
+          "env": torchrun_env(0, 1, free_port())}]
+        + [{"kind": "train", "argv": argv, "profile": True,
+            "env": torchrun_env(r, 2, port)} for r in range(2)], root,
+        "a_d_b")
+    res["a"], res["d"], res["b"] = out[:2], out[2], out[3:]
+    seconds["a_d_b"] = time.perf_counter() - t0
+    res["d_gap"] = fsdp_gap(res["a"][1], res["d"], params_out)
     out_b = os.path.join(root, "b", "vqa_train")
     res["b_files"] = sorted(os.listdir(out_b))
     cfg = load_config("vqa", b_yaml)
@@ -3762,15 +3795,9 @@ def dist_phase(root, root14, vocab_dir):
                              for k in acc_of[0].sums}
     del model
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    port = free_port()
-    res["b_resume"] = run_ranks(
-        [{"kind": "train", "argv": argv, "record_writes": True,
-          "env": torchrun_env(r, 2, port)} for r in range(2)], root,
-        "b_resume")
-    seconds["b_resume"] = time.perf_counter() - t0
-
-    # (c) one fp32 pretraining step at two ranks vs one process
+    # the AUTO_RESUME of (b)'s two ranks, beside it (d)'s under fsdp (its
+    # own file, scattered) and (c)'s two ranks: one fp32 pretraining step
+    # each, against one process's after the group
     t0 = time.perf_counter()
     prec_dir = os.path.join(root14, "cc_prec")
     corpus = os.path.join(root14, "corpus.doc")
@@ -3781,12 +3808,26 @@ def dist_phase(root, root14, vocab_dir):
               "NETWORK.VLBERT.attention_probs_dropout_prob": 0.0}
     c_yaml = write_train_yaml(PRETRAIN_CFGS["prec"],
                               os.path.join(root, "c.yaml"), c_over)
-    port = free_port()
+    port, c_port = free_port(), free_port()
     jobs = [{"kind": "step", "yaml": c_yaml,
              "batch": os.path.join(root, f"c_batch{r}.pt"),
              "params": os.path.join(root, "c_params0.pt"),
-             "env": torchrun_env(r, 2, port)} for r in range(2)]
-    res["c"] = run_ranks(jobs, root, "c")
+             "env": torchrun_env(r, 2, c_port)} for r in range(2)]
+    out = run_ranks(
+        [{"kind": "train", "argv": argv, "record_writes": True,
+          "env": torchrun_env(r, 2, port)} for r in range(2)]
+        + [{"kind": "train", "argv": fsdp_argv, "record_writes": True,
+            "env": torchrun_env(0, 1, free_port())}] + jobs, root,
+        "b_d_resume_c")
+    res["b_resume"], res["d_resume"], res["c"] = out[:2], out[2], out[3:]
+    seconds["b_d_resume_c"] = time.perf_counter() - t0
+    out_d = os.path.join(root, "d_fsdp", "vqa_train")
+    res["d_files"] = sorted(os.listdir(out_d))
+    res["d_file"] = same_layout(f"{prefix}-0001.model",
+                                os.path.join(out_d, f"{b_prefix}-0000.model"))
+
+    # (c)'s one process on the concatenated batch
+    t0 = time.perf_counter()
     cfg = load_config("pretrain", c_yaml)
     accum = max(int(cfg.TRAIN.GRAD_ACCUMULATE_STEPS), 1)
     shards = [torch.load(j["batch"]) for j in jobs]
@@ -3863,12 +3904,68 @@ def dist_phase(root, root14, vocab_dir):
         "b: auto resume": all((r["begin_epoch"], r["resumed_count"],
                                r["loss"], r["saves"]) == (2, 8, [], [])
                               for r in res["b_resume"]),
+        "d: fsdp equals dp": res["d_gap"]["max_rel"] <= FSDP_RTOL
+        and len(res["d"]["loss"]) == steps_a,
+        "d: launches": res["d"]["step_launches"] == [step_want] * steps_a
+        and res["d"]["val_launches"] == [val_want],
+        "d: one rank holds it all": res["d"]["state_elements"][0]
+        == res["d"]["state_elements"][1] > 0,
+        "d: the gathered file is dp's": res["d_file"]["same"]
+        and res["d_files"] == sorted([f"{b_prefix}-0000.model",
+                                      f"{b_prefix}-best.model",
+                                      "train_rank0.log"]),
+        "d: auto resume": (res["d_resume"]["begin_epoch"],
+                           res["d_resume"]["resumed_count"],
+                           res["d_resume"]["loss"], res["d_resume"]["saves"])
+        == (1, steps_a, [], [])
+        and res["d_resume"]["digest"] == res["d"]["digest"],
         "c: counts differ": res["c"][0]["counts"] != res["c"][1]["counts"],
         "c: ranks bit for bit": res["c"][0]["digest"]
         == res["c"][1]["digest"]
         and res["c"][0]["loss"] == res["c"][1]["loss"],
         "c: one process": all(v[0] <= v[1] for v in one["checks"].values())}
     return res
+
+
+# 16d: fsdp against dp at one rank, where they are not bit for bit
+FSDP_RTOL = 1e-6
+
+
+def fsdp_gap(dp, fsdp, params_out):
+    """16d against 16a's NCCL run: equal losses and parameter digests, or
+    the largest relative gap (a loss's; a parameter's over its tensor's
+    largest element, read from the saved parameters)."""
+    import torch
+
+    if dp["loss"] == fsdp["loss"] and dp["digest"] == fsdp["digest"]:
+        return {"bit_for_bit": True, "max_rel": 0.0}
+    loss = max(abs(a - b) / max(abs(a), 1e-30)
+               for a, b in zip(dp["loss"], fsdp["loss"]))
+    a, d = (torch.load(params_out[k]) for k in "ad")
+    worst = max(((a[n] - d[n]).abs().max().item()
+                 / max(a[n].abs().max().item(), 1e-30), n) for n in a)
+    return {"bit_for_bit": False, "loss_rel": loss, "param_rel": worst[0],
+            "worst_param": worst[1], "max_rel": max(loss, worst[0])}
+
+
+def same_layout(want_path, got_path):
+    """Two checkpoint files' state_dict and moments: the same keys in the
+    same order, shapes and dtypes (read memory-mapped)."""
+    import torch
+
+    def layout(path):
+        p = torch.load(path, map_location="cpu", weights_only=True,
+                       mmap=True)
+        return {part: [(k, tuple(v.shape), str(v.dtype))
+                       for k, v in tree.items()]
+                for part, tree in (("state_dict", p["state_dict"]),
+                                   ("mu", p["optimizer"]["mu"]),
+                                   ("nu", p["optimizer"]["nu"]))}
+
+    want, got = layout(want_path), layout(got_path)
+    return {"same": want == got,
+            "n": {k: len(v) for k, v in got.items()},
+            "diff": [k for k in want if want[k] != got[k]]}
 
 
 def _median(xs):
@@ -3885,9 +3982,12 @@ def print_dist_phase(r, card):
     def timing(x):
         wall, busy, _ = x["profile"] or (float("nan"),) * 3
         p50, ar = step_p50(x["step_ms"]), _median(x["all_reduce_ms"])
+        reduce = (f"gradient all-reduce {ar:.2f} ms a step ({ar / p50:.3f}"
+                  f" of the step p50)" if x["all_reduce_ms"] else
+                  "no gradient all-reduce (FSDP2 reduce-scatters in the "
+                  "backward)")
         return (f"step p50 {p50:.2f} ms, profiled window wall {wall:.2f} / "
-                f"device busy {busy:.2f} ms a step, gradient all-reduce "
-                f"{ar:.2f} ms a step ({ar / p50:.3f} of the step p50), "
+                f"device busy {busy:.2f} ms a step, {reduce}, "
                 f"peak {x['peak_gib']:.2f} GiB, {x['wall_s']:.1f} s of main")
 
     plain, nccl = r["a"]
@@ -3926,6 +4026,40 @@ def print_dist_phase(r, card):
           f"{timing(b0)}; rank 1: {timing(b1)}; phase 16 seconds "
           f"{ {k: round(v, 1) for k, v in r['seconds'].items()} } ({card})",
           flush=True)
+    d, ka = r["d"], nccl["kernels_per_step"]
+    kd = d["kernels_per_step"]
+    changed = {k[:56]: kd.get(k, 0) - ka.get(k, 0)
+               for k in sorted(set(ka) | set(kd))
+               if kd.get(k, 0) != ka.get(k, 0)}
+    held, total = d["state_elements"]
+    print(f"[16d resident] TPU.PARTITION_MODE fsdp at 1 NCCL rank: the "
+          f"rank holds {held} of the {total} elements of the trained "
+          f"parameters and their AdamW moments, {held * 4 / 2 ** 20:.1f} "
+          f"MiB in fp32 (dp's rank {nccl['state_elements'][0]}); at N "
+          f"ranks each holds its dim-0 chunk, ~1/N ({card})", flush=True)
+    gap = r["d_gap"]
+    same = ("losses and final parameters' sha256 equal bit for bit"
+            if gap["bit_for_bit"] else
+            f"not bit for bit: largest relative gap {gap['max_rel']:.3e} "
+            f"(loss {gap['loss_rel']:.3e}, parameter {gap['param_rel']:.3e}"
+            f" in {gap['worst_param']}) under {FSDP_RTOL}")
+    print(f"[16d fsdp NCCL world 1] phase 16a's config with "
+          f"TPU.PARTITION_MODE fsdp, python -m vlbert_tpu_torch.engine.train"
+          f" --dist --dist-backend nccl (FSDP2: each BertLayer and the root "
+          f"a unit), beside 16a's dp run: {len(d['loss'])} steps, losses "
+          f"{[round(x, 4) for x in d['loss']]}, {same} "
+          f"({d['digest'][:16]}); launches per step {d['step_launches'][0]} "
+          f"and per validation run {d['val_launches'][0]}, as dp's; device "
+          f"kernels a step (profiler) {sum(kd.values()):.0f} against dp's "
+          f"{sum(ka.values()):.0f}, FSDP2's copies and collectives in place "
+          f"of dp's all-reduce: {changed}; {timing(d)}; files "
+          f"{r['d_files']}, -0000.model against 16b's dp -0001.model: "
+          f"same keys, shapes and dtypes {r['d_file']['same']} "
+          f"({r['d_file']['n']}); AUTO_RESUME under fsdp: begin_epoch "
+          f"{r['d_resume']['begin_epoch']}, optimizer count "
+          f"{r['d_resume']['resumed_count']}, "
+          f"{len(r['d_resume']['loss'])} steps, parameters as written "
+          f"{r['d_resume']['digest'] == d['digest']} ({card})", flush=True)
     c0, c1 = r["c"]
     one = r["c_one"]
     print(f"[16c dp gloo world 2, fp32 step] {PRETRAIN_CFGS['prec']} with "
@@ -5289,6 +5423,15 @@ def main():
     from vlbert_tpu_torch.utils.config import load_config
 
     t_run = time.perf_counter()
+    laps, lap_t = {}, [t_run]
+
+    def lap(name):
+        """The seconds since the previous lap, kept for [total] under
+        ``name``: where a run's time goes."""
+        now = time.perf_counter()
+        laps[name] = round(now - lap_t[0], 1)
+        lap_t[0] = now
+
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5334,6 +5477,7 @@ def main():
           + f" ({card})",
           flush=True)
 
+    lap("1-3")
     # --- serve: full width, bf16 ---
     cfg = load_config("refcoco", CFG)
     cfg.NETWORK.IMAGE_FEAT_PRECOMPUTED = False
@@ -5363,6 +5507,7 @@ def main():
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"({card})", flush=True)
 
+    lap("4")
     # --- end-to-end agreement, fp32: kernels vs plain versions ---
     model32 = build_module(cfg, "refcoco", dtype=torch.float32, device=dev)
     model32.load_state_dict(model.state_dict())
@@ -5393,6 +5538,7 @@ def main():
           f"{top2[1] - top2[0]:.3e}, logit spread "
           f"{plain[:n_live].std():.3e}", flush=True)
 
+    lap("5")
     # --- 6: training kernels at the VQA training shapes ---
     k5_errs, k5_mask, k5_ms = k5_parity(dev)
     print(f"[6 parity K5 dropout] max abs err {max(k5_errs.values())} over "
@@ -5466,6 +5612,7 @@ def main():
           f"({card})",
           flush=True)
 
+    lap("6")
     # --- 7: VQA fine-tuning at full width; 8: fp32 step agreement ---
     root = tempfile.mkdtemp(prefix="vqa_fixture_")
     try:
@@ -5532,6 +5679,7 @@ def main():
               f"{ms_by_name(agree['attention_ms'])} "
               f"({card})", flush=True)
 
+        lap("7-8")
         # --- 9: train -> checkpoint -> resume; 10: VQA server; 11: test ---
         cfg9, r9 = resume_phase(root, overrides)
         h1, h2 = r9["run1"], r9["run2"]
@@ -5633,6 +5781,7 @@ def main():
               f"({card})",
               flush=True)
 
+        lap("9-11")
         # --- 12: VCR inference at full width ---
         r12 = vcr_phase(root, cfg9.NETWORK.BERT_MODEL_NAME)
         none = dict.fromkeys(("K1b", "K3", "K4", "K5_fwd", "K5_bwd"), 0)
@@ -5700,6 +5849,7 @@ def main():
               f"argmax for each question (smallest top-2 margin "
               f"{r12['fp32']['min_margin']:.3e}) ({card})", flush=True)
 
+        lap("12")
         # --- 13: training from pixels: K1b, then VCR and RefCOCO+ ---
         k1b_errs = k1b_parity(dev)
         k1b_t = k1b_times(dev)
@@ -5798,6 +5948,7 @@ def main():
               f"3..{len(r13r['loss'])}), peak device memory "
               f"{r13r['peak_gib']:.2f} GiB, {r13r['wall_s']:.2f} s of main "
               f"({card})", flush=True)
+        lap("13")
         root14 = os.path.join(root, "p14")
         os.makedirs(root14)
         r14 = pretrain_phase(root14, vocab13)
@@ -5866,6 +6017,7 @@ def main():
               f"{agree14['launches'][1]}; a repeat of the kernel step is "
               f"bit-identical; attention device ms by kernel "
               f"{ms_by_name(agree14['attention_ms'])} ({card})", flush=True)
+        lap("14")
         # --- 15: VL-BERT-large (24 layers x 1024 x 16 heads) ---
         lk_errs, lk_t = large_kernel_parity(dev)
         B15, L15, H15 = LARGE_ATTN
@@ -5962,6 +6114,7 @@ def main():
               f"query); latency p50 {lat15['p50_ms']:.2f} ms, p90 "
               f"{lat15['p90_ms']:.2f} ms over n={lat15['n']}; peak device "
               f"memory {r15e['peak_gib']:.2f} GiB ({card})", flush=True)
+        lap("15")
         # --- 16: data parallelism over torch.distributed ---
         root16 = os.path.join(root, "p16")
         os.makedirs(root16)
@@ -5971,10 +6124,12 @@ def main():
                                  f"{ {k: r16[k] for k in ('b_val_one', 'c_one', 'seconds')} }")
         print_dist_phase(r16, card)
 
+        lap("16")
         # --- 17-18: int8 serving, the attention dump, ResNet-18 ---
         r17a, r17b, r18a, r18b = int8_and_vis_phases(
             cfg, model, queries, cfg9, r9["best"], root, vocab13, card)
 
+        lap("17-18")
         # --- 19: float16 training ---
         del model
         torch.cuda.empty_cache()
@@ -6333,10 +6488,11 @@ def main():
         if times:
             record["at_H16"] = times
     # launches on phase 16's paths, each run's total: 16a's run under a
-    # process group of one NCCL rank, 16b's two gloo ranks
+    # process group of one NCCL rank, 16b's two gloo ranks, 16d's FSDP2
     dist_runs = {"16a_nccl_world1": r16["a"][1]["total"],
                  "16b_gloo_rank0": r16["b"][0]["total"],
-                 "16b_gloo_rank1": r16["b"][1]["total"]}
+                 "16b_gloo_rank1": r16["b"][1]["total"],
+                 "16d_fsdp_nccl_world1": r16["d"]["total"]}
     count_of = {"roi_align_fwd": "K1", "roi_align_bwd": "K1b",
                 "attention_fwd": "K2", "dropout": "K5_fwd",
                 "attention_dropout_fwd": "K3", "attention_dropout_bwd": "K4"}
@@ -6367,8 +6523,10 @@ def main():
         if record["name"] in int8_vis:
             record["launches_int8_vis"] = int8_vis[record["name"]]
     add_fp16_records(kernels, f16_errs, f16_t, r19)
+    lap("19")
     print(f"[total] phases 1-19 in {time.perf_counter() - t_run:.1f} s, "
-          f"the kernels' build included ({card})", flush=True)
+          f"the kernels' build included; seconds by phase {laps} ({card})",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

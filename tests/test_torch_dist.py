@@ -300,30 +300,47 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _spawn(scenario, tmp, payload):
-    """Run ``scenario`` on WORLD ranks; returns each rank's result. Fails
-    on a rank's error or when the group outlives RANK_TIMEOUT."""
+def torchrun_env(rank, port):
+    return {"RANK": str(rank), "WORLD_SIZE": str(WORLD),
+            "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}
+
+
+def start_ranks(scenario, tmp, payload, module="tests.test_torch_dist",
+                env_of=torchrun_env):
+    """Start ``module._rank_main(scenario, tmp)`` on WORLD rank processes,
+    rank r with ``env_of(r, port)`` (torchrun's variables by default; the
+    inherited ones dropped) and a free port; returns what ``finish_ranks``
+    takes."""
     with open(os.path.join(tmp, f"{scenario}.pkl"), "wb") as f:
         pickle.dump(payload, f)
     port = _free_port()
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                         "MASTER_PORT") and not k.startswith("SLURM_")}
     procs = []
     for rank in range(WORLD):
-        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(WORLD),
-               "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
-               "MASTER_PORT": str(port), "OMP_NUM_THREADS": "2"}
+        env = {**base, **env_of(rank, port), "OMP_NUM_THREADS": "2"}
         procs.append(subprocess.Popen(
             [sys.executable, "-c",
-             f"import tests.test_torch_dist as t; "
+             f"import {module} as t; "
              f"t._rank_main({scenario!r}, {str(tmp)!r})"],
             cwd=REPO, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
+    return scenario, tmp, procs
+
+
+def finish_ranks(started, timeout=RANK_TIMEOUT):
+    """Each rank's result of ``start_ranks``' group. Fails on a rank's
+    error or when the group outlives ``timeout`` seconds."""
+    scenario, tmp, procs = started
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+            logs.append(p.communicate(timeout=timeout)[0])
     except subprocess.TimeoutExpired:
         pytest.fail(f"{scenario}: the ranks did not finish within "
-                    f"{RANK_TIMEOUT} s (a hang)")
+                    f"{timeout} s (a hang)")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -337,6 +354,12 @@ def _spawn(scenario, tmp, payload):
             out.append(pickle.load(f))
     assert not any(o["jax_imported"] for o in out)
     return out
+
+
+def _spawn(scenario, tmp, payload):
+    """Run ``scenario`` on WORLD ranks; returns each rank's result. Fails
+    on a rank's error or when the group outlives RANK_TIMEOUT."""
+    return finish_ranks(start_ranks(scenario, tmp, payload))
 
 
 # ------------------------------------------------------------ the parent
@@ -584,10 +607,12 @@ def test_the_lr_scales_by_world(train_net_run):
                                  {"MESH_SHAPE": [1, 2]}])
 def test_fsdp_tp_and_a_mismatched_mesh_are_refused_before_a_model_is_built(
         tmp_path, monkeypatch, tpu):
-    """At 2 ranks train_net refuses PARTITION_MODE fsdp and tp, a
-    MESH_SHAPE that does not lay out 2 devices and one with a model axis,
-    naming what is missing, before it builds a model or a loader. At one
-    rank the same configs pass the check (the knobs warn)."""
+    """At 2 ranks train_net refuses PARTITION_MODE tp, a MESH_SHAPE that
+    does not lay out 2 devices and one with a model axis, naming what is
+    missing, before it builds a model or a loader; fsdp passes the check
+    over a MESH_SHAPE of [] or [2] (FSDP2, tests/test_torch_fsdp.py) and
+    is refused with a model axis. At one rank every config passes (the
+    knobs warn)."""
     import vlbert_tpu_torch.engine.train as t_train
     from tests.test_entrypoints import _tiny_vqa_cfg, _write_vqa_fixture
     from vlbert_tpu_torch.parallel.dist import check_partition
@@ -596,6 +621,15 @@ def test_fsdp_tp_and_a_mismatched_mesh_are_refused_before_a_model_is_built(
     cfg = _tiny_vqa_cfg(tmp_path, data_dir, vocab_dir)
     for k, v in tpu.items():
         cfg.TPU[k] = v
+    check_partition(cfg, 1)
+    if tpu.get("PARTITION_MODE") == "fsdp":
+        for shape in ([], [2]):
+            cfg.TPU.MESH_SHAPE = shape
+            check_partition(cfg, 2)
+        cfg.TPU.MESH_SHAPE = [1, 2]
+        with pytest.raises(NotImplementedError, match="model axis"):
+            check_partition(cfg, 2)
+        return
     built = []
     monkeypatch.setattr(t_train, "dist_rank_world", lambda: (0, 2))
     monkeypatch.setattr(t_train, "build_module",
@@ -603,15 +637,13 @@ def test_fsdp_tp_and_a_mismatched_mesh_are_refused_before_a_model_is_built(
     monkeypatch.setattr(t_train, "make_dataloader",
                         lambda *a, **kw: built.append(a))
     args = types.SimpleNamespace(model_dir="", device="cpu")
-    want = {"fsdp": "fsdp at 2 ranks needs FSDP2",
-            "tp": "tp at 2 ranks needs the tensor-parallel rules"}.get(
+    want = {"tp": "tp at 2 ranks needs the tensor-parallel rules"}.get(
         tpu.get("PARTITION_MODE"),
         "lays out 4 devices" if tpu.get("MESH_SHAPE") == [4]
         else "model axis")
     with pytest.raises((NotImplementedError, ValueError), match=want):
         t_train.train_net(args, cfg, "vqa")
     assert built == []
-    check_partition(cfg, 1)
     cfg.TPU.PARTITION_MODE = "dp"
     cfg.TPU.MESH_SHAPE = [2]
     check_partition(cfg, 2)

@@ -48,7 +48,9 @@ def test_port_imports_no_jax():
             "vlbert_tpu_torch.data.datasets.refcoco",
             "vlbert_tpu_torch.data.datasets.vcr",
             "vlbert_tpu_torch.utils.mask",
-            "vlbert_tpu_torch.engine.vcr_val"} <= set(mods)
+            "vlbert_tpu_torch.engine.vcr_val",
+            "vlbert_tpu_torch.parallel.dist",
+            "vlbert_tpu_torch.parallel.fsdp"} <= set(mods)
     assert len(mods) >= 21
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -40,6 +40,17 @@ optimizer moments and count, begin epoch, best validation metric and
 plateau state are broadcast; each step is the global batch's; rank 0
 alone writes checkpoints and runs ``--do-test`` (the others wait at a
 barrier); each rank logs to ``train_rank{rank}.log``.
+
+With TPU.PARTITION_MODE fsdp under ``--dist`` (``parallel/fsdp.py``) the
+model is sharded with FSDP2 after its warm starts, and the optimizer and
+the train step are built on the sharded parameters: each rank holds 1/N
+of the parameters and moments, and each step is still the global
+batch's. Every rank enters a checkpoint save, which gathers the state
+into the file a ``dp`` run writes (rank 0 alone writes it), and a resume,
+in which rank 0 reads the file and each rank keeps its shard.
+``--do-test`` still runs on rank 0 alone, on a model it builds from the
+written file. Under SLURM, ``srun`` with one task a card replaces
+torchrun (``scripts/run_slurm_torch.sh``; ``parallel/dist.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ from vlbert_tpu_torch.engine.val import make_validation_fn
 from vlbert_tpu_torch.models.layers import init_weights
 from vlbert_tpu_torch.models.task_modules import _DTYPES, build_module
 from vlbert_tpu_torch.parallel import dist as dist_lib
+from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
 from vlbert_tpu_torch.training import checkpoint as ckpt_lib
 from vlbert_tpu_torch.training import convert as cvt
 from vlbert_tpu_torch.training.loop import fit, loss_scale
@@ -262,6 +274,11 @@ def train_net(args, config, task):
     else:
         apply_warm_starts(model, config)
         apply_partial_pretrain(model, config)
+    if dist_lib.is_distributed() \
+            and dist_lib.partition_mode(config) == "fsdp":
+        # after the mask and the warm starts, before the optimizer and the
+        # train step, which hold the sharded Parameters
+        fsdp_lib.shard_module(model, device)
 
     tokenizer = BertTokenizer.from_pretrained(config.NETWORK.BERT_MODEL_NAME)
     if isinstance(config.DATASET, (list, tuple)):
@@ -275,6 +292,11 @@ def train_net(args, config, task):
         optimizer = Optimizer(config, model, len(train_loader), world)
         begin_epoch, extra = resume(model_prefix, model, optimizer, config)
         resumed_count = optimizer.count
+        moments = optimizer.mu + (optimizer.nu or [])
+        state_elements = (fsdp_lib.local_numel(optimizer.params + moments),
+                          sum(t.numel() for t in optimizer.params + moments))
+        logger.info("rank %d holds %d of the %d elements of the trained "
+                    "parameters and their moments", rank, *state_elements)
         logger.info("base LR %g over %d steps/epoch; epochs %d..%d, "
                     "optimizer count %d", optimizer.base_lr,
                     len(train_loader), begin_epoch, config.TRAIN.END_EPOCH,
@@ -285,8 +307,9 @@ def train_net(args, config, task):
         async_ckpt = bool(config.TPU.get("ASYNC_CHECKPOINT", True))
 
         def checkpoint_fn(m, opt, epoch, extra_dict, is_best):
-            # one writer: every rank holds the same state
-            if rank != 0:
+            # one writer; replicated state (dp) lets the other ranks skip,
+            # sharded state (fsdp) is gathered with every rank in it
+            if rank != 0 and not ckpt_lib.snapshot_needs_all_ranks(m):
                 return
             # without validation every save is the best there is, as in
             # the JAX package
@@ -294,7 +317,8 @@ def train_net(args, config, task):
                 model_prefix, epoch, m, opt, extra=extra_dict,
                 async_write=async_ckpt,
                 mirror_best_to=model_prefix
-                if is_best or val_loader is None else None)
+                if is_best or val_loader is None else None,
+                write=rank == 0)
 
         history = fit(model, config, task, train_loader, optimizer,
                       device=device,
@@ -320,8 +344,11 @@ def train_net(args, config, task):
                 loader.shutdown()
     ckpt_lib.wait_for_pending_save()     # surface in-flight write failures
     dist_lib.barrier()                   # rank 0's files are written
+    if fsdp_lib.is_sharded(model):
+        model.reshard()                  # the root's, gathered by validation
     history["begin_epoch"] = begin_epoch
     history["resumed_count"] = resumed_count
+    history["state_elements"] = state_elements
     if getattr(args, "do_test", False):
         from vlbert_tpu_torch.engine.test import do_test
 
@@ -335,28 +362,30 @@ def resume(model_prefix, model, optimizer, config):
     """``smart_resume``; under a process group on rank 0 alone, then rank
     0's parameters, buffers, optimizer moments, count and plateau scale,
     begin epoch and ``extra`` (best_val, plateau) on every rank (JAX:
-    ``broadcast_one_to_all`` after the resume). A rank without the
-    checkpoint file resumes all the same; a failure on rank 0 raises on
-    every rank. Returns (begin_epoch, extra)."""
+    ``broadcast_one_to_all`` after the resume). A sharded model: rank 0
+    finds the file and every rank enters the load, which scatters rank
+    0's tensors. A rank without the checkpoint file resumes all the same;
+    a failure on rank 0 raises on every rank. Returns (begin_epoch,
+    extra)."""
     if not dist_lib.is_distributed():
         return ckpt_lib.smart_resume(model_prefix, model, optimizer, config)
-    rank = dist_lib.rank_world()[0]
-    state, error = None, None
-    if rank == 0:
-        try:
-            begin_epoch, extra = ckpt_lib.smart_resume(model_prefix, model,
-                                                       optimizer, config)
-            state = (begin_epoch, extra, optimizer.count,
-                     optimizer.plateau_scale)
-        except Exception as e:      # raised below, after the broadcast
-            error = e
-            state = f"{type(e).__name__}: {e}"
-    state = dist_lib.broadcast_object(state)
-    if error is not None:
-        raise error
-    if isinstance(state, str):
-        raise RuntimeError(f"rank 0 failed to resume: {state}")
-    begin_epoch, extra, optimizer.count, optimizer.plateau_scale = state
+    if ckpt_lib.snapshot_needs_all_ranks(model):
+        path, begin_epoch = dist_lib.from_rank0(
+            lambda: ckpt_lib.resume_target(model_prefix, config))
+        if path is None:
+            return begin_epoch, {}
+        extra = ckpt_lib.load_checkpoint(path, model, optimizer)
+        logger.info("resumed from rank 0's %s (begin_epoch=%d)", path,
+                    begin_epoch)
+        return begin_epoch, extra
+
+    def read():                     # rank 0 alone, then broadcast
+        begin_epoch, extra = ckpt_lib.smart_resume(model_prefix, model,
+                                                   optimizer, config)
+        return begin_epoch, extra, optimizer.count, optimizer.plateau_scale
+
+    begin_epoch, extra, optimizer.count, optimizer.plateau_scale = \
+        dist_lib.from_rank0(read)
     dist_lib.broadcast_tensors_(
         [p.data for p in model.parameters()] + list(model.buffers())
         + optimizer.mu + (optimizer.nu or []))

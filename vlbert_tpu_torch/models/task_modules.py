@@ -639,13 +639,13 @@ _IGNORED_KNOBS = {
     "COMPILE_CACHE_DIR": "an XLA compile cache",
     "MASKED_OPT_STATE": "moments are kept for the trained parameters only",
     # device meshes: one rank runs on its one card; at more than one,
-    # engine.train --dist trains PARTITION_MODE dp over a MESH_SHAPE of
-    # the world size (parallel/dist.py::check_partition)
+    # engine.train --dist trains PARTITION_MODE dp or fsdp over a
+    # MESH_SHAPE of the world size (parallel/dist.py::check_partition)
     "MESH_SHAPE": "one card a rank; at more than one rank it must lay out "
                   "the world size",
     "MESH_AXES": "one card a rank; no model axis",
-    "PARTITION_MODE": "one card a rank; dp over torch.distributed ranks "
-                      "under engine.train --dist",
+    "PARTITION_MODE": "one card a rank; dp, or fsdp's sharded state, over "
+                      "torch.distributed ranks under engine.train --dist",
 }
 
 

@@ -31,9 +31,16 @@ validation, test and serving use the same module, and the same code runs
 over gloo, which the one-card machine's two-rank check uses. What it
 gives up is DDP's overlap of the all-reduce with the backward.
 
-Nothing falls back: a collective that fails raises. PARTITION_MODE
-``fsdp`` and ``tp``, which shard the state over the mesh, are refused at
-more than one rank (``check_partition``).
+PARTITION_MODE ``fsdp`` shards the parameters and moments over the same
+ranks (``parallel/fsdp.py``); ``tp`` and a model axis are refused at more
+than one rank (``check_partition``). Nothing falls back: a collective that
+fails raises.
+
+Under SLURM, ``srun`` starts one task a card and ``--dist`` reads its
+environment when torchrun's is absent (``slurm_env``):
+
+    srun --ntasks-per-node <cards> python -m vlbert_tpu_torch.engine.train \
+        --dist --task vqa --cfg ...        (scripts/run_slurm_torch.sh)
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import re
 
 import torch
 import torch.distributed as dist
@@ -49,8 +57,10 @@ import torch.distributed as dist
 BUCKET_BYTES = 64 << 20
 
 MODES = ("dp", "fsdp", "tp")
-_LATER = {"fsdp": "FSDP2 sharding of the parameters and optimizer state",
-          "tp": "the tensor-parallel rules of vlbert_tpu/parallel/mesh.py"}
+# what a refused layout waits for (ROADMAP.md queue 1, multi-GPU)
+_TP_LATER = ("the tensor-parallel rules of vlbert_tpu/parallel/mesh.py "
+             "(ColwiseParallel / RowwiseParallel over a model axis), the "
+             "next multi-GPU item of ROADMAP.md queue 1")
 
 
 def is_distributed():
@@ -64,24 +74,29 @@ def rank_world():
     return 0, 1
 
 
+def partition_mode(config):
+    tpu = config.TPU if "TPU" in config else {}
+    return str(tpu.get("PARTITION_MODE", "dp")).lower()
+
+
 def check_partition(config, world):
     """Raise on a TPU.PARTITION_MODE or TPU.MESH_SHAPE the port cannot run
     at ``world`` ranks, before anything is built. One rank runs every mode
     on its one card (the mesh knobs then only warn, ``build_module``); at
-    more than one only ``dp`` over a mesh of ``world`` devices on the data
-    axis."""
+    more than one, ``dp`` and ``fsdp`` over a mesh of ``world`` devices on
+    the data axis (MESH_SHAPE [] or [world])."""
     tpu = config.TPU if "TPU" in config else {}
-    mode = str(tpu.get("PARTITION_MODE", "dp")).lower()
+    mode = partition_mode(config)
     if mode not in MODES:
         raise ValueError(f"unknown TPU.PARTITION_MODE {mode!r} (one of "
                          f"{', '.join(MODES)})")
     if world <= 1:
         return
-    if mode != "dp":
+    if mode == "tp":
         raise NotImplementedError(
-            f"TPU.PARTITION_MODE={mode} at {world} ranks needs {_LATER[mode]}"
-            f", which the port does not have yet (ROADMAP.md queue 1, "
-            f"multi-GPU); PARTITION_MODE dp trains at {world} ranks")
+            f"TPU.PARTITION_MODE=tp at {world} ranks needs {_TP_LATER}, "
+            f"which the port does not have yet; PARTITION_MODE dp or fsdp "
+            f"trains at {world} ranks")
     shape = list(tpu.get("MESH_SHAPE") or [])
     if shape and math.prod(int(s) for s in shape) != world:
         raise ValueError(
@@ -91,8 +106,7 @@ def check_partition(config, world):
     if len(shape) > 1 and any(int(s) > 1 for s in shape[1:]):
         raise NotImplementedError(
             f"TPU.MESH_SHAPE {shape} has a model axis: tensor parallelism "
-            f"needs {_LATER['tp']}, which the port does not have yet "
-            f"(ROADMAP.md queue 1, multi-GPU)")
+            f"needs {_TP_LATER}, which the port does not have yet")
 
 
 def resolve_device(device=None, local_rank=0):
@@ -113,27 +127,125 @@ def default_backend(device):
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def init_from_env(backend=None, device=None, env=None):
-    """Initialise the default process group from torchrun's environment.
-    Returns the rank's device. ``backend``: nccl or gloo, by default nccl
-    on a card and gloo on the CPU; nccl on the CPU raises."""
-    env = os.environ if env is None else env
-    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
-                           "MASTER_PORT") if k not in env]
+_TORCHRUN = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+_SLURM = ("SLURM_PROCID", "SLURM_NTASKS", "SLURM_LOCALID")
+
+
+def expand_hostlist(spec):
+    """SLURM's compressed host list as the list of its host names, in
+    order: ``gpu[01-03,07],login2`` is gpu01, gpu02, gpu03, gpu07, login2.
+    A range keeps the zero padding of its first bound; several bracket
+    groups in one name expand as their product. Raises ValueError on a
+    list it cannot read."""
+    items, depth, cur = [], 0, ""
+    for ch in spec:
+        depth += (ch == "[") - (ch == "]")
+        if depth < 0 or depth > 1:
+            raise ValueError(f"host list {spec!r}: unbalanced brackets")
+        if ch == "," and depth == 0:
+            items.append(cur)
+            cur = ""
+        else:
+            cur += ch
+    items.append(cur)
+    if depth or any(not item for item in items):
+        raise ValueError(f"host list {spec!r}: unbalanced brackets or an "
+                         f"empty name")
+    return [host for item in items for host in _expand_name(item, spec)]
+
+
+def _expand_name(name, spec):
+    m = re.fullmatch(r"([^\[\]]*)\[([^\[\]]*)\](.*)", name)
+    if m is None:
+        if "[" in name or "]" in name:
+            raise ValueError(f"host list {spec!r}: cannot read {name!r}")
+        return [name]
+    head, body, tail = m.groups()
+    numbers = []
+    for part in body.split(","):
+        lo, sep, hi = part.partition("-")
+        if not lo.isdigit() or (sep and not hi.isdigit()):
+            raise ValueError(f"host list {spec!r}: range {part!r} is not "
+                             f"a number or lo-hi")
+        if not sep:
+            numbers.append(lo)
+            continue
+        if int(hi) < int(lo):
+            raise ValueError(f"host list {spec!r}: range {part!r} runs "
+                             f"backwards")
+        numbers += [str(i).zfill(len(lo)) for i in range(int(lo),
+                                                         int(hi) + 1)]
+    rests = _expand_name(tail, spec)
+    return [head + n + rest for n in numbers for rest in rests]
+
+
+def slurm_port(job_id):
+    """MASTER_PORT of a SLURM job without one: 10000 + SLURM_JOB_ID mod
+    20000, below Linux's ephemeral ports (32768 and up), the same on every
+    task of the job."""
+    return 10000 + int(job_id) % 20000
+
+
+def slurm_env(env):
+    """torchrun's variables from ``srun``'s environment (one task a card):
+    RANK = SLURM_PROCID, WORLD_SIZE = SLURM_NTASKS, LOCAL_RANK =
+    SLURM_LOCALID, MASTER_ADDR = the first host of SLURM_STEP_NODELIST
+    (SLURM_JOB_NODELIST when the step has none), MASTER_PORT from the
+    environment, else ``slurm_port(SLURM_JOB_ID)``. A variable it needs and
+    does not find raises by name; nothing is guessed."""
+    missing = [k for k in _SLURM if k not in env]
+    nodelist = env.get("SLURM_STEP_NODELIST") or env.get(
+        "SLURM_JOB_NODELIST")
+    if nodelist is None:
+        missing.append("SLURM_STEP_NODELIST (or SLURM_JOB_NODELIST)")
+    if "MASTER_PORT" not in env and "SLURM_JOB_ID" not in env:
+        missing.append("MASTER_PORT (or SLURM_JOB_ID)")
     if missing:
-        raise RuntimeError(
-            f"--dist needs torchrun's environment ({', '.join(missing)} "
-            f"unset): torchrun --nproc_per_node N -m "
-            f"vlbert_tpu_torch.engine.train --dist ...")
-    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
-    device = resolve_device(device, int(env.get("LOCAL_RANK", rank)))
+        raise RuntimeError(f"--dist under SLURM: {', '.join(missing)} "
+                           f"unset (start the ranks with srun, one task a "
+                           f"card: scripts/run_slurm_torch.sh)")
+    return {"RANK": env["SLURM_PROCID"], "WORLD_SIZE": env["SLURM_NTASKS"],
+            "LOCAL_RANK": env["SLURM_LOCALID"],
+            "MASTER_ADDR": expand_hostlist(nodelist)[0],
+            "MASTER_PORT": env.get("MASTER_PORT")
+            or str(slurm_port(env["SLURM_JOB_ID"]))}
+
+
+def rendezvous_env(env):
+    """(torchrun's variables, init method) of this process: torchrun's own
+    when RANK is set (they win over SLURM's), else ``slurm_env``'s when
+    SLURM_PROCID is set. torchrun's are read by ``env://`` (its agent may
+    host the store), SLURM's by ``tcp://MASTER_ADDR:MASTER_PORT``."""
+    if "RANK" in env or "SLURM_PROCID" not in env:
+        missing = [k for k in _TORCHRUN if k not in env]
+        if missing:
+            raise RuntimeError(
+                f"--dist needs torchrun's environment ({', '.join(missing)}"
+                f" unset): torchrun --nproc_per_node N -m "
+                f"vlbert_tpu_torch.engine.train --dist ..., or srun's "
+                f"(SLURM_PROCID unset)")
+        return {k: env[k] for k in _TORCHRUN + ("LOCAL_RANK",)
+                if k in env}, "env://"
+    out = slurm_env(env)
+    return out, f"tcp://{out['MASTER_ADDR']}:{out['MASTER_PORT']}"
+
+
+def init_from_env(backend=None, device=None, env=None):
+    """Initialise the default process group from torchrun's environment,
+    or srun's (``rendezvous_env``). Returns the rank's device.
+    ``backend``: nccl or gloo, by default nccl on a card and gloo on the
+    CPU; nccl on the CPU raises."""
+    env = os.environ if env is None else env
+    found, init_method = rendezvous_env(env)
+    rank, world = int(found["RANK"]), int(found["WORLD_SIZE"])
+    device = resolve_device(device, int(found.get("LOCAL_RANK", rank)))
     backend = backend or default_backend(device)
     if backend == "nccl" and device.type != "cuda":
         raise ValueError(f"the nccl backend needs a CUDA device, got "
                          f"{device} (use --dist-backend gloo)")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method="env://", rank=rank,
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world)
     return device
 
@@ -213,6 +325,28 @@ def broadcast_object(obj, src=0):
     box = [obj]
     dist.broadcast_object_list(box, src=src)
     return box[0]
+
+
+def from_rank0(fn):
+    """``fn()`` run on rank 0, its (picklable) value on every rank. An
+    exception that ``fn`` raises on rank 0 is raised on every rank, after
+    the broadcast, so that no rank waits in a collective for it. Without a
+    process group, ``fn()``."""
+    if not is_distributed():
+        return fn()
+    value, error = None, None
+    if dist.get_rank() == 0:
+        try:
+            value = fn()
+        except Exception as e:      # raised below, after the broadcast
+            error = e
+    box = broadcast_object(("ok", value) if error is None
+                           else ("error", f"{type(error).__name__}: {error}"))
+    if error is not None:
+        raise error
+    if box[0] == "error":
+        raise RuntimeError(f"rank 0 failed: {box[1]}")
+    return box[1]
 
 
 @torch.no_grad()

@@ -20,12 +20,21 @@ writer and ``-best.model`` included) and alone resume, then broadcasts
 what it read; the module is never wrapped, so the files keep the
 reference names with no ``module.`` prefix.
 
+Under TPU.PARTITION_MODE fsdp (``parallel/fsdp.py``) each rank holds a
+shard of every parameter and moment, and the file is still the one a
+``dp`` run writes: the same keys, shapes and dtypes, the tied decoder
+once. ``snapshot`` is then collective (JAX's ``_to_host`` and
+``snapshot_needs_all_ranks``): every rank enters ``save_checkpoint``, the
+tensors are gathered whole in a fixed order (``fsdp.full_state``), and
+rank 0 alone writes (``write``). ``load_checkpoint`` is collective too:
+rank 0 reads the file and each rank keeps its shard
+(``fsdp.load_full_state_``); ``partial_load`` takes each rank's own copy
+of a warm-start file. FSDP2 renames nothing, so no prefix is stripped.
+
 Not ported: ``_reconcile_masked_opt_state`` migrates optax moment trees
 across a format change the port never had (its moments are dense tensors
-keyed by name), and ``_to_host`` / ``snapshot_needs_all_ranks`` gather
-state sharded across hosts, which waits for sharded training (fsdp, tp;
-ROADMAP.md queue 1, multi-GPU). The pretraining model's tied MLM decoder
-is one tensor under two names: ``_to_host`` keeps it one.
+keyed by name). The pretraining model's tied MLM decoder is one tensor
+under two names: ``_to_host`` and ``fsdp.full_state`` keep it one.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ import threading
 
 import torch
 
+from vlbert_tpu_torch.parallel import dist as dist_lib
+from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
 from vlbert_tpu_torch.training.convert import (apply_reference_prefix_changes,
                                                reference_name)
 
@@ -91,8 +102,37 @@ def _to_host(obj, memo=None):
     return obj
 
 
+def snapshot_needs_all_ranks(model):
+    """True when a snapshot of ``model`` is collective (its parameters
+    are sharded across ranks): every rank must enter ``save_checkpoint``
+    and ``load_checkpoint``."""
+    return fsdp_lib.is_sharded(model)
+
+
+def snapshot(model, optimizer):
+    """(state_dict, optimizer state) as CPU copies: the caller's next step
+    updates the live tensors in place. Of a sharded model, collective:
+    every tensor gathered whole in one fixed order, the copies on rank 0
+    and (None, None) on the others."""
+    sd, opt = model.state_dict(), optimizer.state_dict()
+    if not snapshot_needs_all_ranks(model):
+        return _to_host(sd), _to_host(opt)
+    nu = opt["nu"] or {}
+    tensors = list(sd.values()) + list(opt["mu"].values()) \
+        + list(nu.values())
+    full = fsdp_lib.full_state(tensors)
+    if full is None:
+        return None, None
+    it = iter(full)
+    sd = {k: next(it) for k in sd}
+    opt = {**opt, "mu": {k: next(it) for k in opt["mu"]},
+           "nu": {k: next(it) for k in nu} if opt["nu"] is not None
+           else None}
+    return sd, opt
+
+
 def save_checkpoint(prefix, epoch, model, optimizer, extra=None,
-                    async_write=False, mirror_best_to=None):
+                    async_write=False, mirror_best_to=None, write=True):
     """Save weights, optimizer state and step (+ the extra dict) to
     ``{prefix}-{epoch:04d}.model``; returns the path.
 
@@ -107,14 +147,18 @@ def save_checkpoint(prefix, epoch, model, optimizer, extra=None,
     inside the writer (atomically too), so best-epoch mirroring does not
     force a join. A failed background write raises at the next join point
     (``wait_for_pending_save`` / the next save / any load).
+
+    Of a sharded model every rank calls it (``snapshot``), with ``write``
+    true on rank 0 alone; the others gather and return.
     """
     global _pending_save
     wait_for_pending_save()
-    payload = {"state_dict": _to_host(model.state_dict()),
-               "optimizer": _to_host(optimizer.state_dict()),
-               "step": int(optimizer.count),
-               "extra": dict(extra or {})}
+    state_dict, opt_state = snapshot(model, optimizer)
     path = f"{prefix}-{epoch:04d}.model"
+    if not write:
+        return path
+    payload = {"state_dict": state_dict, "optimizer": opt_state,
+               "step": int(optimizer.count), "extra": dict(extra or {})}
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def _write_file():
@@ -154,31 +198,80 @@ def mirror_best(prefix, epoch_path):
 def load_checkpoint(path, model=None, optimizer=None):
     """Read a checkpoint the port wrote. Without ``model`` returns the
     payload; with it, loads the weights (every key, strictly) and, given
-    ``optimizer``, the optimizer state, and returns the ``extra`` dict."""
+    ``optimizer``, the optimizer state, and returns the ``extra`` dict.
+    A sharded model: collective, rank 0 alone reads ``path``."""
     wait_for_pending_save()              # read-after-async-write safety
+    if model is not None and snapshot_needs_all_ranks(model):
+        return _load_sharded(path, model, optimizer)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if model is None:
         return payload
     model.load_state_dict(payload["state_dict"])
     if optimizer is not None:
         optimizer.load_state_dict(payload["optimizer"])
-        if optimizer.count != payload["step"]:
-            raise ValueError(f"{path}: optimizer count {optimizer.count} "
-                             f"!= step {payload['step']}")
+        _check_step(path, optimizer, payload["step"])
     return payload.get("extra", {})
+
+
+def _check_step(path, optimizer, step):
+    if optimizer.count != step:
+        raise ValueError(f"{path}: optimizer count {optimizer.count} "
+                         f"!= step {step}")
+
+
+def _load_sharded(path, model, optimizer):
+    """``load_checkpoint`` into an FSDP2-sharded model: rank 0 reads the
+    file and checks its keys against the model's (strictly, as
+    ``load_state_dict``); each rank keeps its shard of every tensor. A
+    failure on rank 0 raises on every rank."""
+    targets = model.state_dict(keep_vars=True)
+    # the tied decoder is the word embedding: loaded once, under its name
+    names, seen = [], set()
+    for k, t in targets.items():
+        if id(t) not in seen:
+            seen.add(id(t))
+            names.append(k)
+    box = {}
+
+    def read():                          # rank 0 alone
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        sd = payload["state_dict"]
+        missing, unexpected = set(targets) - set(sd), set(sd) - set(targets)
+        if missing or unexpected:
+            raise RuntimeError(
+                f"{path}: state_dict does not match the model: missing "
+                f"{sorted(missing)[:5]}, unexpected {sorted(unexpected)[:5]}")
+        box.update(payload=payload, full=[sd[k] for k in names])
+        return payload["step"], payload.get("extra", {})
+
+    step, extra = dist_lib.from_rank0(read)
+    fsdp_lib.load_full_state_([targets[k] for k in names], box.get("full"))
+    if optimizer is not None:
+        payload = box.get("payload")
+        optimizer.load_state_dict(payload and payload["optimizer"])
+        _check_step(path, optimizer, step)
+    return extra
+
+
+def _newest(prefix, end_epoch):
+    """(path, epoch) of the newest {prefix}-{epoch:04d}.model below
+    ``end_epoch``, scanning downward; (None, -1) when there is none."""
+    for epoch in range(end_epoch - 1, -1, -1):
+        path = f"{prefix}-{epoch:04d}.model"
+        if os.path.exists(path):
+            return path, epoch
+    return None, -1
 
 
 def auto_resume(prefix, model, optimizer, end_epoch):
     """Scan from end_epoch downward for the newest checkpoint
     (ref: common/utils/load.py:32-54). Returns (begin_epoch, extra)."""
-    for epoch in range(end_epoch - 1, -1, -1):
-        path = f"{prefix}-{epoch:04d}.model"
-        if os.path.exists(path):
-            extra = load_checkpoint(path, model, optimizer)
-            logger.info("auto-resumed from %s (begin_epoch=%d)", path,
-                        epoch + 1)
-            return epoch + 1, extra
-    return 0, {}
+    path, epoch = _newest(prefix, end_epoch)
+    if path is None:
+        return 0, {}
+    extra = load_checkpoint(path, model, optimizer)
+    logger.info("auto-resumed from %s (begin_epoch=%d)", path, epoch + 1)
+    return epoch + 1, extra
 
 
 def partial_load(model, state_dict, prefix_changes=()):
@@ -204,7 +297,12 @@ def partial_load(model, state_dict, prefix_changes=()):
                 mismatched.append((k, tuple(v.shape),
                                    tuple(target[k].shape)))
                 continue
-            target[k].copy_(v)
+            if fsdp_lib.is_dtensor(target[k]):
+                # a sharded parameter: every rank has read the file and
+                # keeps its own shard of it
+                fsdp_lib.load_full_state_([target[k]], [v], src=None)
+            else:
+                target[k].copy_(v)
             loaded.append(k)
     if missing:
         logger.warning("partial_load: %d keys not in model (e.g. %s)",
@@ -215,10 +313,11 @@ def partial_load(model, state_dict, prefix_changes=()):
     return loaded, missing, mismatched
 
 
-def smart_resume(prefix, model, optimizer, config):
-    """Explicit + auto resume (ref: common/utils/load.py:20-54):
-    TRAIN.RESUME loads {prefix}-{BEGIN_EPOCH-1:04d}.model; otherwise
-    AUTO_RESUME scans downward. Returns (begin_epoch, extra)."""
+def resume_target(prefix, config):
+    """(path, begin_epoch) that ``smart_resume`` resumes from: under
+    TRAIN.RESUME {prefix}-{BEGIN_EPOCH-1:04d}.model, under AUTO_RESUME the
+    newest {prefix}-{epoch:04d}.model below END_EPOCH (path None when there
+    is none: begin 0), else (None, BEGIN_EPOCH)."""
     t = config.TRAIN
     if t.RESUME:
         if t.BEGIN_EPOCH < 1:
@@ -227,13 +326,23 @@ def smart_resume(prefix, model, optimizer, config):
                 "resume INTO; the checkpoint {prefix}-{BEGIN_EPOCH-1:04d}"
                 ".model is loaded) — got BEGIN_EPOCH="
                 f"{t.BEGIN_EPOCH}")
-        path = f"{prefix}-{t.BEGIN_EPOCH - 1:04d}.model"
-        extra = load_checkpoint(path, model, optimizer)
-        logger.info("resumed from %s", path)
-        return t.BEGIN_EPOCH, extra
+        return f"{prefix}-{t.BEGIN_EPOCH - 1:04d}.model", t.BEGIN_EPOCH
     if t.AUTO_RESUME:
-        return auto_resume(prefix, model, optimizer, t.END_EPOCH)
-    return t.BEGIN_EPOCH, {}
+        path, epoch = _newest(prefix, t.END_EPOCH)
+        return path, epoch + 1
+    return None, t.BEGIN_EPOCH
+
+
+def smart_resume(prefix, model, optimizer, config):
+    """Explicit + auto resume (ref: common/utils/load.py:20-54):
+    TRAIN.RESUME loads {prefix}-{BEGIN_EPOCH-1:04d}.model; otherwise
+    AUTO_RESUME scans downward. Returns (begin_epoch, extra)."""
+    path, begin_epoch = resume_target(prefix, config)
+    if path is None:
+        return begin_epoch, {}
+    extra = load_checkpoint(path, model, optimizer)
+    logger.info("resumed from %s (begin_epoch=%d)", path, begin_epoch)
+    return begin_epoch, extra
 
 
 def has_resumable_checkpoint(prefix, config):
@@ -243,6 +352,5 @@ def has_resumable_checkpoint(prefix, config):
     if t.RESUME:
         return os.path.exists(f"{prefix}-{t.BEGIN_EPOCH - 1:04d}.model")
     if t.AUTO_RESUME:
-        return any(os.path.exists(f"{prefix}-{e:04d}.model")
-                   for e in range(t.END_EPOCH - 1, -1, -1))
+        return _newest(prefix, t.END_EPOCH)[0] is not None
     return False

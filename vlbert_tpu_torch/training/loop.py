@@ -22,7 +22,13 @@ ranks draw different dropout masks; the losses' data-dependent
 denominators are global (``utils/losses.py::global_counts``); the loss
 and the metrics' (sum, count) pairs are all-reduced before the NaN guard,
 so every rank raises together; the gradients are averaged across ranks
-once an optimizer step, before the clip.
+once an optimizer step, before the clip. Under TPU.PARTITION_MODE fsdp
+(``parallel/fsdp.py``) FSDP2 averages them itself, reduce-scattering each
+unit's gradients after the last micro-step's backward (the others keep
+theirs unsharded), and ``zero_touch`` gives every trainable root
+parameter a gradient on every rank, so that each rank's reduce-scatter
+holds the same parameters; the clip's norm is then the whole gradient's,
+the same on every rank (``optim.global_norm``).
 
 ``fit`` keeps the reference's epoch structure: set_epoch shuffling, one
 seed per step from the trainer's ``torch.Generator``, Speedometer logging,
@@ -43,6 +49,7 @@ import torch
 
 from vlbert_tpu_torch.ops.dropout import dropout_seeds, fold_in
 from vlbert_tpu_torch.parallel import dist as dist_lib
+from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
 from vlbert_tpu_torch.training import metrics as metrics_lib
 from vlbert_tpu_torch.training.optim import ReduceLROnPlateau
 from vlbert_tpu_torch.utils import losses
@@ -93,6 +100,7 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
     params = optimizer.params
     rank, world = dist_lib.rank_world()
     scale = loss_scale(config)
+    sharded = fsdp_lib.is_sharded(model)
     # the accumulation's mean and the unscale in one division: with a
     # power-of-two scale it rounds as the unscaled step's mean does
     divisor = grad_accum * scale
@@ -108,10 +116,16 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
             seed = fold_in(seed, rank)
         loss_sum, dm_sum = None, None
         for i, micro in enumerate(_split(batch, grad_accum)):
+            if sharded:
+                # one reduce-scatter a step, after the last backward
+                model.set_requires_gradient_sync(i == grad_accum - 1)
             with dropout_seeds(seed if grad_accum == 1
                                else fold_in(seed, i)), counts():
                 outputs, loss = model(*micro)
-            (loss * scale if scale != 1.0 else loss).backward()
+            total = loss * scale if scale != 1.0 else loss
+            if sharded:
+                total = total + fsdp_lib.zero_touch(model)
+            total.backward()
             dm = metrics_lib.device_metrics(task, config, outputs)
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
@@ -126,7 +140,8 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
         grads = [torch.zeros_like(p) if p.grad is None
                  else p.grad / divisor if divisor != 1.0 else p.grad
                  for p in params]
-        dist_lib.all_reduce_mean_(grads)
+        if not sharded:
+            dist_lib.all_reduce_mean_(grads)
         dm_sum["grad_total_norm"] = (optimizer.step(grads), 1)
         for p in params:
             p.grad = None

@@ -19,6 +19,9 @@ import re
 
 import torch
 
+from vlbert_tpu_torch.parallel import dist as dist_lib
+from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
+
 
 # ---------------------------------------------------------------- schedules
 
@@ -220,7 +223,28 @@ class Optimizer:
     @torch.no_grad()
     def load_state_dict(self, d):
         """Restore moments by parameter name; raises on a missing or
-        misshaped moment."""
+        misshaped moment. Moments sharded by FSDP2 (``parallel/fsdp.py``):
+        collective, ``d`` is rank 0's (None on the other ranks) and each
+        rank keeps its shard."""
+        live = self.mu + (self.nu or [])
+        if any(fsdp_lib.is_dtensor(m) for m in live):
+            box = {}
+
+            def read():             # rank 0 alone
+                box["full"] = self._moments_of(d)
+                return int(d["count"]), float(d["plateau_scale"])
+
+            count, scale = dist_lib.from_rank0(read)
+            fsdp_lib.load_full_state_(live, box.get("full"))
+        else:
+            for m, saved in zip(live, self._moments_of(d)):
+                m.copy_(saved)
+            count, scale = int(d["count"]), float(d["plateau_scale"])
+        self.count, self.plateau_scale = count, scale
+
+    def _moments_of(self, d):
+        """``d``'s moments in the order of ``self.mu + self.nu``."""
+        out = []
         for key, live in (("mu", self.mu), ("nu", self.nu)):
             if live is None:
                 continue
@@ -233,9 +257,8 @@ class Optimizer:
                         f"optimizer {key} of {name}: shape "
                         f"{tuple(saved[name].shape)}, parameter "
                         f"{tuple(m.shape)}")
-                m.copy_(saved[name])
-        self.count = int(d["count"])
-        self.plateau_scale = float(d["plateau_scale"])
+                out.append(saved[name])
+        return out
 
     def lr(self):
         """The learning rate the next step uses."""
@@ -279,6 +302,10 @@ class Optimizer:
 
 
 def global_norm(tensors):
-    """sqrt of the sum of squares over all tensors, fp32."""
-    return torch.linalg.vector_norm(torch.stack(
+    """sqrt of the sum of squares over all tensors, fp32, as a plain
+    tensor. Over FSDP2's sharded gradients each shard's norm is a partial
+    DTensor: ``full_tensor`` reduces them over the ranks, so the result is
+    the whole gradient's norm, the same on every rank, never a shard's."""
+    norm = torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(t.to(torch.float32)) for t in tensors]))
+    return fsdp_lib.plain(norm)
