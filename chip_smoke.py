@@ -1138,6 +1138,64 @@ def k34_parity(dev):
             f32, bf16_173)
 
 
+# tensor parallelism's head slices: (heads, model axis) of the layers
+# whose K3/K4 launches on a rank's heads are checked, and the dtypes
+HEAD_SLICES = ((12, 2), (12, 4), (16, 2), (16, 4))
+
+
+def k34_head_slices(dev):
+    """K3's output and K4's dq, dk, dv launched on a head slice of a layer
+    (heads j*H/m .. of H, ``head_offset`` and ``heads_total``: a tensor-
+    parallel rank's launch) against the same heads of the launch over all
+    H, bit for bit: Philox (the slice draws the layer's masks at its head
+    offset) and explicit bits (the rank passes its slice of them), fp32,
+    bf16 and fp16, H = 12 and 16 at model axes 2 and 4, B=16 L=128 (7
+    padded keys, one all-masked row). Returns the number of slices
+    checked by dtype."""
+    import torch
+    from vlbert_tpu_torch.ops.attention import fused_attention_dropout
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    checked = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        dn = str(dtype)[6:]
+        for H in sorted({h for h, _ in HEAD_SLICES}):
+            qkv, (q, k, v), bias = _train_qkv(g, dev, dtype, H=H)
+            B, L = q.shape[:2]
+            gy = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+            bits = torch.randint(0, 65536, (B, H, L, L), generator=g,
+                                 device=dev, dtype=torch.int32)
+            for mode, kw in (("philox", dict(seed=SEED + 41)),
+                             ("bits", dict(bits=bits))):
+                full = fused_attention_dropout(q, k, v, bias, DROP_RATE, **kw)
+                (gfull,) = torch.autograd.grad(full, qkv, gy)
+                gfull = gfull.view(B, L, 3, H, 64)
+                for m in sorted({m for h, m in HEAD_SLICES if h == H}):
+                    n = H // m
+                    for j in range(m):
+                        sl = slice(j * n, (j + 1) * n)
+                        part_kw = (dict(seed=kw["seed"]) if mode == "philox"
+                                   else dict(bits=bits[:, sl].contiguous()))
+                        part = fused_attention_dropout(
+                            q[:, :, sl], k[:, :, sl], v[:, :, sl], bias,
+                            DROP_RATE, head_offset=j * n, heads_total=H,
+                            **part_kw)
+                        (gpart,) = torch.autograd.grad(part, qkv,
+                                                       gy[:, :, sl])
+                        gpart = gpart.view(B, L, 3, H, 64)
+                        if not (torch.equal(part, full[:, :, sl])
+                                and torch.equal(gpart[:, :, :, sl],
+                                                gfull[:, :, :, sl])):
+                            raise AssertionError(
+                                f"K3/K4 {dn} {mode} H={H}: heads {j * n}.."
+                                f"{(j + 1) * n - 1} launched as a slice "
+                                f"differ from the whole launch's: out "
+                                f"{_maxerr(part, full[:, :, sl])}, grad "
+                                f"{_maxerr(gpart[:, :, :, sl], gfull[:, :, :, sl])}")
+                        checked[dn] = checked.get(dn, 0) + 1
+    return checked
+
+
 def library_ms(fn, iters=50, warmup=5):
     """(device ms per call, sorted kernel names) of a PyTorch library call
     timed as a yardstick; the port never calls it."""
@@ -3497,17 +3555,21 @@ def rank_job(job_path):
     """A process of phase 16: ``train`` runs ``python -m
     vlbert_tpu_torch.engine.train``'s main with the job's argv, ``step``
     16c's fp32 step; the result goes to the job's "out" as json. Stops
-    its own children before it exits."""
+    its own children before it exits. cuDNN and torch are held to their
+    deterministic algorithms unless the job says "deterministic": false
+    (16e runs with the entry point's own settings)."""
     import torch
 
     with open(job_path) as f:
         job = json.load(f)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    if job.get("deterministic", True):
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        out = {"train": rank_train, "step": rank_step}[job["kind"]](job)
+        out = {"train": rank_train, "step": rank_step,
+               "tp_step": rank_tp_step}[job["kind"]](job)
         with open(job["out"], "w") as f:
             json.dump(out, f)
     finally:
@@ -3517,20 +3579,23 @@ def rank_job(job_path):
 
 def full_params(model):
     """{name: the parameter whole, fp32, on the CPU}; FSDP2's sharded
-    parameters gathered (collective)."""
+    parameters gathered (collective); a tensor-parallel rank's split
+    parameters are its parts."""
     from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
 
     return {n: fsdp_lib.plain(p).detach().float().cpu()
             for n, p in model.named_parameters()}
 
 
-def params_digest(model):
-    """sha256 of every parameter's fp32 bytes, in order."""
+def params_digest(model, keep=None):
+    """sha256 of every parameter's fp32 bytes (of those whose name
+    ``keep`` keeps), in order."""
     import hashlib
 
     h = hashlib.sha256()
-    for p in full_params(model).values():
-        h.update(p.numpy().tobytes())
+    for n, p in full_params(model).items():
+        if keep is None or keep(n):
+            h.update(p.numpy().tobytes())
     return h.hexdigest()
 
 
@@ -3541,26 +3606,61 @@ def rank_train(job):
     (made unless ``record_writes``), the gradient all-reduce's time a step
     (host clock between two device syncs), each validation run's summed
     (sum, count) pairs and, under ``profile``, a profiler window of 2
-    steps on the first batch."""
+    steps on the first batch. Under tensor parallelism also each step's
+    model-group all-reduces (their summed ms, the same clock, and their
+    number), the heads K3 launched on, and the digest of the replicated
+    parameters (the rank's split ones are its parts). Under
+    ``"fault": "head_offset_0"`` every split attention layer draws its
+    masks at head offset 0 (16e's planted fault: rank 1 draws rank 0's
+    heads' masks)."""
     import torch
     import vlbert_tpu_torch.engine.train as t_train
+    import vlbert_tpu_torch.training.loop as loop
+    from vlbert_tpu_torch.models.bert import BertSelfAttention
+    from vlbert_tpu_torch.ops import attention as tattn
     from vlbert_tpu_torch.parallel import dist as dist_lib
+    from vlbert_tpu_torch.parallel import tp as tp_lib
     from vlbert_tpu_torch.training import checkpoint as ckpt
 
     kept, ar_ms, saves, val_sums = {}, [], [], []
+    tp_calls, tp_steps, heads = [], [], set()
     saved = (t_train.train_net, ckpt.save_checkpoint,
-             dist_lib.all_reduce_mean_, dist_lib.all_reduce_accumulator)
+             dist_lib.all_reduce_mean_, dist_lib.all_reduce_accumulator,
+             tp_lib._all_reduce, tattn._attention_dropout_launch,
+             tp_lib.shard_module)
 
-    def timed_all_reduce(tensors):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = saved[2](tensors)
-        torch.cuda.synchronize()
-        ar_ms.append((time.perf_counter() - t0) * 1e3)
+    def shard(model, mesh):
+        out = saved[6](model, mesh)
+        if job.get("fault") == "head_offset_0":
+            for m in model.modules():
+                if isinstance(m, BertSelfAttention):
+                    m.head_offset = 0
         return out
 
-    def summed(acc, device):
-        out = saved[3](acc, device)
+    def synced_ms(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def timed_all_reduce(tensors, **kw):
+        out, ms = synced_ms(saved[2], tensors, **kw)
+        ar_ms.append(ms)
+        return out
+
+    def timed_tp(t, group):
+        out, ms = synced_ms(saved[4], t, group)
+        if tp_calls and tp_calls[0] == "in step":
+            tp_calls.append(ms)
+        return out
+
+    def k3(q, *a):
+        heads.add((q.shape[2], *a[-1]))
+        return saved[5](q, *a)
+
+    def summed(acc, device, **kw):
+        out = saved[3](acc, device, **kw)
         val_sums.append({k: (acc.sums[k], acc.nums[k]) for k in acc.sums})
         return out
 
@@ -3572,8 +3672,13 @@ def rank_train(job):
 
     def keep(args, config, task):
         model, history = saved[0](args, config, task)
+        part = dist_lib.partition_of(model)
+        if isinstance(part, tp_lib.TensorParallel):
+            kept["replicated_digest"] = params_digest(
+                model, lambda n: part.split_dim(n) is None)
         kept.update(history=history, digest=params_digest(model),
                     all_reduce_ms=list(ar_ms), val_sums=list(val_sums),
+                    tp_steps=list(tp_steps), k3_heads=sorted(heads),
                     step_launches=list(rec["steps"]),
                     val_launches=list(rec["val"]), total=_launch_counts(),
                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -3585,18 +3690,37 @@ def rank_train(job):
             kept["profile"], kept["kernels_per_step"] = prof[:3], prof[3]
         return model, history
 
+    def steps_of(make):
+        """Each train step's model-group all-reduces, summed."""
+        def made(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(*b, **k):
+                tp_calls[:] = ["in step"]
+                try:
+                    return step(*b, **k)
+                finally:
+                    tp_steps.append((sum(tp_calls[1:]), len(tp_calls) - 1))
+                    tp_calls.clear()
+            return run
+        return made
+
     _zero_counts()
     t0 = time.perf_counter()
     with launches_per_call() as rec:
+        loop.make_train_step = steps_of(loop.make_train_step)
         t_train.train_net, ckpt.save_checkpoint = keep, save
         dist_lib.all_reduce_mean_ = timed_all_reduce
         dist_lib.all_reduce_accumulator = summed
+        tp_lib._all_reduce, tattn._attention_dropout_launch = timed_tp, k3
+        tp_lib.shard_module = shard
         try:
             rc = t_train.main(job["argv"])
         finally:
             (t_train.train_net, ckpt.save_checkpoint,
-             dist_lib.all_reduce_mean_,
-             dist_lib.all_reduce_accumulator) = saved
+             dist_lib.all_reduce_mean_, dist_lib.all_reduce_accumulator,
+             tp_lib._all_reduce, tattn._attention_dropout_launch,
+             tp_lib.shard_module) = saved
     h = kept.pop("history")
     return {"rank": int(os.environ.get("RANK", 0)), "rc": rc,
             "wall_s": time.perf_counter() - t0, "loss": h["loss"],
@@ -3673,6 +3797,63 @@ def rank_step(job):
     return out
 
 
+def vqa_step_model(cfg, dev):
+    """The fp32 VQA model of ``cfg`` from seed-0 weights, its frozen
+    parameters marked."""
+    import torch
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.training.optim import apply_trainable_mask
+
+    model = build_module(cfg, "vqa", dtype=torch.float32, device=dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(SEED))
+    apply_trainable_mask(model, cfg)
+    return model
+
+
+def rank_tp_step(job):
+    """16e's fp32 step, one rank of a [1, 2] tensor-parallel mesh on
+    cuda:0 over gloo: the first batch of its replica's loader (16a's
+    rows), one AdamW step from seed-0 weights with dropout on (the two
+    ranks draw one process's masks). Rank 0 saves the batch and the
+    updated parameters, gathered whole."""
+    import torch
+    from vlbert_tpu_torch.data.build import make_dataloader
+    from vlbert_tpu_torch.parallel import dist as dist_lib
+    from vlbert_tpu_torch.parallel import tp as tp_lib
+    from vlbert_tpu_torch.training.loop import make_train_step, to_device
+    from vlbert_tpu_torch.training.optim import Optimizer
+    from vlbert_tpu_torch.utils.config import load_config
+
+    cfg = load_config("vqa", job["yaml"])
+    with dist_lib.process_group("gloo", "cuda:0") as dev:
+        rank, world = dist_lib.rank_world()
+        dist_lib.check_partition(cfg, world)
+        loader = make_dataloader(cfg, "vqa")
+        try:
+            batch = to_device(next(iter(loader)), dev)
+        finally:
+            loader.shutdown()
+        model = vqa_step_model(cfg, dev)
+        tp_lib.shard_module(model, tp_lib.make_mesh(cfg))
+        opt = Optimizer(cfg, model, 4, world)
+        lr = opt.lr()
+        step = make_train_step(model, opt, "vqa", cfg, 1)
+        _zero_counts()
+        loss, dm = step(batch, SEED + 5)
+        torch.cuda.synchronize()
+        full = model.partition.full_state(opt.names, opt.params)
+        out = {"rank": rank, "loss": float(loss),
+               "grad_norm": float(dm["grad_total_norm"][0]),
+               "launches": _launch_counts(), "rows": int(batch[1].shape[0]),
+               "lr": lr}
+        if rank == 0:
+            torch.save([None if x is None else x.cpu() for x in batch],
+                       job["batch"])
+            torch.save(dict(zip(opt.names, full)), job["params"])
+    return out
+
+
 def interleave(shards, accum):
     """The global batch of the ranks' ``shards`` of one tensor, in the
     JAX package's layout: micro-step i is the ranks' micro-steps i side by
@@ -3721,8 +3902,17 @@ def dist_phase(root, root14, vocab_dir):
     under TPU.PARTITION_MODE fsdp (FSDP2 at one NCCL rank): equal to (a)'s
     dp run bit for bit, or within FSDP_RTOL, with dp's launches; its
     gathered -0000.model laid out as (b)'s dp file; its AUTO_RESUME beside
-    (b)'s. (a), (d) and (b) run as one group of processes, and (b)'s
-    resume beside (d)'s and (c)'s ranks. Returns results."""
+    (b)'s. (e) TPU.PARTITION_MODE tp at MESH_SHAPE [1, 2] given on the
+    command line, two gloo ranks on cuda:0 of 8 rows each: (a)'s run with
+    each layer's heads and FFN split over the ranks (rank 1's K3/K4 at
+    head offset 6), cuDNN and torch at the entry point's own settings
+    (no deterministic algorithms), its losses beside (a)'s, the same run
+    with a planted fault (every rank's masks at head offset 0) beyond
+    them, its gathered file laid out as (b)'s, its AUTO_RESUME; then an
+    fp32 step of the two ranks against one process's at phase 8's bar.
+    (a), (d), (b), (e) and its fault run as one group of processes, and
+    (b)'s, (d)'s and (e)'s resumes beside (c)'s ranks and (e)'s fp32
+    step. Returns results."""
     import torch
     from vlbert_tpu_torch.data.build import make_dataloader
     from vlbert_tpu_torch.engine.val import make_validation_fn
@@ -3743,7 +3933,8 @@ def dist_phase(root, root14, vocab_dir):
 
     # one group: (a) NCCL at world 1 beside the same run without a
     # process group; (d) the same run with PARTITION_MODE fsdp (FSDP2),
-    # its checkpoint written; (b) gloo, two ranks on cuda:0, 2 epochs
+    # its checkpoint written; (b) gloo, two ranks on cuda:0, 2 epochs;
+    # (e) tensor parallelism, two gloo ranks on cuda:0
     t0 = time.perf_counter()
     plain_yaml, overrides = dist_train_yaml(root, *fixture, "a_plain", 1)
     nccl_yaml, _ = dist_train_yaml(root, *fixture, "a_nccl", 1)
@@ -3754,7 +3945,19 @@ def dist_phase(root, root14, vocab_dir):
     b_yaml, _ = dist_train_yaml(root, *fixture, "b", 2)
     argv = base + [b_yaml, "--dist", "--dist-backend", "gloo", "--device",
                    "cuda:0"]
-    port = free_port()
+    # (e) tensor parallelism, [1, 2] on cuda:0 over gloo, 8 a rank: 16a's
+    # global batch, batches and LR; the mesh from the command line
+    e_yaml, _ = dist_train_yaml(root, *fixture, "e_tp", 1,
+                                {"TRAIN.BATCH_IMAGES": 16 // TP_M})
+    e_argv = base + [e_yaml, "--dist", "--dist-backend", "gloo", "--device",
+                     "cuda:0", *TP_OPTS]
+    # (e)'s planted fault: the same run with every rank's masks drawn at
+    # head offset 0, which its loss check must see
+    f_yaml, _ = dist_train_yaml(root, *fixture, "e_fault", 1,
+                                {"TRAIN.BATCH_IMAGES": 16 // TP_M})
+    f_argv = base + [f_yaml, "--dist", "--dist-backend", "gloo", "--device",
+                     "cuda:0", *TP_OPTS]
+    port, e_port, f_port = free_port(), free_port(), free_port()
     out = run_ranks(
         [{"kind": "train", "argv": base + [plain_yaml],
           "record_writes": True},
@@ -3767,10 +3970,17 @@ def dist_phase(root, root14, vocab_dir):
           "params_out": params_out["d"],
           "env": torchrun_env(0, 1, free_port())}]
         + [{"kind": "train", "argv": argv, "profile": True,
-            "env": torchrun_env(r, 2, port)} for r in range(2)], root,
-        "a_d_b")
-    res["a"], res["d"], res["b"] = out[:2], out[2], out[3:]
-    seconds["a_d_b"] = time.perf_counter() - t0
+            "env": torchrun_env(r, 2, port)} for r in range(2)]
+        + [{"kind": "train", "argv": e_argv, "profile": True,
+            "deterministic": False, "env": torchrun_env(r, TP_M, e_port)}
+           for r in range(TP_M)]
+        + [{"kind": "train", "argv": f_argv, "record_writes": True,
+            "deterministic": False, "fault": "head_offset_0",
+            "env": torchrun_env(r, TP_M, f_port)} for r in range(TP_M)],
+        root, "a_d_b_e")
+    res["a"], res["d"], res["b"] = out[:2], out[2], out[3:5]
+    res["e"], res["e_fault"] = out[5:5 + TP_M], out[5 + TP_M:]
+    seconds["a_d_b_e"] = time.perf_counter() - t0
     res["d_gap"] = fsdp_gap(res["a"][1], res["d"], params_out)
     out_b = os.path.join(root, "b", "vqa_train")
     res["b_files"] = sorted(os.listdir(out_b))
@@ -3783,8 +3993,8 @@ def dist_phase(root, root14, vocab_dir):
     loader = make_dataloader(cfg, "vqa", "val")
     acc_of = []
     saved_acc = dist_lib.all_reduce_accumulator
-    dist_lib.all_reduce_accumulator = lambda acc, device: acc_of.append(
-        acc) or saved_acc(acc, device)
+    dist_lib.all_reduce_accumulator = lambda acc, device, **kw: (
+        acc_of.append(acc) or saved_acc(acc, device, **kw))
     try:
         res["b_val_one"] = make_validation_fn(model, cfg, "vqa",
                                               "cuda")(loader)
@@ -3808,23 +4018,41 @@ def dist_phase(root, root14, vocab_dir):
               "NETWORK.VLBERT.attention_probs_dropout_prob": 0.0}
     c_yaml = write_train_yaml(PRETRAIN_CFGS["prec"],
                               os.path.join(root, "c.yaml"), c_over)
-    port, c_port = free_port(), free_port()
+    port, c_port, e_port, e32_port = (free_port() for _ in range(4))
     jobs = [{"kind": "step", "yaml": c_yaml,
              "batch": os.path.join(root, f"c_batch{r}.pt"),
              "params": os.path.join(root, "c_params0.pt"),
              "env": torchrun_env(r, 2, c_port)} for r in range(2)]
+    e32_yaml, _ = dist_train_yaml(root, *fixture, "e_fp32", 1,
+                                  {"TRAIN.BATCH_IMAGES": 16 // TP_M,
+                                   "TPU.PROCESS_WORKERS": False,
+                                   **TP_KNOBS})
+    e32_jobs = [{"kind": "tp_step", "yaml": e32_yaml,
+                 "batch": os.path.join(root, "e32_batch.pt"),
+                 "params": os.path.join(root, "e32_params.pt"),
+                 "deterministic": False,
+                 "env": torchrun_env(r, TP_M, e32_port)}
+                for r in range(TP_M)]
     out = run_ranks(
         [{"kind": "train", "argv": argv, "record_writes": True,
           "env": torchrun_env(r, 2, port)} for r in range(2)]
         + [{"kind": "train", "argv": fsdp_argv, "record_writes": True,
-            "env": torchrun_env(0, 1, free_port())}] + jobs, root,
-        "b_d_resume_c")
-    res["b_resume"], res["d_resume"], res["c"] = out[:2], out[2], out[3:]
-    seconds["b_d_resume_c"] = time.perf_counter() - t0
+            "env": torchrun_env(0, 1, free_port())}] + jobs
+        + [{"kind": "train", "argv": e_argv, "record_writes": True,
+            "deterministic": False, "env": torchrun_env(r, TP_M, e_port)}
+           for r in range(TP_M)]
+        + e32_jobs, root, "b_d_e_resume_c_e32")
+    res["b_resume"], res["d_resume"], res["c"] = out[:2], out[2], out[3:5]
+    res["e_resume"], res["e32"] = out[5:5 + TP_M], out[5 + TP_M:]
+    seconds["b_d_e_resume_c_e32"] = time.perf_counter() - t0
+    out_e = os.path.join(root, "e_tp", "vqa_train")
+    res["e_files"] = sorted(os.listdir(out_e))
     out_d = os.path.join(root, "d_fsdp", "vqa_train")
     res["d_files"] = sorted(os.listdir(out_d))
     res["d_file"] = same_layout(f"{prefix}-0001.model",
                                 os.path.join(out_d, f"{b_prefix}-0000.model"))
+    res["e_file"] = same_layout(f"{prefix}-0001.model",
+                                os.path.join(out_e, f"{b_prefix}-0000.model"))
 
     # (c)'s one process on the concatenated batch
     t0 = time.perf_counter()
@@ -3859,6 +4087,9 @@ def dist_phase(root, root14, vocab_dir):
     del model, opt, ranks_sd, batch, shards
     torch.cuda.empty_cache()
     seconds["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["e32_one"] = tp_fp32_one_process(e32_yaml, e32_jobs[0], res["e32"])
+    seconds["e32"] = time.perf_counter() - t0
     res["seconds"] = seconds
     res["overrides"] = {k: v for k, v in overrides.items()
                         if not k.startswith(("DATASET.", "NETWORK.BERT"))}
@@ -3923,8 +4154,116 @@ def dist_phase(root, root14, vocab_dir):
         "c: ranks bit for bit": res["c"][0]["digest"]
         == res["c"][1]["digest"]
         and res["c"][0]["loss"] == res["c"][1]["loss"],
-        "c: one process": all(v[0] <= v[1] for v in one["checks"].values())}
+        "c: one process": all(v[0] <= v[1] for v in one["checks"].values()),
+        **tp_checks(res, b_prefix, step_want, steps_a)}
     return res
+
+
+# 16e: tensor parallelism at [1, TP_M] on cuda:0, the mesh given on the
+# command line
+TP_M = 2
+TP_KNOBS = {"TPU.PARTITION_MODE": "tp", "TPU.MESH_SHAPE": [1, TP_M],
+            "TPU.MESH_AXES": ["data", "model"]}
+TP_OPTS = ("TPU.PARTITION_MODE", "tp", "TPU.MESH_SHAPE", f"[1,{TP_M}]",
+           "TPU.MESH_AXES", "[data,model]")
+# 16e's bf16 losses against 16a's, relative, step by step: the same rows,
+# LR and dropout masks, but each row-parallel product rounded to bf16 on
+# each rank before the fp32 sum, where one process rounds the whole
+# product once, through 12 layers and 8 AdamW steps. Set from the card's
+# readings (NVIDIA H100 80GB HBM3): the sound runs' largest gap 7.869e-5,
+# the same with and without deterministic algorithms; the planted fault
+# (rank 1 drawing heads 0..5's masks) 1.870e-4. A mask fault moves a
+# loss near 2300 by little: the fp32 step and the head-slice check carry
+# the weight, and this bound sits between the two readings
+TP_BF16_LOSS_RTOL = 1.2e-4
+
+
+def tp_fp32_one_process(yaml_path, job, ranks):
+    """16e's fp32 step in one process: 16a's config in fp32 on the ranks'
+    batch (BATCH_IMAGES x TP_M, world 1), the same seed-0 weights and
+    step seed; (rel err, rtol) of the loss, the grad norm and the largest
+    parameter gap over the LR against the ranks' gathered parameters,
+    phase 8's bar."""
+    import torch
+    from vlbert_tpu_torch.training.loop import make_train_step
+    from vlbert_tpu_torch.training.optim import Optimizer
+    from vlbert_tpu_torch.utils.config import load_config
+
+    cfg = load_config("vqa", yaml_path)
+    cfg.TRAIN.BATCH_IMAGES *= TP_M
+    cfg.TPU.PARTITION_MODE, cfg.TPU.MESH_SHAPE = "dp", []
+    batch = tuple(None if x is None else x.to("cuda")
+                  for x in torch.load(job["batch"]))
+    model = vqa_step_model(cfg, "cuda")
+    opt = Optimizer(cfg, model, 4, 1)
+    lr = opt.lr()
+    _zero_counts()
+    loss, dm = make_train_step(model, opt, "vqa", cfg, 1)(batch, SEED + 5)
+    torch.cuda.synchronize()
+    ranks_sd = torch.load(job["params"])
+    dparam = max((p.detach().cpu() - ranks_sd[n]).abs().max().item()
+                 for n, p in zip(opt.names, opt.params))
+    r0 = ranks[0]
+    one = {"loss": float(loss), "grad_norm": float(dm["grad_total_norm"][0]),
+           "launches": _launch_counts(), "lr": lr,
+           "rows": int(batch[1].shape[0])}
+    one["checks"] = {
+        "loss": (abs(r0["loss"] - one["loss"]) / abs(one["loss"]),
+                 STEP_RTOL["loss"]),
+        "grad_norm": (abs(r0["grad_norm"] - one["grad_norm"])
+                      / one["grad_norm"], STEP_RTOL["grad_norm"]),
+        "param_per_lr": (dparam / lr, STEP_RTOL["param_per_lr"])}
+    del model, opt, ranks_sd, batch
+    torch.cuda.empty_cache()
+    return one
+
+
+def loss_gap(run, ref):
+    """The largest relative gap of ``run``'s losses to ``ref``'s, step by
+    step."""
+    return max(abs(x - y) / abs(y) for x, y in zip(run["loss"], ref["loss"]))
+
+
+def tp_checks(res, b_prefix, step_want, steps_a):
+    """16e's checks: 8 bf16 steps on both ranks, losses equal on the two
+    and beside 16a's within TP_BF16_LOSS_RTOL, the planted fault's
+    beyond it, the replicated parameters bit for bit alike, 16a's
+    launches a step (K3 and K4 on 6 heads, rank
+    1's at head offset 6), one validation run of 32-row batches, rank 0's
+    file laid out as 16b's, AUTO_RESUME on both ranks, the fp32 step at
+    phase 8's bar."""
+    a, e = res["a"][1], res["e"]
+    val_e = train_launches(0, -(-DIST_VAL // (DIST_VAL_BATCH * TP_M)))
+    half = 12 // TP_M
+    return {
+        "e: tp trains": all(len(r["loss"]) == steps_a
+                            and all(map(math.isfinite, r["loss"]))
+                            for r in e)
+        and e[0]["loss"] == e[1]["loss"]
+        and loss_gap(e[0], a) <= TP_BF16_LOSS_RTOL,
+        "e: the loss check sees the planted fault":
+        len(res["e_fault"][0]["loss"]) == steps_a
+        and loss_gap(res["e_fault"][0], a) > TP_BF16_LOSS_RTOL,
+        "e: replicated parameters alike": e[0]["replicated_digest"]
+        == e[1]["replicated_digest"],
+        "e: launches": all(r["step_launches"] == [step_want] * steps_a
+                           and r["val_launches"] == [val_e] for r in e),
+        "e: heads": [r["k3_heads"] for r in e]
+        == [[[half, j * half, 12]] for j in range(TP_M)],
+        "e: the gathered file is dp's": res["e_file"]["same"]
+        and res["e_files"] == sorted([f"{b_prefix}-0000.model",
+                                      f"{b_prefix}-best.model",
+                                      "train_rank0.log", "train_rank1.log"])
+        and [r["saves"] for r in e] == [[0]] * TP_M,
+        "e: auto resume": all(
+            (r["begin_epoch"], r["resumed_count"], r["loss"], r["saves"],
+             r["digest"]) == (1, steps_a, [], [], t["digest"])
+            for r, t in zip(res["e_resume"], e)),
+        "e: fp32 step": all(v[0] <= v[1]
+                            for v in res["e32_one"]["checks"].values())
+        and all(r["lr"] == res["e32_one"]["lr"] for r in res["e32"])
+        and all(r["launches"]["K3"] == r["launches"]["K4"] == 12
+                for r in res["e32"])}
 
 
 # 16d: fsdp against dp at one rank, where they are not bit for bit
@@ -4060,6 +4399,7 @@ def print_dist_phase(r, card):
           f"{r['d_resume']['resumed_count']}, "
           f"{len(r['d_resume']['loss'])} steps, parameters as written "
           f"{r['d_resume']['digest'] == d['digest']} ({card})", flush=True)
+    print_tp_phase(r, card)
     c0, c1 = r["c"]
     one = r["c_one"]
     print(f"[16c dp gloo world 2, fp32 step] {PRETRAIN_CFGS['prec']} with "
@@ -4074,6 +4414,74 @@ def print_dist_phase(r, card):
           f"{one['lr']:.3e}; both ranks' parameters equal bit for bit; "
           f"launches a rank {c0['launches']}, one process "
           f"{one['launches']} ({card})", flush=True)
+
+
+def print_tp_phase(r, card):
+    """16e's lines: per rank the step p50, the profiled device busy ms a
+    step, the model-group all-reduces a step (their summed ms on the host
+    clock between two device syncs, their number, their share of the step
+    p50), the replicated gradients' all-reduce (the same clock), the heads
+    K3 launched on, the launches, the losses beside 16a's and the planted
+    fault's; the file, the resume and the fp32 step."""
+    a, e = r["a"][1], r["e"]
+
+    def timing(x):
+        wall, busy, _ = x["profile"] or (float("nan"),) * 3
+        p50 = step_p50(x["step_ms"])
+        ms = _median([t for t, _ in x["tp_steps"][2:]])
+        calls = sorted({n for _, n in x["tp_steps"]})
+        ar = _median(x["all_reduce_ms"])
+        return (f"step p50 {p50:.2f} ms, profiled window wall {wall:.2f} / "
+                f"device busy {busy:.2f} ms a step, model-group all-reduces "
+                f"{ms:.2f} ms a step ({calls} calls a step; {ms / p50:.3f} "
+                f"of the step p50), the replicated gradients' all-reduce "
+                f"over the world {ar:.2f} ms a step ({ar / p50:.3f}), K3 "
+                f"heads (local, offset, of) "
+                f"{x['k3_heads']}, peak {x['peak_gib']:.2f} GiB, "
+                f"{x['wall_s']:.1f} s of main")
+
+    print(f"[16e tp gloo world 2] 16a's config with TRAIN.BATCH_IMAGES "
+          f"{16 // TP_M} and, on the command line, "
+          f"{' '.join(TP_OPTS)}: python -m vlbert_tpu_torch.engine.train "
+          f"--dist --dist-backend gloo --device cuda:0 on {TP_M} ranks "
+          f"sharing the card, each holding 12 / {TP_M} heads and 3072 / "
+          f"{TP_M} FFN columns of every layer, the replica's batch 16 (16a's "
+          f"rows): {len(e[0]['loss'])} steps, losses "
+          f"{[round(x, 4) for x in e[0]['loss']]} equal on the ranks, 16a's "
+          f"{[round(x, 4) for x in a['loss']]}, largest relative gap "
+          f"{loss_gap(e[0], a):.3e} (rtol {TP_BF16_LOSS_RTOL}; the planted "
+          f"fault, every rank's masks at head offset 0: "
+          f"{loss_gap(r['e_fault'][0], a):.3e}, losses "
+          f"{[round(x, 4) for x in r['e_fault'][0]['loss']]}); cuDNN and "
+          f"torch at the entry point's settings; replicated "
+          f"parameters bit for bit alike on the ranks "
+          f"{e[0]['replicated_digest'] == e[1]['replicated_digest']}; "
+          f"launches per step {e[0]['step_launches'][0]} and per validation "
+          f"run {e[0]['val_launches'][0]} on each rank; val SoftAcc "
+          f"{[round(v['SoftAcc'], 6) for v in e[0]['val']]} (16a's "
+          f"{[round(v['SoftAcc'], 6) for v in a['val']]}); "
+          + "; ".join(f"rank {i}: {timing(x)}" for i, x in enumerate(e))
+          + f" ({card})", flush=True)
+    held, total = e[0]["state_elements"]
+    one, e32 = r["e32_one"], r["e32"][0]
+    print(f"[16e tp file, resume, fp32 step] rank 0 holds {held} of the "
+          f"{total} elements of the trained parameters and their AdamW "
+          f"moments; checkpoint writes entered rank 0 {e[0]['saves']}, rank "
+          f"1 {e[1]['saves']}; files {r['e_files']}, -0000.model against "
+          f"16b's dp -0001.model: same keys, shapes and dtypes "
+          f"{r['e_file']['same']} ({r['e_file']['n']}); AUTO_RESUME: "
+          f"begin_epoch {[x['begin_epoch'] for x in r['e_resume']]}, "
+          f"optimizer count {[x['resumed_count'] for x in r['e_resume']]}, "
+          f"{[len(x['loss']) for x in r['e_resume']]} steps, each rank's "
+          f"parts as written "
+          f"{[x['digest'] == y['digest'] for x, y in zip(r['e_resume'], e)]};"
+          f" fp32 step (one AdamW step from seed-0 weights, dropout on, on "
+          f"{e32['rows']} rows) of the {TP_M} ranks vs one process on 16a's "
+          f"config: loss {e32['loss']:.6f} vs {one['loss']:.6f}, grad norm "
+          f"{e32['grad_norm']:.6f} vs {one['grad_norm']:.6f}, (rel err, "
+          f"rtol) {one['checks']} at lr {one['lr']:.3e}; launches a rank "
+          f"{e32['launches']}, one process {one['launches']} ({card})",
+          flush=True)
 
 
 # Phases 17 and 18: int8 weight-only serving at base width; the
@@ -5574,6 +5982,16 @@ def main():
           f"K4 {k34_173['k4'][0][0]:.4f} ({k34_173['k4'][0][1]:.4f}) vs "
           f"plain autograd {k34_173['k4'][1][0]:.4f} ({card})", flush=True)
 
+    slices = k34_head_slices(dev)
+    print(f"[6 head slices K3/K4] tensor parallelism's launches: K3's "
+          f"output and K4's dq, dk, dv of heads j*H/m .. (j+1)*H/m - 1 "
+          f"launched alone with (head_offset, heads_total) equal the same "
+          f"heads of the launch over all H bit for bit, Philox (the "
+          f"layer's masks at the slice's offset) and explicit bits (the "
+          f"slice's), (H, m) {list(HEAD_SLICES)}, B=16 L=128; slices "
+          f"checked by dtype {slices}; the default launches' masks are "
+          f"phase 6's above ({card})", flush=True)
+
     lib = library_yardsticks(dev)
     k1_lib = k1_library(dev)
     philox4_instr, _ = philox_sass_instructions()
@@ -5856,6 +6274,7 @@ def main():
         k1b_lib = k1b_library(dev)
         k1b_lib_rc = k1b_library(dev, "refcoco")
         k1b_lib_pt = k1b_library(dev, "pretrain")
+        k1b_lib_all = k1b_library(dev, "vcr_all_live")
         worst_k1b = max(k1b_errs, key=k1b_errs.get)
         print(f"[13 parity K1b roi_align backward] {len(k1b_errs)} cases "
               f"(case/g->dF/sampling ratio, the K1 cases; padded slots' g "
@@ -5877,7 +6296,8 @@ def main():
               f"({k1b_lib[2]}) {k1b_lib[0]:.4f} ms "
               f"({', '.join(n[:48] for n in k1b_lib[1])}), fp32 max abs err "
               f"{k1b_lib[3]:.2e} against the plain dF on the boxes inside "
-              f"the map; at RefCOCO+'s {k1b_lib_rc[0]:.4f} ms; at "
+              f"the map; with all 432 slots live {k1b_lib_all[0]:.4f} ms "
+              f"({k1b_lib_all[2]}); at RefCOCO+'s {k1b_lib_rc[0]:.4f} ms; at "
               f"pretraining's {k1b_lib_pt[0]:.4f} ms ({k1b_lib_pt[2]}), "
               f"plain there {k1b_t['plain_pretrain'][0]:.4f} ms ({card})",
               flush=True)
@@ -6119,10 +6539,11 @@ def main():
         root16 = os.path.join(root, "p16")
         os.makedirs(root16)
         r16 = dist_phase(root16, root14, vocab13)
+        # the lines first: a failed check's readings stay in the output
+        print_dist_phase(r16, card)
         if not all(r16["checks"].values()):
             raise AssertionError(f"data parallelism: {r16['checks']}; "
-                                 f"{ {k: r16[k] for k in ('b_val_one', 'c_one', 'seconds')} }")
-        print_dist_phase(r16, card)
+                                 f"{ {k: r16[k] for k in ('b_val_one', 'c_one', 'e32_one', 'seconds')} }")
 
         lap("16")
         # --- 17-18: int8 serving, the attention dump, ResNet-18 ---
@@ -6249,7 +6670,9 @@ def main():
                   f"{k1b_t['vcr']['live']}), dF [4,38,75,1024] bf16",
          "all_live": {"ms": k1b_t["vcr_all_live"]["ms"],
                       "bound_ms": k1b_t["vcr_all_live"]["bound"][0],
-                      "bound_by": k1b_t["vcr_all_live"]["bound"][1]},
+                      "bound_by": k1b_t["vcr_all_live"]["bound"][1],
+                      "library_ms": k1b_lib_all[0],
+                      "library_kernels": k1b_lib_all[1]},
          "refcoco": {"shape": "g [4,108,14,14,1024] bf16 (live slots "
                               f"{k1b_t['refcoco']['live']}), dF "
                               "[4,38,63,1024] bf16",
@@ -6488,11 +6911,14 @@ def main():
         if times:
             record["at_H16"] = times
     # launches on phase 16's paths, each run's total: 16a's run under a
-    # process group of one NCCL rank, 16b's two gloo ranks, 16d's FSDP2
+    # process group of one NCCL rank, 16b's two gloo ranks, 16d's FSDP2,
+    # 16e's two tensor-parallel ranks
     dist_runs = {"16a_nccl_world1": r16["a"][1]["total"],
                  "16b_gloo_rank0": r16["b"][0]["total"],
                  "16b_gloo_rank1": r16["b"][1]["total"],
-                 "16d_fsdp_nccl_world1": r16["d"]["total"]}
+                 "16d_fsdp_nccl_world1": r16["d"]["total"],
+                 **{f"16e_tp_gloo_rank{i}": x["total"]
+                    for i, x in enumerate(r16["e"])}}
     count_of = {"roi_align_fwd": "K1", "roi_align_bwd": "K1b",
                 "attention_fwd": "K2", "dropout": "K5_fwd",
                 "attention_dropout_fwd": "K3", "attention_dropout_bwd": "K4"}

@@ -10,6 +10,9 @@
 # environment or 10000 + SLURM_JOB_ID mod 20000. Set
 # TPU.PARTITION_MODE: fsdp in the cfg (or a copy of it) to shard the
 # parameters and optimizer moments over the ranks; dp replicates them.
+# Tensor parallelism takes its mesh as overrides in PY_ARGS, e.g.
+# PY_ARGS="TPU.PARTITION_MODE tp TPU.MESH_SHAPE [2,8] TPU.MESH_AXES
+# [data,model]" for 2 nodes of 8 cards (the model axis within a node).
 #
 # Usage:
 #   ./scripts/run_slurm_torch.sh <partition> <job_name> <task> <cfg> <model_dir> [nodes] [gpus_per_node]

@@ -178,9 +178,9 @@ def _rank_steps(rank, world, d):
     # before the all-reduce is each rank's own draw
     local, saved = [], loop.dist_lib.all_reduce_step_stats
 
-    def keep_local(loss, metrics):
+    def keep_local(loss, metrics, **kw):
         local.append(loss.item())
-        return saved(loss, metrics)
+        return saved(loss, metrics, **kw)
 
     loop.dist_lib.all_reduce_step_stats = keep_local
     try:
@@ -215,8 +215,8 @@ def _rank_train_net(rank, world, d):
     kept, saved = {"val_sums": []}, t_train.resume
     saved_acc = dist_lib.all_reduce_accumulator
 
-    def summed(acc, device):
-        saved_acc(acc, device)
+    def summed(acc, device, **kw):
+        saved_acc(acc, device, **kw)
         kept["val_sums"].append({k: (acc.sums[k], acc.nums[k])
                                  for k in acc.sums})
         return acc
@@ -300,18 +300,21 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def torchrun_env(rank, port):
-    return {"RANK": str(rank), "WORLD_SIZE": str(WORLD),
+def torchrun_env(rank, port, world=WORLD):
+    return {"RANK": str(rank), "WORLD_SIZE": str(world),
             "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
             "MASTER_PORT": str(port)}
 
 
 def start_ranks(scenario, tmp, payload, module="tests.test_torch_dist",
-                env_of=torchrun_env):
-    """Start ``module._rank_main(scenario, tmp)`` on WORLD rank processes,
-    rank r with ``env_of(r, port)`` (torchrun's variables by default; the
-    inherited ones dropped) and a free port; returns what ``finish_ranks``
-    takes."""
+                env_of=torchrun_env, world=WORLD):
+    """Start ``module._rank_main(scenario, tmp)`` on ``world`` rank
+    processes, rank r with ``env_of(r, port)`` (torchrun's variables of
+    ``world`` ranks by default; the inherited ones dropped) and a free
+    port; returns what ``finish_ranks`` takes."""
+    if env_of is torchrun_env:
+        def env_of(rank, port):
+            return torchrun_env(rank, port, world)
     with open(os.path.join(tmp, f"{scenario}.pkl"), "wb") as f:
         pickle.dump(payload, f)
     port = _free_port()
@@ -319,7 +322,7 @@ def start_ranks(scenario, tmp, payload, module="tests.test_torch_dist",
             if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                          "MASTER_PORT") and not k.startswith("SLURM_")}
     procs = []
-    for rank in range(WORLD):
+    for rank in range(world):
         env = {**base, **env_of(rank, port), "OMP_NUM_THREADS": "2"}
         procs.append(subprocess.Popen(
             [sys.executable, "-c",
@@ -349,7 +352,7 @@ def finish_ranks(started, timeout=RANK_TIMEOUT):
     for rank, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {rank} of {scenario}:\n{log[-4000:]}"
     out = []
-    for rank in range(WORLD):
+    for rank in range(len(procs)):
         with open(os.path.join(tmp, f"{scenario}_rank{rank}.pkl"), "rb") as f:
             out.append(pickle.load(f))
     assert not any(o["jax_imported"] for o in out)
@@ -607,12 +610,15 @@ def test_the_lr_scales_by_world(train_net_run):
                                  {"MESH_SHAPE": [1, 2]}])
 def test_fsdp_tp_and_a_mismatched_mesh_are_refused_before_a_model_is_built(
         tmp_path, monkeypatch, tpu):
-    """At 2 ranks train_net refuses PARTITION_MODE tp, a MESH_SHAPE that
-    does not lay out 2 devices and one with a model axis, naming what is
-    missing, before it builds a model or a loader; fsdp passes the check
-    over a MESH_SHAPE of [] or [2] (FSDP2, tests/test_torch_fsdp.py) and
-    is refused with a model axis. At one rank every config passes (the
-    knobs warn)."""
+    """At 2 ranks train_net refuses PARTITION_MODE tp without a model axis
+    (the JAX package's ValueError, at one rank too), a MESH_SHAPE that
+    does not lay out 2 devices and one with a model axis under dp, naming
+    what is missing, before it builds a model or a loader; tp passes the
+    check at [1, 2] with MESH_AXES [data, model] (tests/test_torch_tp.py)
+    and is refused when the model axis does not divide the heads; fsdp
+    passes over a MESH_SHAPE of [] or [2] (FSDP2,
+    tests/test_torch_fsdp.py) and is refused with a model axis. At one
+    rank every other config passes (the knobs warn)."""
     import vlbert_tpu_torch.engine.train as t_train
     from tests.test_entrypoints import _tiny_vqa_cfg, _write_vqa_fixture
     from vlbert_tpu_torch.parallel.dist import check_partition
@@ -621,7 +627,19 @@ def test_fsdp_tp_and_a_mismatched_mesh_are_refused_before_a_model_is_built(
     cfg = _tiny_vqa_cfg(tmp_path, data_dir, vocab_dir)
     for k, v in tpu.items():
         cfg.TPU[k] = v
-    check_partition(cfg, 1)
+    jax_tp = "TPU.PARTITION_MODE=tp needs a 'model' mesh axis > 1"
+    if tpu.get("PARTITION_MODE") == "tp":
+        with pytest.raises(ValueError, match=jax_tp):
+            check_partition(cfg, 1)
+        cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES = [1, 2], ["data", "model"]
+        check_partition(cfg, 2)
+        cfg.TPU.MESH_SHAPE = [1, 4]
+        with pytest.raises(ValueError, match="num_attention_heads 2 not "
+                                             "divisible by 4"):
+            check_partition(cfg, 4)
+        cfg.TPU.MESH_SHAPE = [2, 1]
+    else:
+        check_partition(cfg, 1)
     if tpu.get("PARTITION_MODE") == "fsdp":
         for shape in ([], [2]):
             cfg.TPU.MESH_SHAPE = shape
@@ -637,7 +655,7 @@ def test_fsdp_tp_and_a_mismatched_mesh_are_refused_before_a_model_is_built(
     monkeypatch.setattr(t_train, "make_dataloader",
                         lambda *a, **kw: built.append(a))
     args = types.SimpleNamespace(model_dir="", device="cpu")
-    want = {"tp": "tp at 2 ranks needs the tensor-parallel rules"}.get(
+    want = {"tp": jax_tp}.get(
         tpu.get("PARTITION_MODE"),
         "lays out 4 devices" if tpu.get("MESH_SHAPE") == [4]
         else "model axis")

@@ -50,7 +50,8 @@ def test_port_imports_no_jax():
             "vlbert_tpu_torch.utils.mask",
             "vlbert_tpu_torch.engine.vcr_val",
             "vlbert_tpu_torch.parallel.dist",
-            "vlbert_tpu_torch.parallel.fsdp"} <= set(mods)
+            "vlbert_tpu_torch.parallel.fsdp",
+            "vlbert_tpu_torch.parallel.tp"} <= set(mods)
     assert len(mods) >= 21
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -111,17 +111,18 @@ def test_kernel_attention_route_has_a_gradient(rng, monkeypatch):
 
 def test_kernel_attention_dropout_route_replays_the_seed(rng, monkeypatch):
     """The K3/K4 Function: the backward launch gets the forward's seed and
-    its gradients are the plain version's."""
+    head place (the defaults: heads 0.. of the launch's own H) and its
+    gradients are the plain version's."""
     seeds = []
 
-    def fake_fwd(q, k, v, bias, rate, seed, bits):
-        seeds.append(seed)
+    def fake_fwd(q, k, v, bias, rate, seed, bits, heads):
+        seeds.append((seed, heads))
         with torch.no_grad():
             return tattn.plain_attention_dropout(q, k, v, bias, rate,
                                                  seed=seed)
 
-    def fake_bwd(q, k, v, bias, g, rate, seed, bits):
-        seeds.append(seed)
+    def fake_bwd(q, k, v, bias, g, rate, seed, bits, heads):
+        seeds.append((seed, heads))
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
             out = tattn.plain_attention_dropout(*leaves, rate, seed=seed)
@@ -137,7 +138,7 @@ def test_kernel_attention_dropout_route_replays_the_seed(rng, monkeypatch):
     monkeypatch.setattr(ops, "device_kind", lambda t: t.device.type)
     want, wg = _port_grads(lambda *a: tattn.plain_attention_dropout(
         *a, 0.3, seed=2 ** 63 + 5), (q, k, v, bias), g)
-    assert seeds == [2 ** 63 + 5] * 2
+    assert seeds == [(2 ** 63 + 5, (0, q.shape[2]))] * 2
     np.testing.assert_array_equal(got, want)
     for a, b in zip(tg, wg):
         np.testing.assert_array_equal(a, b)

@@ -24,6 +24,10 @@ dk, dv and dbias, and K5's output at [16,128,768] in Philox and
 explicit-bits mode), in bf16 and fp32, so that two trees' outputs are
 compared bit for bit.
 
+``ptxas`` holds, for each kernel of the K2-K4 sources, the registers and
+the bytes of spill stores and loads that ``ptxas -v`` reports when the
+package's own ``nvcc`` flags compile it.
+
 --tree DIR times the vlbert_tpu_torch package of another checkout (an
 earlier commit unpacked with ``git archive``) with this checkout's harness,
 so that two versions are compared in one process each on one card: run
@@ -88,6 +92,60 @@ def digests(h, dev):
                              dtype=torch.int32)
         out[f"K5/{dn}"] = sha(hw_dropout(x, h.DROP_RATE, seed=h.SEED),
                               hw_dropout(x, h.DROP_RATE, bits=bits))
+    return out
+
+
+def _kernel_name(mangled):
+    """A kernel's name from its mangled one: its first identifier outside
+    the anonymous namespace, with its template arguments (bools, bf16 and
+    fp16), e.g. ``attn_fwd_mma<true,bf16,false>``."""
+    import re
+
+    name, rest = mangled, ""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + len(m.group())
+        ident = mangled[start:start + int(m.group())]
+        pos = start + len(ident)
+        if not ident.startswith("_GLOBAL__N"):
+            name, rest = ident, mangled[pos:]
+            break
+    if not rest.startswith("I") or "Ev" not in rest:
+        return name
+    words = {"Lb1E": "true", "Lb0E": "false", "13__nv_bfloat16": "bf16",
+             "6__half": "fp16"}
+    args = re.findall("|".join(words), rest[1:rest.index("Ev")])
+    return f"{name}<{','.join(words[a] for a in args)}>"
+
+
+def ptxas():
+    """{kernel: "R registers, S spill stores, L spill loads"} of the
+    imported package's attention sources, from ``nvcc -Xptxas -v``."""
+    import re
+    import tempfile
+
+    from vlbert_tpu_torch.kernels import build
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in ("attention_dropout_mma.cu", "attention_f32_mma.cu"):
+            p = subprocess.run(
+                [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                 "-o", os.path.join(tmp, "k.o"), str(build.CSRC_DIR / src)],
+                capture_output=True, text=True, check=True)
+            name, spill = None, ""
+            for line in (p.stdout + p.stderr).splitlines():
+                m = re.search(r"entry function '(\w+)'", line)
+                if m:
+                    name = _kernel_name(m.group(1))
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m:
+                    spill = (f"{m.group(1)} spill stores, {m.group(2)} "
+                             f"spill loads")
+                m = re.search(r"Used (\d+) registers", line)
+                if m and name:
+                    out[name] = f"{m.group(1)} registers, {spill}"
     return out
 
 
@@ -156,6 +214,7 @@ def main():
         res[f"K4/{dn}"] = k4(dtype, 128)
         res[f"K4_L173/{dn}"] = k4(dtype, 173)
     res["sha256"] = digests(h, dev)
+    res["ptxas"] = ptxas()
     line = json.dumps(res)
     print(line)
     if args.json:

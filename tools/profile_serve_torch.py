@@ -82,7 +82,7 @@ def main():
                                     row_limit=args.rows,
                                     max_name_column_width=60))
     # K1, and K2 in bf16 (the tensor-core kernel it shares with K3)
-    for name in ("roi_align_fwd_kernel", "attn_fwd_mma<false>"):
+    for name in ("roi_align_fwd_kernel", "attn_fwd_mma<false,"):
         ts = [e.device_time for e in events if name in e.name]
         print(f"{name}: {len(ts)} launches, mean device "
               f"{sum(ts) / max(len(ts), 1):.2f} us")

@@ -304,7 +304,7 @@ __device__ __forceinline__ void next_kv(KV<T>& s, int j, int nt,
 // 0's copies must have been issued and committed.
 template <bool kDrop, typename T>
 __device__ __forceinline__ void forward_sweep(
-    KV<T>& s, const unsigned (&qf)[4][4], const Slice<T>& sl, int L, int bh,
+    KV<T>& s, const unsigned (&qf)[4][4], const Slice<T>& sl, int L, int mh,
     int qa, float scale_log2, const DropArgs& da, float (&m)[2],
     float (&l)[2], float (&acc)[8][4]) {
   const int t = threadIdx.x & 3, nt = (L + kT - 1) / kT;
@@ -346,7 +346,7 @@ __device__ __forceinline__ void forward_sweep(
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const unsigned keep =
-          kDrop ? keep_rows_q(da, bh, L, qa, j * kT + 8 * n + 2 * t) : 0xfu;
+          kDrop ? keep_rows_q(da, mh, L, qa, j * kT + 8 * n + 2 * t) : 0xfu;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(sc[n][e] - m[e >> 1]);
@@ -371,8 +371,8 @@ __device__ __forceinline__ Slice<T> slice_of(const T* k, const T* v,
 }
 
 // K3 (kDrop) and K2 (no mask; da.drop_scale 1): one block per (64 query
-// rows, h, b).
-template <bool kDrop, typename T>
+// rows, h, b); kSplit: the launch holds part of the layer's heads.
+template <bool kDrop, typename T, bool kSplit = false>
 __global__ void __launch_bounds__(kThreads)
     attn_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
@@ -392,8 +392,8 @@ __global__ void __launch_bounds__(kThreads)
   load_a(qf, qs, 16 * warp);
   const int qa = q0 + 16 * warp + (lane >> 2);
   float m[2], l[2], acc[8][4];
-  forward_sweep<kDrop>(kv, qf, sl, L, b * H + h, qa, scale * kLog2e, da, m,
-                       l, acc);
+  forward_sweep<kDrop>(kv, qf, sl, L, mask_head<kSplit>(da, b, H, h), qa,
+                       scale * kLog2e, da, m, l, acc);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float f = da.drop_scale / quad_sum(l[r]);
@@ -408,7 +408,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // K4, rows pass: one block per (64 query rows, h, b); dq and the row
 // statistics (m in the log2 domain, l, D).
-template <typename T>
+template <typename T, bool kSplit>
 __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
     attn_drop_bwd_rows_mma(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
@@ -419,7 +419,8 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
   __shared__ __align__(16) Tile<T> qg;  // the Q tile, then the g tile
   __shared__ __align__(16) KV<T> kv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int mh = mask_head<kSplit>(da, b, H, h);
   const int q0 = blockIdx.x * kT;
   const Slice<T> sl = slice_of(k, v, bias, st, b, h, L);
   const long long gsl = (long long)H * kD;  // g is contiguous [B, L, H, D]
@@ -440,7 +441,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
   const int qa = q0 + 16 * warp + (lane >> 2);
   const float scale_log2 = scale * kLog2e;
   float m[2], l[2], acc[8][4];
-  forward_sweep<true>(kv, qf, sl, L, bh, qa, scale_log2, da, m, l, acc);
+  forward_sweep<true>(kv, qf, sl, L, mh, qa, scale_log2, da, m, l, acc);
   // D = g . out, from g's A fragments: they hold the C layout's elements
   // (n-tile n is word 2 (n % 2) + r of k-step n / 2)
   float inv_l[2], dd[2] = {0.0f, 0.0f};
@@ -472,7 +473,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const unsigned keep =
-          keep_rows_q(da, bh, L, qa, j * kT + 8 * n + 2 * t);
+          keep_rows_q(da, mh, L, qa, j * kT + 8 * n + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
@@ -495,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
     for (int n = 0; n < 8; ++n)
       store2(o + 8 * n, dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
     if (t == 0) {
-      float* s = stats + ((long long)bh * L + row) * 3;
+      float* s = stats + ((long long)mh * L + row) * 3;
       s[0] = m[r];
       s[1] = l[r];
       s[2] = dd[r];
@@ -513,7 +514,7 @@ struct QG {
 
 // K4, keys pass: one block per (64 keys, h, b); dk, dv and the per-head
 // dbias.
-template <typename T>
+template <typename T, bool kSplit>
 __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
     attn_drop_bwd_keys_mma(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
@@ -525,12 +526,13 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
                            Strides st, float scale, DropArgs da) {
   __shared__ __align__(16) QG<T> s;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int mh = mask_head<kSplit>(da, b, H, h);
   const int k0 = blockIdx.x * kT;
   const T* qb = q + b * st.qsb + h * st.qsh;
   const T* gb = g + ((long long)b * L * H + h) * kD;
   const long long gsl = (long long)H * kD;
-  const float* sbh = stats + (long long)bh * L * 3;
+  const float* sbh = stats + (long long)mh * L * 3;
 
   auto load_qg = [&](int j) {
     const int buf = j & 1, r0 = j * kT;
@@ -589,7 +591,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int qq = r0 + 8 * n + 2 * t;  // the lane's first query
-        const unsigned keep = keep_rows_k(da, bh, L, ka, j * kT + qq);
+        const unsigned keep = keep_rows_k(da, mh, L, ka, j * kT + qq);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, c = e & 1;
@@ -620,7 +622,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
              dka[n][2 * r + 1] * scale);
       store2(dv + o + 8 * n, dva[n][2 * r], dva[n][2 * r + 1]);
     }
-    if (t == 0) dbias_h[(long long)bh * L + key] = db;
+    if (t == 0) dbias_h[(long long)mh * L + key] = db;
   }
 }
 
@@ -642,7 +644,10 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
   if (D != kD || !aligned16(q, k, v, st)) return (int)cudaErrorInvalidValue;
   if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
   const dim3 grid((L + kT - 1) / kT, H, B);
-  attn_fwd_mma<kDrop, T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = attn_fwd_mma<kDrop, T>;
+  if constexpr (kDrop)
+    if (split_heads(da, H)) kernel = attn_fwd_mma<true, T, true>;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out, L,
       H, st, scale, da);
   return (int)cudaGetLastError();
@@ -659,12 +664,17 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* bias,
   if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
   const dim3 grid((L + kT - 1) / kT, H, B);
   cudaStream_t s = (cudaStream_t)stream;
-  attn_drop_bwd_rows_mma<T><<<grid, kThreads, 0, s>>>(
+  const bool split = split_heads(da, H);
+  auto rows = split ? attn_drop_bwd_rows_mma<T, true>
+                    : attn_drop_bwd_rows_mma<T, false>;
+  auto keys = split ? attn_drop_bwd_keys_mma<T, true>
+                    : attn_drop_bwd_keys_mma<T, false>;
+  rows<<<grid, kThreads, 0, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
       (const T*)g, (T*)dq, (float*)stats, L, H, st, scale, da);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  attn_drop_bwd_keys_mma<T><<<grid, kThreads, 0, s>>>(
+  keys<<<grid, kThreads, 0, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)bias,
       (const T*)g, (const float*)stats, (T*)dk, (T*)dv, (float*)dbias_h, L,
       H, st, scale, da);
@@ -693,15 +703,17 @@ extern "C" int attention_dropout_fwd_bf16(
     long long ksb, long long ksl, long long ksh, long long vsb,
     long long vsl, long long vsh, float scale, const void* bits,
     unsigned thresh, float drop_scale, unsigned long long seed,
-    void* stream) {
+    int head_offset, int heads_total, void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
   return launch_fwd<true, bf16>(
       q, k, v, bias, out, B, L, H, D, st, scale,
-      DropArgs{(const int*)bits, thresh, drop_scale, seed}, stream);
+      DropArgs{(const int*)bits, thresh, drop_scale, seed, head_offset,
+               heads_total}, stream);
 }
 
-// g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*H*L*3] fp32 scratch;
-// dbias_h: [B, H, L] fp32 (summed over H by the caller).
+// g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*heads_total*L*3] fp32
+// scratch; dbias_h: [B, heads_total, L] fp32, the launch's heads' rows
+// written (summed over them by the caller).
 extern "C" int attention_dropout_bwd_bf16(
     const void* q, const void* k, const void* v, const void* bias,
     const void* g, void* dq, void* dk, void* dv, void* dbias_h, void* stats,
@@ -709,11 +721,12 @@ extern "C" int attention_dropout_bwd_bf16(
     long long ksb, long long ksl, long long ksh, long long vsb,
     long long vsl, long long vsh, float scale, const void* bits,
     unsigned thresh, float drop_scale, unsigned long long seed,
-    void* stream) {
+    int head_offset, int heads_total, void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
   return launch_bwd<bf16>(
       q, k, v, bias, g, dq, dk, dv, dbias_h, stats, B, L, H, D, st, scale,
-      DropArgs{(const int*)bits, thresh, drop_scale, seed}, stream);
+      DropArgs{(const int*)bits, thresh, drop_scale, seed, head_offset,
+               heads_total}, stream);
 }
 
 extern "C" int attention_fwd_fp16(const void* q, const void* k,
@@ -734,15 +747,17 @@ extern "C" int attention_dropout_fwd_fp16(
     long long ksb, long long ksl, long long ksh, long long vsb,
     long long vsl, long long vsh, float scale, const void* bits,
     unsigned thresh, float drop_scale, unsigned long long seed,
-    void* stream) {
+    int head_offset, int heads_total, void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
   return launch_fwd<true, f16>(
       q, k, v, bias, out, B, L, H, D, st, scale,
-      DropArgs{(const int*)bits, thresh, drop_scale, seed}, stream);
+      DropArgs{(const int*)bits, thresh, drop_scale, seed, head_offset,
+               heads_total}, stream);
 }
 
-// g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*H*L*3] fp32 scratch;
-// dbias_h: [B, H, L] fp32 (summed over H by the caller).
+// g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*heads_total*L*3] fp32
+// scratch; dbias_h: [B, heads_total, L] fp32, the launch's heads' rows
+// written (summed over them by the caller).
 extern "C" int attention_dropout_bwd_fp16(
     const void* q, const void* k, const void* v, const void* bias,
     const void* g, void* dq, void* dk, void* dv, void* dbias_h, void* stats,
@@ -750,9 +765,10 @@ extern "C" int attention_dropout_bwd_fp16(
     long long ksb, long long ksl, long long ksh, long long vsb,
     long long vsl, long long vsh, float scale, const void* bits,
     unsigned thresh, float drop_scale, unsigned long long seed,
-    void* stream) {
+    int head_offset, int heads_total, void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
   return launch_bwd<f16>(
       q, k, v, bias, g, dq, dk, dv, dbias_h, stats, B, L, H, D, st, scale,
-      DropArgs{(const int*)bits, thresh, drop_scale, seed}, stream);
+      DropArgs{(const int*)bits, thresh, drop_scale, seed, head_offset,
+               heads_total}, stream);
 }

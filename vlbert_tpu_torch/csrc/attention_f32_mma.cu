@@ -113,11 +113,12 @@
 //    Nothing is saved between forward and backward but (q, k, v, bias,
 //    seed or bits).
 //  * The mask: one Philox4x32-10 evaluation at counter (key / 4, query,
-//    b*H + h, 1) whose word key % 4 decides, or explicit bits, drawn one
-//    evaluation per four elements of a C fragment by attention_dropout.cuh's
-//    keep_rows_q (K3, rows pass) and keep_rows_k (keys pass), the bf16
-//    kernels' own (the m16n8k8 C layout is the m16n8k16 one): K3 and K4
-//    draw the same words in both dtypes.
+//    b*heads_total + head_offset + h, 1) whose word key % 4 decides (the
+//    layer's head: attention_dropout.cuh's mask_head), or explicit bits,
+//    drawn one evaluation per four elements of a C fragment by
+//    attention_dropout.cuh's keep_rows_q (K3, rows pass) and keep_rows_k
+//    (keys pass), the bf16 kernels' own (the m16n8k8 C layout is the
+//    m16n8k16 one): K3 and K4 draw the same words in both dtypes.
 
 #include <cstdint>
 
@@ -301,7 +302,7 @@ __device__ __forceinline__ void next_kv(KV& s, int j, int nc,
 // and committed.
 template <bool kDrop>
 __device__ __forceinline__ void forward_sweep(KV& s, const Row* q,
-                                              const Slice& sl, int L, int bh,
+                                              const Slice& sl, int L, int mh,
                                               int qa, float scale,
                                               const DropArgs& da,
                                               float (&m)[2], float (&l)[2],
@@ -345,7 +346,7 @@ __device__ __forceinline__ void forward_sweep(KV& s, const Row* q,
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       const unsigned keep =
-          kDrop ? keep_rows_q(da, bh, L, qa, j * kC + 8 * n + 2 * t) : 0xfu;
+          kDrop ? keep_rows_q(da, mh, L, qa, j * kC + 8 * n + 2 * t) : 0xfu;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = expf(sc[n][e] - m[e >> 1]);
@@ -366,8 +367,9 @@ struct FwdSmem {
 };
 
 // K3 (kDrop) and K2 (no mask): one block per (64 query rows, h, b). K2's
-// out = acc / l; K3's out = acc * (drop_scale / l).
-template <bool kDrop>
+// out = acc / l; K3's out = acc * (drop_scale / l). kSplit: the launch
+// holds part of the layer's heads.
+template <bool kDrop, bool kSplit = false>
 __global__ void __launch_bounds__(kThreads,
                                   kDrop ? kDropFwdBlocksPerSM : kFwdBlocksPerSM)
     attn_fwd_f32_mma(const float* __restrict__ q, const float* __restrict__ k,
@@ -384,8 +386,9 @@ __global__ void __launch_bounds__(kThreads,
   cp_async_commit();
   const int qa = q0 + 16 * warp + (lane >> 2);
   float m[2], l[2], acc[8][4];
-  forward_sweep<kDrop>(s.kv, s.q + 16 * warp, sl, L, b * H + h, qa, scale,
-                       da, m, l, acc);
+  forward_sweep<kDrop>(s.kv, s.q + 16 * warp, sl, L,
+                       mask_head<kSplit>(da, b, H, h), qa, scale, da, m, l,
+                       acc);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float lsum = quad_sum(l[r]);
@@ -408,6 +411,7 @@ struct RowsSmem {
 
 // K4, rows pass: one block per (64 query rows, h, b); dq and the row
 // statistics (m, l, D).
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
     attn_drop_bwd_rows_f32_mma(const float* __restrict__ q,
                                const float* __restrict__ k,
@@ -420,7 +424,8 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
   extern __shared__ __align__(16) unsigned char smem[];
   RowsSmem& s = *reinterpret_cast<RowsSmem*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int mh = mask_head<kSplit>(da, b, H, h);
   const int q0 = blockIdx.x * kT;
   const Slice sl = slice_of(k, v, bias, st, b, h, L);
   const long long gsl = (long long)H * kD;  // g is contiguous [B, L, H, D]
@@ -464,7 +469,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
     }
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
-      const unsigned keep = keep_rows_q(da, bh, L, qa, j * kC + 8 * n + 2 * t);
+      const unsigned keep = keep_rows_q(da, mh, L, qa, j * kC + 8 * n + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = expf(sc[n][e] - m[e >> 1]);
@@ -497,7 +502,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       const int c0 = 8 * n + 2 * t;  // the lane's first key in the chunk
-      const unsigned keep = keep_rows_q(da, bh, L, qa, j * kC + c0);
+      const unsigned keep = keep_rows_q(da, mh, L, qa, j * kC + c0);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
@@ -520,7 +525,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
       *reinterpret_cast<float2*>(o + 8 * n) =
           make_float2(dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
     if (t == 0) {
-      float* sp = stats + ((long long)bh * L + row) * 3;
+      float* sp = stats + ((long long)mh * L + row) * 3;
       sp[0] = m[r];
       sp[1] = l[r];
       sp[2] = dd[r];
@@ -539,6 +544,7 @@ struct KeysSmem {
 
 // K4, keys pass: one block per (64 keys, h, b); dk, dv and the per-head
 // dbias.
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
     attn_drop_bwd_keys_f32_mma(const float* __restrict__ q,
                                const float* __restrict__ k,
@@ -552,12 +558,13 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
   extern __shared__ __align__(16) unsigned char smem[];
   KeysSmem& s = *reinterpret_cast<KeysSmem*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int mh = mask_head<kSplit>(da, b, H, h);
   const int k0 = blockIdx.x * kT;
   const float* qb = q + b * st.qsb + h * st.qsh;
   const float* gb = g + ((long long)b * L * H + h) * kD;
   const long long gsl = (long long)H * kD;
-  const float* sbh = stats + (long long)bh * L * 3;
+  const float* sbh = stats + (long long)mh * L * 3;
 
   auto load_qg = [&](int j) {
     const int buf = j & 1, r0 = j * kC;
@@ -607,7 +614,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       const int qq = 8 * n + 2 * t;  // the lane's first query in the chunk
-      const unsigned keep = keep_rows_k(da, bh, L, ka, j * kC + qq);
+      const unsigned keep = keep_rows_k(da, mh, L, ka, j * kC + qq);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, c = e & 1;
@@ -638,7 +645,7 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
       *reinterpret_cast<float2*>(dv + o + 8 * n) =
           make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
     }
-    if (t == 0) dbias_h[(long long)bh * L + key] = db;
+    if (t == 0) dbias_h[(long long)mh * L + key] = db;
   }
 }
 
@@ -667,11 +674,13 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                float scale, const DropArgs& da, void* stream) {
   if (D != kD || !aligned16(q, k, v, st)) return (int)cudaErrorInvalidValue;
   if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
-  const cudaError_t err = allow_smem(attn_fwd_f32_mma<kDrop>, sizeof(FwdSmem));
+  auto kernel = attn_fwd_f32_mma<kDrop>;
+  if constexpr (kDrop)
+    if (split_heads(da, H)) kernel = attn_fwd_f32_mma<true, true>;
+  const cudaError_t err = allow_smem(kernel, sizeof(FwdSmem));
   if (err) return (int)err;
   const dim3 grid((L + kT - 1) / kT, H, B);
-  attn_fwd_f32_mma<kDrop>
-      <<<grid, kThreads, sizeof(FwdSmem), (cudaStream_t)stream>>>(
+  kernel<<<grid, kThreads, sizeof(FwdSmem), (cudaStream_t)stream>>>(
           (const float*)q, (const float*)k, (const float*)v,
           (const float*)bias, (float*)out, L, H, st, scale, da);
   return (int)cudaGetLastError();
@@ -697,15 +706,17 @@ extern "C" int attention_dropout_fwd_f32(
     long long ksb, long long ksl, long long ksh, long long vsb,
     long long vsl, long long vsh, float scale, const void* bits,
     unsigned thresh, float drop_scale, unsigned long long seed,
-    void* stream) {
+    int head_offset, int heads_total, void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
   return launch_fwd<true>(q, k, v, bias, out, B, L, H, D, st, scale,
-                          DropArgs{(const int*)bits, thresh, drop_scale, seed},
+                          DropArgs{(const int*)bits, thresh, drop_scale, seed,
+                                   head_offset, heads_total},
                           stream);
 }
 
-// g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*H*L*3] fp32 scratch;
-// dbias_h: [B, H, L] fp32 (summed over H by the caller).
+// g, dq, dk, dv: contiguous [B, L, H, D]; stats: [B*heads_total*L*3] fp32
+// scratch; dbias_h: [B, heads_total, L] fp32, the launch's heads' rows
+// written (summed over them by the caller).
 extern "C" int attention_dropout_bwd_f32(
     const void* q, const void* k, const void* v, const void* bias,
     const void* g, void* dq, void* dk, void* dv, void* dbias_h, void* stats,
@@ -713,23 +724,29 @@ extern "C" int attention_dropout_bwd_f32(
     long long ksb, long long ksl, long long ksh, long long vsb,
     long long vsl, long long vsh, float scale, const void* bits,
     unsigned thresh, float drop_scale, unsigned long long seed,
-    void* stream) {
+    int head_offset, int heads_total, void* stream) {
   const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
   if (D != kD || !aligned16(q, k, v, st) || (uintptr_t)g % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || L == 0 || H == 0) return (int)cudaSuccess;
-  cudaError_t err = allow_smem(attn_drop_bwd_rows_f32_mma, sizeof(RowsSmem));
-  if (!err) err = allow_smem(attn_drop_bwd_keys_f32_mma, sizeof(KeysSmem));
+  const DropArgs da{(const int*)bits, thresh, drop_scale, seed,
+                    head_offset, heads_total};
+  const bool split = split_heads(da, H);
+  auto rows = split ? attn_drop_bwd_rows_f32_mma<true>
+                    : attn_drop_bwd_rows_f32_mma<false>;
+  auto keys = split ? attn_drop_bwd_keys_f32_mma<true>
+                    : attn_drop_bwd_keys_f32_mma<false>;
+  cudaError_t err = allow_smem(rows, sizeof(RowsSmem));
+  if (!err) err = allow_smem(keys, sizeof(KeysSmem));
   if (err) return (int)err;
-  const DropArgs da{(const int*)bits, thresh, drop_scale, seed};
   const dim3 grid((L + kT - 1) / kT, H, B);
   cudaStream_t s = (cudaStream_t)stream;
-  attn_drop_bwd_rows_f32_mma<<<grid, kThreads, sizeof(RowsSmem), s>>>(
+  rows<<<grid, kThreads, sizeof(RowsSmem), s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
       (const float*)g, (float*)dq, (float*)stats, L, H, st, scale, da);
   err = cudaGetLastError();
   if (err) return (int)err;
-  attn_drop_bwd_keys_f32_mma<<<grid, kThreads, sizeof(KeysSmem), s>>>(
+  keys<<<grid, kThreads, sizeof(KeysSmem), s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)bias,
       (const float*)g, (const float*)stats, (float*)dk, (float*)dv,
       (float*)dbias_h, L, H, st, scale, da);

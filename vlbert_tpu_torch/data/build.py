@@ -7,7 +7,11 @@ come from ``torch.distributed`` when it is initialised, else 0 and 1; each
 process loads its own shard (``data/loader.py``: an epoch-seeded
 permutation, wrap-padded to a multiple of the world size, every rank the
 same number of batches; validation marks the padding invalid), and only
-rank 0 writes VCR's db cache. Every dataset of the JAX package's catalog
+rank 0 writes VCR's db cache. Under TPU.PARTITION_MODE tp the loader
+shards by data index over the d replicas of a [data, model] mesh, and a
+replica's batch is BATCH_IMAGES x m (the JAX package's BATCH_IMAGES x
+local devices): the m ranks of a model group read the same rows
+(``data_shard``). Every dataset of the JAX package's catalog
 is ported: VQA, RefCOCO / RefCOCO+, VCR, and for pretraining Conceptual
 Captions, COCO captions and the text corpus, whose list-valued DATASET
 gives ``make_multitask_dataloader``.
@@ -28,12 +32,25 @@ from vlbert_tpu_torch.data.datasets.vqa import VQADataset, make_vqa_collate
 from vlbert_tpu_torch.data.loader import DataLoader, MultiTaskLoader
 from vlbert_tpu_torch.data.tokenization import BertTokenizer
 from vlbert_tpu_torch.data.transforms import build_transforms
+from vlbert_tpu_torch.parallel.dist import mesh_dims, partition_mode
 from vlbert_tpu_torch.parallel.dist import rank_world as dist_rank_world
 from vlbert_tpu_torch.utils.misc import master_dataset
 
 
 CAPTION_DATASETS = {"conceptual_captions": ConceptualCaptionsDataset,
                     "coco_captions": COCOCaptionsDataset}
+
+
+def data_shard(cfg):
+    """(shard index, shards, rows multiplier) of this process's loader:
+    its rank over the world, or under TPU.PARTITION_MODE tp its data
+    index over the mesh's d replicas, with a replica's batch m times
+    BATCH_IMAGES."""
+    r, w = dist_rank_world()
+    if w > 1 and partition_mode(cfg) == "tp":
+        d, m = mesh_dims(cfg, w)
+        return r // m, d, m
+    return r, w, 1
 
 
 def _mode_fields(cfg, mode):
@@ -52,7 +69,9 @@ def make_dataloader(cfg, task, mode="train", tokenizer=None, num_replicas=None,
                     rank=None, worker_share=1, dataset_index=0):
     """One loader of per-process batches: BATCH_IMAGES (one card per
     process; a list gives each of the multitask sub-loaders its entry)
-    times GRAD_ACCUMULATE_STEPS for training, flat. ``worker_share``
+    times GRAD_ACCUMULATE_STEPS for training, flat; unless ``rank`` and
+    ``num_replicas`` are given, the process's shard (``data_shard``: under
+    tensor parallelism its replica's, m times the rows). ``worker_share``
     divides the host's cores among concurrent sub-loaders;
     ``dataset_index`` decorrelates their RNG streams."""
     d = master_dataset(cfg)
@@ -73,9 +92,11 @@ def make_dataloader(cfg, task, mode="train", tokenizer=None, num_replicas=None,
                                         len(batch_images) - 1)]
     if mode == "train":
         batch_images *= max(int(cfg.TRAIN.GRAD_ACCUMULATE_STEPS), 1)
-    r, w = dist_rank_world()
-    rank = r if rank is None else rank
-    num_replicas = w if num_replicas is None else num_replicas
+    shard, shards, rows = data_shard(cfg)
+    if rank is None and num_replicas is None:
+        batch_images *= rows
+    rank = shard if rank is None else rank
+    num_replicas = shards if num_replicas is None else num_replicas
 
     tokenizer = tokenizer or BertTokenizer.from_pretrained(
         cfg.NETWORK.BERT_MODEL_NAME)
@@ -121,7 +142,8 @@ def make_dataloader(cfg, task, mode="train", tokenizer=None, num_replicas=None,
                         only_use_relevant_dets=d.ONLY_USE_RELEVANT_DETS,
                         mask_size=mask_size, basic_align=d.BASIC_ALIGN,
                         qa2r_noq=d.QA2R_NOQ, seq_len=d.get("SEQ_LEN", 64),
-                        cache_db=(rank == 0),  # only rank 0 writes the cache
+                        # only rank 0 writes the cache
+                        cache_db=(dist_rank_world()[0] == 0 and rank == 0),
                         ignore_db_cache=d.get("IGNORE_DB_CACHE", True),
                         **common)
         collate = make_vcr_collate(

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import argparse
 
+import yaml
+
 
 def _add_test_args(parser):
     parser.add_argument("--ckpt", type=str, default="",
@@ -36,17 +38,43 @@ def parse_args(task=None, description="VL-BERT (PyTorch + CUDA)",
     parser.add_argument("--do-test", action="store_true",
                         help="score the best checkpoint after training")
     parser.add_argument("--dist", action="store_true",
-                        help="data parallel over torch.distributed, one "
-                             "rank a card, from torchrun's environment")
+                        help="train over torch.distributed, one rank a "
+                             "card, from torchrun's or srun's environment "
+                             "(TPU.PARTITION_MODE dp, fsdp or tp)")
     parser.add_argument("--dist-backend", type=str, default=None,
                         choices=("nccl", "gloo"),
                         help="the process group's backend: by default nccl "
                              "on a card, gloo on the CPU")
     _add_test_args(parser)
+    parser.add_argument("opts", nargs="*", default=[], metavar="KEY VALUE",
+                        help="config overrides after the yaml, a dotted "
+                             "key and a YAML value each: TPU.PARTITION_MODE"
+                             " tp TPU.MESH_SHAPE [1,2] TPU.MESH_AXES "
+                             "[data,model]")
     args = parser.parse_args(argv)
     if task is not None:
         args.task = task
+    if len(args.opts) % 2:
+        parser.error(f"config overrides come in KEY VALUE pairs, got "
+                     f"{args.opts}")
     return args
+
+
+def apply_overrides(config, opts):
+    """Set each dotted key of ``opts`` (KEY VALUE ...) to its value read as
+    YAML (``[1,2]`` is a list, ``tp`` a string), in place; a key that the
+    config does not have raises ValueError, as a yaml's does."""
+    for key, text in zip(opts[::2], opts[1::2]):
+        node, parts = config, key.split(".")
+        for i, part in enumerate(parts):
+            if not hasattr(node, "keys") or part not in node:
+                raise ValueError(f"config override {key}: "
+                                 f"{'.'.join(parts[:i + 1])} is not in the "
+                                 f"config")
+            if i < len(parts) - 1:
+                node = node[part]
+        node[parts[-1]] = yaml.safe_load(text)
+    return config
 
 
 def parse_test_args(argv=None):

@@ -51,11 +51,25 @@ in which rank 0 reads the file and each rank keeps its shard.
 ``--do-test`` still runs on rank 0 alone, on a model it builds from the
 written file. Under SLURM, ``srun`` with one task a card replaces
 torchrun (``scripts/run_slurm_torch.sh``; ``parallel/dist.py``).
+
+With TPU.PARTITION_MODE tp under ``--dist`` (``parallel/tp.py``) the
+ranks form a [data, model] mesh of TPU.MESH_SHAPE [d, m] (MESH_AXES
+[data, model]) and each encoder layer is split over the model axis after
+the warm starts, before the optimizer; the loader shards by data index
+and a replica's batch is BATCH_IMAGES x m; checkpoints are gathered as
+under fsdp, validation runs on every rank. Config overrides may follow
+the yaml on the command line:
+
+    torchrun --nproc_per_node 4 -m vlbert_tpu_torch.engine.train --dist \
+        --task vqa --cfg cfgs/vqa/base_v5e_bf16.yaml \
+        TPU.PARTITION_MODE tp TPU.MESH_SHAPE '[2,2]' \
+        TPU.MESH_AXES '[data,model]'
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 import sys
 
@@ -69,6 +83,7 @@ from vlbert_tpu_torch.models.layers import init_weights
 from vlbert_tpu_torch.models.task_modules import _DTYPES, build_module
 from vlbert_tpu_torch.parallel import dist as dist_lib
 from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
+from vlbert_tpu_torch.parallel import tp as tp_lib
 from vlbert_tpu_torch.training import checkpoint as ckpt_lib
 from vlbert_tpu_torch.training import convert as cvt
 from vlbert_tpu_torch.training.loop import fit, loss_scale
@@ -274,11 +289,13 @@ def train_net(args, config, task):
     else:
         apply_warm_starts(model, config)
         apply_partial_pretrain(model, config)
-    if dist_lib.is_distributed() \
-            and dist_lib.partition_mode(config) == "fsdp":
-        # after the mask and the warm starts, before the optimizer and the
-        # train step, which hold the sharded Parameters
+    # after the mask and the warm starts, before the optimizer and the
+    # train step, which hold the sharded Parameters
+    mode = dist_lib.partition_mode(config)
+    if dist_lib.is_distributed() and mode == "fsdp":
         fsdp_lib.shard_module(model, device)
+    elif dist_lib.is_distributed() and mode == "tp":
+        tp_lib.shard_module(model, tp_lib.make_mesh(config))
 
     tokenizer = BertTokenizer.from_pretrained(config.NETWORK.BERT_MODEL_NAME)
     if isinstance(config.DATASET, (list, tuple)):
@@ -293,8 +310,10 @@ def train_net(args, config, task):
         begin_epoch, extra = resume(model_prefix, model, optimizer, config)
         resumed_count = optimizer.count
         moments = optimizer.mu + (optimizer.nu or [])
+        copies = len(optimizer.params + moments) // len(optimizer.params)
         state_elements = (fsdp_lib.local_numel(optimizer.params + moments),
-                          sum(t.numel() for t in optimizer.params + moments))
+                          copies * sum(math.prod(s) for s in
+                                       optimizer.full_shapes()))
         logger.info("rank %d holds %d of the %d elements of the trained "
                     "parameters and their moments", rank, *state_elements)
         logger.info("base LR %g over %d steps/epoch; epochs %d..%d, "
@@ -308,7 +327,7 @@ def train_net(args, config, task):
 
         def checkpoint_fn(m, opt, epoch, extra_dict, is_best):
             # one writer; replicated state (dp) lets the other ranks skip,
-            # sharded state (fsdp) is gathered with every rank in it
+            # sharded state (fsdp, tp) is gathered with every rank in it
             if rank != 0 and not ckpt_lib.snapshot_needs_all_ranks(m):
                 return
             # without validation every save is the best there is, as in
@@ -393,11 +412,11 @@ def resume(model_prefix, model, optimizer, config):
 
 
 def main(argv=None):
-    from vlbert_tpu_torch.engine.cli import parse_args
+    from vlbert_tpu_torch.engine.cli import apply_overrides, parse_args
     from vlbert_tpu_torch.utils.config import load_config
 
     args = parse_args(argv=argv)
-    config = load_config(args.task, args.cfg)
+    config = apply_overrides(load_config(args.task, args.cfg), args.opts)
     if not args.dist:
         args.device = args.device or "cuda"
         train_net(args, config, args.task)

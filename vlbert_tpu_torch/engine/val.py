@@ -4,7 +4,9 @@ duplicates masked out. Under a process group each rank validates its
 shard of the split and the (sum, count) pairs are summed over the ranks,
 so every rank returns the whole split's metrics (JAX: one jit over the
 global batch), takes the same best-val decision and steps the plateau
-detector alike."""
+detector alike. Under tensor parallelism each data replica validates its
+shard, its m ranks together, and the pairs are summed over the data
+group."""
 
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ def make_validation_fn(model, config, task, device):
     label_map = label_map_of(config, task)
     n_labels = len(label_map)
     eval_step = make_eval_step(model, task, config)
+    data = dist_lib.partition_of(model).data_axis()
 
     def validation_fn(val_loader):
         acc = metrics_lib.HostAccumulator()
@@ -41,6 +44,7 @@ def make_validation_fn(model, config, task, device):
             dm = eval_step(batch[:len(batch) - n_labels], labels,
                            torch.as_tensor(valid).to(device))
             acc.update(dm)
-        return dist_lib.all_reduce_accumulator(acc, device).get()
+        return dist_lib.all_reduce_accumulator(acc, device,
+                                               group=data.group).get()
 
     return validation_fn

@@ -43,13 +43,13 @@ _ATTN_FWD = (_P, _P, _P, _P, _P, _I, _I, _I, _I, *_STRIDES, _F, _P)
 # attention with prob dropout takes the same arguments in fp32, bf16 and
 # fp16:
 # q, k, v, bias, out, B, L, H, D, strides, scale, bits (or NULL), thresh,
-# drop_scale, seed, stream
+# drop_scale, seed, head_offset, heads_total, stream
 _ATTN_DROP_FWD = (_P, _P, _P, _P, _P, _I, _I, _I, _I, *_STRIDES, _F, _P, _U,
-                  _F, _Q, _P)
+                  _F, _Q, _I, _I, _P)
 # q, k, v, bias, g, dq, dk, dv, dbias_h, stats, B, L, H, D, strides, scale,
-# bits (or NULL), thresh, drop_scale, seed, stream
+# bits (or NULL), thresh, drop_scale, seed, head_offset, heads_total, stream
 _ATTN_DROP_BWD = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                  *_STRIDES, _F, _P, _U, _F, _Q, _P)
+                  *_STRIDES, _F, _P, _U, _F, _Q, _I, _I, _P)
 
 # C signatures of the entry points (pointers and the stream as void*). A
 # "dtype" int is an element type's code (csrc/common.cuh DtypeCode, the

@@ -22,6 +22,16 @@ under grad: only its input is kept, and ``backward()`` runs the layer again
 (``ops.dropout.site_state`` / ``replay_sites``), so the recompute rebuilds
 the masks that K4 and K5's backward replay. The attention-probs path and
 eval run unrolled, as in the JAX package's ``nn.remat``.
+
+Under tensor parallelism (``parallel/tp.py::shard_module``) a layer holds
+its rank's heads and FFN columns and a ``model_group``: the
+self-attention and the intermediate dense take their input through
+``copy_to_model``, the self-attention runs its local heads (K3/K4 draw
+their masks at the layer's head offset), and the two output denses are
+row-parallel: the local partial product is summed over the model group in
+fp32, the bias added once, the sum cast to the compute dtype. A layer's
+recompute under REMAT replays its collectives in the same order on every
+rank.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from vlbert_tpu_torch.ops.attention import (fused_attention,
                                             fused_attention_dropout)
 from vlbert_tpu_torch.ops.dropout import (Dropout, next_site_seed,
                                           replay_sites, site_state)
+from vlbert_tpu_torch.parallel.tp import copy_to_model, reduce_from_model
 
 ACT2FN = {
     # exact erf gelu, NOT the tanh approximation
@@ -69,16 +80,38 @@ class BertLayerNorm(nn.Module):
         return (y * self.weight + self.bias).to(x.dtype)
 
 
+def _to_model(x, group):
+    """``x`` as a column-parallel linear's input over ``group`` (None: no
+    tensor parallelism)."""
+    return x if group is None else copy_to_model(x, group)
+
+
+def _row_parallel(dense, h, group):
+    """``dense(h)``; over ``group`` (tensor parallelism) ``dense`` holds
+    its rank's input columns: the partial product, summed over the group
+    in fp32, plus the bias once, in the compute dtype."""
+    if group is None:
+        return dense(h)
+    d = dense.compute_dtype
+    part = F.linear(cast(h, d), dense.op_weight(d)).to(torch.float32)
+    return (reduce_from_model(part, group) + dense.bias).to(d)
+
+
 class BertSelfAttention(nn.Module):
     """Multi-head self-attention. ``fused_qkv`` runs the three projections
     as one [3H, H] GEMM over the concatenated query/key/value weights; q, k
     and v are then strided views of its output, which kernel K2 reads
-    without a copy. The parameters are the same either way."""
+    without a copy. The parameters are the same either way. Under tensor
+    parallelism its ``num_heads`` heads are heads ``head_offset`` .. of the
+    layer's ``heads_total``, and the weights its rank's rows of the
+    layer's."""
 
     def __init__(self, hidden_size, num_heads, dropout_rate=0.0,
                  fused_qkv=False, *, dtype=torch.float32, device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.head_offset, self.heads_total = 0, num_heads
+        self.model_group = None
         self.head_dim = hidden_size // num_heads
         self.fused_qkv = fused_qkv
         self.compute_dtype = dtype
@@ -90,16 +123,20 @@ class BertSelfAttention(nn.Module):
         self.dropout = Dropout(dropout_rate)     # vis path only
 
     def forward(self, hidden, attention_bias, output_attention_probs=False):
-        B, L, Hd = hidden.shape
+        B, L, _ = hidden.shape
         d = self.compute_dtype
-        shape = (B, L, self.num_heads, self.head_dim)
+        if output_attention_probs and self.model_group is not None:
+            raise NotImplementedError(
+                "the attention-probs path runs on one process, with every "
+                "head; tensor parallelism splits them")
+        hidden = _to_model(hidden, self.model_group)
+        shape = (B, L, -1, self.head_dim)
         if self.fused_qkv:
             w = torch.cat([self.query.op_weight(d), self.key.op_weight(d),
                            self.value.op_weight(d)])
             b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
             qkv = F.linear(cast(hidden, d), w, cast(b, d))
-            q, k, v = qkv.view(B, L, 3, self.num_heads,
-                               self.head_dim).unbind(2)
+            q, k, v = qkv.view(B, L, 3, -1, self.head_dim).unbind(2)
         else:
             q = self.query(hidden).view(shape)
             k = self.key(hidden).view(shape)
@@ -113,14 +150,17 @@ class BertSelfAttention(nn.Module):
             ctx = torch.einsum("bhqk,bkhd->bqhd",
                                self.dropout(probs).to(d).to(torch.float32),
                                v.to(torch.float32))
-            return ctx.reshape(B, L, Hd).to(d), probs
+            return ctx.reshape(B, L, -1).to(d), probs
         if self.training and self.dropout_rate > 0.0:
+            # a split layer's heads draw their masks at their place in it
+            place = {} if self.heads_total == self.num_heads else dict(
+                head_offset=self.head_offset, heads_total=self.heads_total)
             ctx = fused_attention_dropout(q, k, v, attention_bias,
                                           self.dropout_rate,
-                                          seed=next_site_seed())
+                                          seed=next_site_seed(), **place)
         else:
             ctx = fused_attention(q, k, v, attention_bias)
-        return ctx.reshape(B, L, Hd).to(d)
+        return ctx.reshape(B, L, -1).to(d)
 
 
 class BertSelfOutput(nn.Module):
@@ -130,9 +170,11 @@ class BertSelfOutput(nn.Module):
                             device=device)
         self.LayerNorm = BertLayerNorm(hidden_size, device=device)
         self.dropout = Dropout(dropout_rate)
+        self.model_group = None
 
     def forward(self, h, residual):
-        return self.LayerNorm(self.dropout(self.dense(h)) + residual)
+        h = _row_parallel(self.dense, h, self.model_group)
+        return self.LayerNorm(self.dropout(h) + residual)
 
 
 class BertAttention(nn.Module):
@@ -163,9 +205,10 @@ class BertIntermediate(nn.Module):
         self.dense = Linear(hidden_size, intermediate_size, dtype=dtype,
                             device=device)
         self.act = ACT2FN[hidden_act]
+        self.model_group = None
 
     def forward(self, x):
-        return self.act(self.dense(x))
+        return self.act(self.dense(_to_model(x, self.model_group)))
 
 
 class BertOutput(nn.Module):
@@ -176,9 +219,11 @@ class BertOutput(nn.Module):
                             device=device)
         self.LayerNorm = BertLayerNorm(hidden_size, device=device)
         self.dropout = Dropout(dropout_rate)
+        self.model_group = None
 
     def forward(self, h, residual):
-        return self.LayerNorm(self.dropout(self.dense(h)) + residual)
+        h = _row_parallel(self.dense, h, self.model_group)
+        return self.LayerNorm(self.dropout(h) + residual)
 
 
 class BertLayer(nn.Module):

@@ -638,14 +638,17 @@ _IGNORED_KNOBS = {
     "DONATE_STATE": "XLA buffer donation",
     "COMPILE_CACHE_DIR": "an XLA compile cache",
     "MASKED_OPT_STATE": "moments are kept for the trained parameters only",
-    # device meshes: one rank runs on its one card; at more than one,
-    # engine.train --dist trains PARTITION_MODE dp or fsdp over a
-    # MESH_SHAPE of the world size (parallel/dist.py::check_partition)
-    "MESH_SHAPE": "one card a rank; at more than one rank it must lay out "
-                  "the world size",
-    "MESH_AXES": "one card a rank; no model axis",
-    "PARTITION_MODE": "one card a rank; dp, or fsdp's sharded state, over "
-                      "torch.distributed ranks under engine.train --dist",
+    # device meshes: a model is built whole, on one card; engine.train
+    # (--dist) reads them (parallel/dist.py::check_partition) and splits
+    # the model under PARTITION_MODE tp (parallel/tp.py)
+    "MESH_SHAPE": "the model is built whole on one card; engine.train "
+                  "--dist lays its ranks out as MESH_SHAPE [d] or, under "
+                  "PARTITION_MODE tp, [d, m]",
+    "MESH_AXES": "the model is built whole on one card; PARTITION_MODE tp "
+                 "under engine.train --dist takes [data, model]",
+    "PARTITION_MODE": "the model is built whole on one card; engine.train "
+                      "--dist trains dp, fsdp (sharded state) or tp (heads "
+                      "and FFN split over the model axis)",
 }
 
 
@@ -661,9 +664,10 @@ def build_module(config, task, dtype=None, device=None, fused_qkv=None,
     and TPU.RNG_IMPL choose a formulation where the port always launches
     its kernel; TPU.ATTN_REMAT keeps only q, k, v and the bias for the
     attention backward, which K3/K4 always do; TPU.SCAN_LAYERS and the
-    other XLA levers have no counterpart; the mesh knobs lay out devices,
-    and each rank runs on one card (``parallel/dist.py`` checks them
-    against the process group). The other TPU knobs are read where they
+    other XLA levers have no counterpart; the mesh knobs lay out the ranks
+    of ``engine.train --dist`` (``parallel/dist.py`` checks them against
+    the process group, ``parallel/tp.py`` splits the built model under
+    PARTITION_MODE tp). The other TPU knobs are read where they
     apply (the loaders, the transforms, train_net, the checkpoints).
     """
     key = f"{config.MODULE}:{task}"

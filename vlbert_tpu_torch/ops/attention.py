@@ -30,11 +30,15 @@ tolerances. One TF32 pass (2**-11) would not be
 (``tests/test_torch_attention_tf32.py``).
 
 The mask's bits (``attention_bits``): one Philox4x32-10 evaluation per four
-neighbouring keys, counter (key // 4, query, b*H + h, 1) and the call's
-64-bit seed, key k taking word k % 4; drop iff bits < min(round(rate *
-2^32), 2^32 - 1). Or explicit [B, H, L, L] uint16 bits as an int tensor,
-drop iff bits < round(rate * 65536), the JAX package's 'bits16' rule, for
-parity tests.
+neighbouring keys, counter (key // 4, query, b*heads_total + head_offset +
+h, 1) and the call's 64-bit seed, key k taking word k % 4; drop iff bits <
+min(round(rate * 2^32), 2^32 - 1). ``head_offset`` and ``heads_total``
+(default 0 and H) place a call's H heads in the layer's: under tensor
+parallelism (``parallel/tp.py``) a rank holds heads head_offset ..
+head_offset + H - 1 of heads_total and draws their masks as one process
+does. Or explicit [B, H, L, L] uint16 bits as an int tensor (the call's own
+heads: a rank passes its slice), drop iff bits < round(rate * 65536), the
+JAX package's 'bits16' rule, for parity tests.
 
 Layout: q, k, v are [B, L, H, D]; the additive key bias is exactly
 [B, 1, 1, L] (-10000 on masked keys). Any other bias shape is rejected, as
@@ -103,30 +107,48 @@ def attention_bwd_plain(q, k, v, bias, g):
             dbias.to(bias.dtype))
 
 
-def attention_bits(B, H, L, seed, device=None):
+def attention_bits(B, H, L, seed, device=None, head_offset=0,
+                   heads_total=None):
     """K3/K4's bits for a [B, H, L, L] prob tensor: key k of query q in
     head (b, h) takes word k % 4 of Philox4x32-10 at counter
-    (k // 4, q, b*H + h, 1)."""
+    (k // 4, q, b*heads_total + head_offset + h, 1); heads_total defaults
+    to H. The bits of heads head_offset .. head_offset + H - 1 are those
+    heads' slice of the layer's bits."""
+    heads_total = _heads_total(H, head_offset, heads_total)
     i64 = dict(dtype=torch.int64, device=device)
     group = torch.arange((L + 3) // 4, **i64)
     qry = torch.arange(L, **i64)[:, None]
-    bh = torch.arange(B * H, **i64)[:, None, None]
+    bh = (torch.arange(B, **i64)[:, None] * heads_total + head_offset
+          + torch.arange(H, **i64)).reshape(-1, 1, 1)
     one = torch.ones((), **i64)
     words = torch.stack(philox4x32(group, qry, bh, one, seed), -1)
     return words.reshape(B, H, L, -1)[..., :L]
 
 
-def plain_attention_dropout(q, k, v, bias, rate, seed=None, bits=None):
+def _heads_total(H, head_offset, heads_total):
+    """``heads_total`` (H when None), checked to hold heads head_offset ..
+    head_offset + H - 1."""
+    heads_total = H if heads_total is None else int(heads_total)
+    if not 0 <= head_offset <= heads_total - H:
+        raise ValueError(f"attention dropout: heads {head_offset}.."
+                         f"{head_offset + H - 1} are not in a layer of "
+                         f"{heads_total}")
+    return heads_total
+
+
+def plain_attention_dropout(q, k, v, bias, rate, seed=None, bits=None,
+                            head_offset=0, heads_total=None):
     """Plain PyTorch attention with prob dropout. Exactly one of ``seed``
-    (Philox mode) and ``bits`` ([B, H, L, L] uint16 values in an int
-    tensor)."""
+    (Philox mode; q's heads are heads head_offset .. of heads_total) and
+    ``bits`` ([B, H, L, L] uint16 values in an int tensor)."""
     if (seed is None) == (bits is None):
         raise ValueError("attention dropout takes exactly one of seed and "
                          "bits")
     _check_bias(q, bias)
     B, L, H, _ = q.shape
     if bits is None:
-        bits = attention_bits(B, H, L, seed, q.device)
+        bits = attention_bits(B, H, L, seed, q.device, head_offset,
+                              heads_total)
     keep = keep_mask(bits.to(torch.int64), rate, seed is None)
     p = _probs(q, k, bias)
     drop_scale = 1.0 / (1.0 - rate) if rate < 1.0 else 0.0
@@ -168,12 +190,16 @@ class _FusedAttention(torch.autograd.Function):
         return attention_bwd_plain(*ctx.saved_tensors, g)
 
 
-def fused_attention_dropout(q, k, v, bias, rate, seed=None, bits=None):
+def fused_attention_dropout(q, k, v, bias, rate, seed=None, bits=None,
+                            head_offset=0, heads_total=None):
     """Attention with prob dropout (training); launches kernel K3 forward
     and K4 backward for CUDA tensors.
 
     rate in (0, 1]; exactly one of ``seed`` (a 64-bit int, Philox mode) and
-    ``bits`` ([B, H, L, L] uint16 values as an int tensor). A CPU tensor
+    ``bits`` ([B, H, L, L] uint16 values as an int tensor). q's H heads
+    are heads head_offset .. head_offset + H - 1 of a layer of
+    ``heads_total`` (default 0 and H; tensor parallelism passes a rank's
+    place): the Philox masks are those heads' in the layer. A CPU tensor
     takes ``plain_attention_dropout``; a CUDA tensor launches the kernels
     or raises.
     """
@@ -183,15 +209,17 @@ def fused_attention_dropout(q, k, v, bias, rate, seed=None, bits=None):
     if not 0.0 < float(rate) <= 1.0:
         raise ValueError(f"attention dropout needs 0 < rate <= 1, got {rate}")
     _check_bias(q, bias)
+    heads_total = _heads_total(q.shape[2], head_offset, heads_total)
     kind = ops.device_kind(q)
     if kind == "cpu":
         return plain_attention_dropout(q, k, v, bias, rate, seed=seed,
-                                       bits=bits)
+                                       bits=bits, head_offset=head_offset,
+                                       heads_total=heads_total)
     if kind != "cuda":
         raise ValueError(f"fused_attention_dropout: unsupported device "
                          f"{q.device}")
     return _FusedAttentionDropout.apply(q, k, v, bias, float(rate), seed,
-                                        bits)
+                                        bits, (head_offset, heads_total))
 
 
 fused_attention_dropout.launches = 0       # K3 launches
@@ -200,10 +228,11 @@ fused_attention_dropout.bwd_launches = 0   # K4 calls (two kernels each)
 
 class _FusedAttentionDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, rate, seed, bits):
-        ctx.rate, ctx.seed = rate, seed
+    def forward(ctx, q, k, v, bias, rate, seed, bits, heads):
+        ctx.rate, ctx.seed, ctx.heads = rate, seed, heads
         ctx.save_for_backward(q, k, v, bias, bits)
-        out = _attention_dropout_launch(q, k, v, bias, rate, seed, bits)
+        out = _attention_dropout_launch(q, k, v, bias, rate, seed, bits,
+                                        heads)
         fused_attention_dropout.launches += 1
         return out
 
@@ -211,9 +240,9 @@ class _FusedAttentionDropout(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, bits = ctx.saved_tensors
         grads = _attention_dropout_bwd_launch(q, k, v, bias, g, ctx.rate,
-                                              ctx.seed, bits)
+                                              ctx.seed, bits, ctx.heads)
         fused_attention_dropout.bwd_launches += 1
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def _check_cuda_args(q, k, v, bias, name, **more):
@@ -301,6 +330,12 @@ def _attention_launch(q, k, v, bias):
     return out
 
 
+def _kernel_heads(H, bits, heads):
+    """The (head_offset, heads_total) a K3/K4 launch takes: ``heads``,
+    or (0, H) with explicit bits, which are the launch's own heads'."""
+    return (0, H) if bits is not None else heads
+
+
 def _dropout_kernels(lib, q):
     """K3 and K4's entry points for q's dtype."""
     suffix = _KERNELS[q.dtype]
@@ -308,7 +343,8 @@ def _dropout_kernels(lib, q):
             getattr(lib, f"attention_dropout_bwd_{suffix}"))
 
 
-def _attention_dropout_launch(q, k, v, bias, rate, seed, bits):
+def _attention_dropout_launch(q, k, v, bias, rate, seed, bits, heads):
+    """K3; ``heads`` is (head_offset, heads_total)."""
     from vlbert_tpu_torch.kernels import build
 
     _check_dropout_args(q, k, v, bias)
@@ -319,30 +355,36 @@ def _attention_dropout_launch(q, k, v, bias, rate, seed, bits):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
               out.data_ptr(), B, L, H, D, *_strides(q, k, v),
-              1.0 / math.sqrt(D), ptr, thresh, drop_scale, seed, stream)
+              1.0 / math.sqrt(D), ptr, thresh, drop_scale, seed,
+              *_kernel_heads(H, bits, heads), stream)
     build.check(err, fwd.__name__)
     return out
 
 
-def _attention_dropout_bwd_launch(q, k, v, bias, g, rate, seed, bits):
+def _attention_dropout_bwd_launch(q, k, v, bias, g, rate, seed, bits,
+                                  heads):
+    """K4; ``heads`` is (head_offset, heads_total)."""
     from vlbert_tpu_torch.kernels import build
 
     g = g.to(q.dtype).contiguous()
     _check_dropout_args(q, k, v, bias, g=g)
     B, L, H, D = q.shape
     ptr, _bits, thresh, drop_scale, seed = _drop_args(q, rate, seed, bits)
+    offset, total = heads = _kernel_heads(H, bits, heads)
     kw = dict(dtype=q.dtype, device=q.device)
     dq, dk, dv = (torch.empty((B, L, H, D), **kw) for _ in range(3))
     f32 = dict(dtype=torch.float32, device=q.device)
-    dbias_h = torch.empty((B, H, L), **f32)
-    stats = torch.empty((B * H * L * 3,), **f32)
+    # the per-head scratch has a row for each head of the layer; the
+    # launch writes its own heads' rows
+    dbias_h = torch.empty((B, total, L), **f32)
+    stats = torch.empty((B * total * L * 3,), **f32)
     _, bwd = _dropout_kernels(build.load(), q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
               g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
               dbias_h.data_ptr(), stats.data_ptr(), B, L, H, D,
               *_strides(q, k, v), 1.0 / math.sqrt(D), ptr, thresh,
-              drop_scale, seed, stream)
+              drop_scale, seed, *heads, stream)
     build.check(err, bwd.__name__)
-    dbias = dbias_h.sum(1)[:, None, None, :].to(bias.dtype)
-    return dq, dk.to(k.dtype), dv.to(v.dtype), dbias
+    dbias = dbias_h[:, offset:offset + H].sum(1)[:, None, None, :]
+    return dq, dk.to(k.dtype), dv.to(v.dtype), dbias.to(bias.dtype)

@@ -32,9 +32,15 @@ over gloo, which the one-card machine's two-rank check uses. What it
 gives up is DDP's overlap of the all-reduce with the backward.
 
 PARTITION_MODE ``fsdp`` shards the parameters and moments over the same
-ranks (``parallel/fsdp.py``); ``tp`` and a model axis are refused at more
-than one rank (``check_partition``). Nothing falls back: a collective that
-fails raises.
+ranks (``parallel/fsdp.py``); ``tp`` splits the encoder's heads and FFN
+over the model axis of a [data, model] mesh (``parallel/tp.py``), and the
+collectives above then run over the data axis's group (their ``group``).
+How a model's state is held is one object, ``partition_of(model)``:
+``Replicated`` here for dp (and one process), the ones that fsdp's and
+tp's ``shard_module`` attach; the train step, the optimizer, validation
+and the checkpoint call its methods and do not ask which it is.
+``check_partition`` refuses a layout the port cannot run, by name, before
+anything is built. Nothing falls back: a collective that fails raises.
 
 Under SLURM, ``srun`` starts one task a card and ``--dist`` reads its
 environment when torchrun's is absent (``slurm_env``):
@@ -49,6 +55,7 @@ import contextlib
 import math
 import os
 import re
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -58,9 +65,11 @@ BUCKET_BYTES = 64 << 20
 
 MODES = ("dp", "fsdp", "tp")
 # what a refused layout waits for (ROADMAP.md queue 1, multi-GPU)
-_TP_LATER = ("the tensor-parallel rules of vlbert_tpu/parallel/mesh.py "
-             "(ColwiseParallel / RowwiseParallel over a model axis), the "
-             "next multi-GPU item of ROADMAP.md queue 1")
+_FSDP_TP_LATER = ("FSDP2 over the data axis of the tensor-parallel shards "
+                  "(vlbert_tpu/parallel/mesh.py:77-118), the next "
+                  "multi-GPU item of ROADMAP.md queue 1")
+# the widths that tensor parallelism splits over the model axis
+_TP_SPLIT = ("num_attention_heads", "hidden_size", "intermediate_size")
 
 
 def is_distributed():
@@ -79,24 +88,36 @@ def partition_mode(config):
     return str(tpu.get("PARTITION_MODE", "dp")).lower()
 
 
+def mesh_dims(config, world):
+    """(d, m): the data and model axes' sizes of TPU.MESH_SHAPE over
+    ``world`` ranks (MESH_SHAPE [] is [world]). Rank r sits at data index
+    r // m and model index r % m, the row-major layout of
+    vlbert_tpu/parallel/mesh.py:24-31."""
+    tpu = config.TPU if "TPU" in config else {}
+    shape = [int(s) for s in (tpu.get("MESH_SHAPE") or [world])]
+    return shape[0], math.prod(shape[1:])
+
+
 def check_partition(config, world):
     """Raise on a TPU.PARTITION_MODE or TPU.MESH_SHAPE the port cannot run
-    at ``world`` ranks, before anything is built. One rank runs every mode
-    on its one card (the mesh knobs then only warn, ``build_module``); at
-    more than one, ``dp`` and ``fsdp`` over a mesh of ``world`` devices on
-    the data axis (MESH_SHAPE [] or [world])."""
+    at ``world`` ranks, before anything is built. ``tp`` runs over a
+    MESH_SHAPE [d, m] of d·m = ``world`` ranks with MESH_AXES [data, model]
+    and m > 1; a model axis of 1 raises the JAX package's ValueError
+    (vlbert_tpu/training/loop.py:273-279), at one rank too, and so do
+    heads or widths that m does not divide (the port splits heads). One
+    rank runs ``dp`` and ``fsdp`` on its one card (the mesh knobs then
+    only warn, ``build_module``); at more than one, over a mesh of
+    ``world`` devices on the data axis (MESH_SHAPE [] or [world])."""
     tpu = config.TPU if "TPU" in config else {}
     mode = partition_mode(config)
     if mode not in MODES:
         raise ValueError(f"unknown TPU.PARTITION_MODE {mode!r} (one of "
                          f"{', '.join(MODES)})")
+    if mode == "tp":
+        _check_tp(config, world)
+        return
     if world <= 1:
         return
-    if mode == "tp":
-        raise NotImplementedError(
-            f"TPU.PARTITION_MODE=tp at {world} ranks needs {_TP_LATER}, "
-            f"which the port does not have yet; PARTITION_MODE dp or fsdp "
-            f"trains at {world} ranks")
     shape = list(tpu.get("MESH_SHAPE") or [])
     if shape and math.prod(int(s) for s in shape) != world:
         raise ValueError(
@@ -104,9 +125,50 @@ def check_partition(config, world):
             f"the process group has {world} ranks, one card each (set "
             f"MESH_SHAPE to [{world}] or [])")
     if len(shape) > 1 and any(int(s) > 1 for s in shape[1:]):
-        raise NotImplementedError(
-            f"TPU.MESH_SHAPE {shape} has a model axis: tensor parallelism "
-            f"needs {_TP_LATER}, which the port does not have yet")
+        if mode == "fsdp":
+            raise NotImplementedError(
+                f"TPU.MESH_SHAPE {shape} has a model axis: fsdp on a "
+                f"[data, model] mesh needs {_FSDP_TP_LATER}, which the port "
+                f"does not have yet; PARTITION_MODE tp trains on it")
+        raise ValueError(
+            f"TPU.MESH_SHAPE {shape} has a model axis, which "
+            f"TPU.PARTITION_MODE dp does not use: set PARTITION_MODE tp "
+            f"(with MESH_AXES [data, model]) or MESH_SHAPE [{world}]")
+
+
+def _check_tp(config, world):
+    tpu = config.TPU if "TPU" in config else {}
+    shape = [int(s) for s in (tpu.get("MESH_SHAPE") or [])]
+    axes = list(tpu.get("MESH_AXES") or ["data"])[:len(shape) or 1]
+    names = dict(zip(axes, shape or [world]))
+    if len(shape) < 2 or math.prod(shape[1:]) <= 1:
+        raise ValueError(
+            "TPU.PARTITION_MODE=tp needs a 'model' mesh axis > 1 "
+            f"(mesh is {names}); set TPU.MESH_SHAPE, e.g. "
+            "[4, 2], and TPU.MESH_AXES: [data, model] — otherwise "
+            "training would silently run pure DP")
+    if len(shape) != 2 or axes != ["data", "model"]:
+        raise ValueError(
+            f"TPU.PARTITION_MODE=tp runs on a mesh of two axes, TPU."
+            f"MESH_SHAPE [d, m] with TPU.MESH_AXES [data, model]; got "
+            f"MESH_SHAPE {shape}, MESH_AXES {axes}")
+    if math.prod(shape) != world:
+        raise ValueError(
+            f"TPU.MESH_SHAPE {shape} lays out {math.prod(shape)} devices; "
+            f"the process group has {world} ranks, one card each (start "
+            f"{math.prod(shape)} ranks with --dist, or set MESH_SHAPE to "
+            f"[{world} // m, m])")
+    m = shape[1]
+    vl = config.NETWORK.VLBERT
+    bad = {k: vl[k] for k in _TP_SPLIT if int(vl[k]) % m}
+    if bad:
+        raise ValueError(
+            f"TPU.PARTITION_MODE=tp over a model axis of {m}: "
+            + ", ".join(f"NETWORK.VLBERT.{k} {v}" for k, v in bad.items())
+            + f" not divisible by {m}. The port splits the attention by "
+            f"heads and cannot split a head (the JAX package would "
+            f"replicate such a kernel); choose a model axis that divides "
+            f"them")
 
 
 def resolve_device(device=None, local_rank=0):
@@ -297,15 +359,16 @@ def _bucketed(tensors, collective):
     return tensors
 
 
-def all_reduce_mean_(tensors):
-    """Each tensor, in place, becomes its mean over the ranks (the sum
-    divided by the world size). A no-op without a process group."""
+def all_reduce_mean_(tensors, group=None):
+    """Each tensor, in place, becomes its mean over the ranks of ``group``
+    (the sum divided by its size; every rank by default). A no-op without
+    a process group."""
     if not is_distributed():
         return tensors
-    world = dist.get_world_size()
+    world = dist.get_world_size(group)
 
     def mean(flat):
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat.div_(world)
 
     return _bucketed(tensors, mean)
@@ -350,20 +413,22 @@ def from_rank0(fn):
 
 
 @torch.no_grad()
-def all_reduce_sum(t):
-    """A detached copy of ``t`` summed over the ranks."""
+def all_reduce_sum(t, group=None):
+    """A detached copy of ``t`` summed over the ranks of ``group`` (every
+    rank by default)."""
     out = t.detach().clone()
     if is_distributed():
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
     return out
 
 
 @torch.no_grad()
-def all_reduce_step_stats(loss, metrics):
-    """(loss, metrics) of the global batch in one collective: the ranks'
-    mean loss (each rank's loss is its share of the global mean, see
-    ``utils/losses.py``) and every (sum, count) pair summed over the
-    ranks, in float64. Unchanged without a process group."""
+def all_reduce_step_stats(loss, metrics, group=None):
+    """(loss, metrics) of the global batch in one collective over the ranks
+    of ``group`` (every rank by default): the ranks' mean loss (each rank's
+    loss is its share of the global mean, see ``utils/losses.py``) and
+    every (sum, count) pair summed over the ranks, in float64. Unchanged
+    without a process group."""
     if not is_distributed():
         return loss, metrics
     keys = sorted(metrics)
@@ -371,21 +436,69 @@ def all_reduce_step_stats(loss, metrics):
         [loss.to(torch.float64)]
         + [torch.as_tensor(v, dtype=torch.float64, device=loss.device)
            for k in keys for v in metrics[k]])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     out = {k: (flat[1 + 2 * i], flat[2 + 2 * i]) for i, k in enumerate(keys)}
-    return (flat[0] / dist.get_world_size()).to(loss.dtype), out
+    return (flat[0] / dist.get_world_size(group)).to(loss.dtype), out
 
 
 @torch.no_grad()
-def all_reduce_accumulator(acc, device):
+def all_reduce_accumulator(acc, device, group=None):
     """A ``metrics.HostAccumulator``'s sums and counts, in place, summed
-    over the ranks (the validation metrics of a rank-sharded loader)."""
+    over the ranks of ``group``, every rank by default (the validation
+    metrics of a rank-sharded loader)."""
     if not is_distributed():
         return acc
     keys = sorted(acc.sums)
     flat = torch.tensor([x for k in keys for x in (acc.sums[k], acc.nums[k])],
                         dtype=torch.float64, device=device)
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     for i, k in enumerate(keys):
         acc.sums[k], acc.nums[k] = flat[2 * i].item(), flat[2 * i + 1].item()
     return acc
+
+
+class DataAxis(NamedTuple):
+    """What a training step's means and sums run over: a process group
+    (None: every rank), its size and this rank's index in it."""
+    group: object
+    size: int
+    index: int
+
+
+class Replicated:
+    """The training state whole on every rank (TPU.PARTITION_MODE dp, and
+    one process). ``partition_of`` gives a model's partition; fsdp's and
+    tp's ``shard_module`` attach their own, with these methods:
+
+    - ``collective``: a checkpoint snapshot or load needs every rank;
+    - ``data_axis()``: the ``DataAxis`` of the step and of validation;
+    - ``full_shape(name, t)``: the whole shape of parameter (or moment)
+      ``name``, held as ``t``;
+    - ``reduce_gradients_(names, grads)``: each rank's gradients, in
+      place, become the global batch's mean gradient;
+    - ``norm(names, tensors)``: the whole gradients' global norm, fp32, the
+      same on every rank;
+    - ``full_state(names, tensors)`` and ``load_full_state_(names,
+      targets, full)``: the collective snapshot and load (collective
+      partitions only)."""
+    collective = False
+
+    def data_axis(self):
+        rank, world = rank_world()
+        return DataAxis(None, world, rank)
+
+    def full_shape(self, name, t):
+        return tuple(t.shape)
+
+    def reduce_gradients_(self, names, grads):
+        all_reduce_mean_(grads)
+
+    def norm(self, names, tensors):
+        return torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(t.to(torch.float32)) for t in tensors]))
+
+
+def partition_of(model):
+    """How ``model``'s training state is held across ranks: what
+    ``shard_module`` attached, else ``Replicated``."""
+    return getattr(model, "partition", None) or Replicated()

@@ -36,6 +36,9 @@ Every rank must run the same collectives in the same order:
   parameters are reached by every forward;
 - checkpoints: ``full_state`` gathers on every rank (rank 0 writes),
   ``load_full_state_`` scatters rank 0's tensors.
+
+``shard_module`` attaches ``Fsdp``, the partition (``dist.partition_of``)
+through which the step, the optimizer and the checkpoint reach these.
 """
 
 from __future__ import annotations
@@ -79,7 +82,28 @@ def shard_module(model, device):
     for layer in layers:
         fully_shard(layer, mesh=mesh)
     fully_shard(model, mesh=mesh)
+    model.partition = Fsdp()
     return model
+
+
+class Fsdp(dist_lib.Replicated):
+    """The partition of a module that ``shard_module`` sharded: DTensors
+    have their whole shape, the gradients are reduce-scattered in the
+    backward, a shard's norm is reduced over the ranks (``plain``), and a
+    snapshot or load is collective."""
+    collective = True
+
+    def reduce_gradients_(self, names, grads):
+        pass
+
+    def norm(self, names, tensors):
+        return plain(super().norm(names, tensors))
+
+    def full_state(self, names, tensors):
+        return full_state(tensors)
+
+    def load_full_state_(self, names, targets, full):
+        return load_full_state_(targets, full)
 
 
 def zero_touch(model):

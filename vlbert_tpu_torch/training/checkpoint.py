@@ -31,6 +31,15 @@ rank 0 reads the file and each rank keeps its shard
 (``fsdp.load_full_state_``); ``partial_load`` takes each rank's own copy
 of a warm-start file. FSDP2 renames nothing, so no prefix is stripped.
 
+Under TPU.PARTITION_MODE tp (``parallel/tp.py``) each rank holds its part
+of the encoder's split tensors and the rest whole; the same collective
+snapshot gathers the split parameters and moments over rank 0's model
+group along their split dims into the ``dp`` file, and a resume
+broadcasts rank 0's whole tensors, each rank keeping its part. The warm
+starts load whole tensors before the model is split. Both layouts are
+reached through the model's partition (``dist.partition_of``), whose
+``full_state`` and ``load_full_state_`` these call.
+
 Not ported: ``_reconcile_masked_opt_state`` migrates optax moment trees
 across a format change the port never had (its moments are dense tensors
 keyed by name). The pretraining model's tied MLM decoder is one tensor
@@ -104,9 +113,9 @@ def _to_host(obj, memo=None):
 
 def snapshot_needs_all_ranks(model):
     """True when a snapshot of ``model`` is collective (its parameters
-    are sharded across ranks): every rank must enter ``save_checkpoint``
-    and ``load_checkpoint``."""
-    return fsdp_lib.is_sharded(model)
+    are sharded across ranks, by FSDP2 or tensor parallelism): every rank
+    must enter ``save_checkpoint`` and ``load_checkpoint``."""
+    return dist_lib.partition_of(model).collective
 
 
 def snapshot(model, optimizer):
@@ -118,9 +127,9 @@ def snapshot(model, optimizer):
     if not snapshot_needs_all_ranks(model):
         return _to_host(sd), _to_host(opt)
     nu = opt["nu"] or {}
-    tensors = list(sd.values()) + list(opt["mu"].values()) \
-        + list(nu.values())
-    full = fsdp_lib.full_state(tensors)
+    full = dist_lib.partition_of(model).full_state(
+        list(sd) + list(opt["mu"]) + list(nu),
+        list(sd.values()) + list(opt["mu"].values()) + list(nu.values()))
     if full is None:
         return None, None
     it = iter(full)
@@ -220,10 +229,10 @@ def _check_step(path, optimizer, step):
 
 
 def _load_sharded(path, model, optimizer):
-    """``load_checkpoint`` into an FSDP2-sharded model: rank 0 reads the
-    file and checks its keys against the model's (strictly, as
-    ``load_state_dict``); each rank keeps its shard of every tensor. A
-    failure on rank 0 raises on every rank."""
+    """``load_checkpoint`` into a model sharded by FSDP2 or tensor
+    parallelism: rank 0 reads the file and checks its keys against the
+    model's (strictly, as ``load_state_dict``); each rank keeps its shard
+    of every tensor. A failure on rank 0 raises on every rank."""
     targets = model.state_dict(keep_vars=True)
     # the tied decoder is the word embedding: loaded once, under its name
     names, seen = [], set()
@@ -245,7 +254,8 @@ def _load_sharded(path, model, optimizer):
         return payload["step"], payload.get("extra", {})
 
     step, extra = dist_lib.from_rank0(read)
-    fsdp_lib.load_full_state_([targets[k] for k in names], box.get("full"))
+    dist_lib.partition_of(model).load_full_state_(
+        names, [targets[k] for k in names], box.get("full"))
     if optimizer is not None:
         payload = box.get("payload")
         optimizer.load_state_dict(payload and payload["optimizer"])

@@ -28,7 +28,17 @@ unit's gradients after the last micro-step's backward (the others keep
 theirs unsharded), and ``zero_touch`` gives every trainable root
 parameter a gradient on every rank, so that each rank's reduce-scatter
 holds the same parameters; the clip's norm is then the whole gradient's,
-the same on every rank (``optim.global_norm``).
+the same on every rank. Under TPU.PARTITION_MODE tp (``parallel/tp.py``)
+the m ranks of a model group hold one replica's parameters between them
+and read the same rows: everything above runs over the data group of d =
+world / m replicas instead (the seed folds in the data index, and only
+when d > 1, so that the model group draws one set of masks and [1, m]
+draws one process's; the counts, the loss, the metrics and the split
+gradients are reduced over the data group, the replicated gradients over
+every rank), and the clip's norm counts each split gradient once across
+the model group. The step reaches these through the model's partition
+(``dist.partition_of``): its data axis, its gradient reduction, and the
+optimizer's norm.
 
 ``fit`` keeps the reference's epoch structure: set_epoch shuffling, one
 seed per step from the trainer's ``torch.Generator``, Speedometer logging,
@@ -42,6 +52,7 @@ JAX package's do.
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import time
 
@@ -98,7 +109,9 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
     inputs), the labels last; seed: the step's 64-bit dropout seed, the
     same on every rank."""
     params = optimizer.params
-    rank, world = dist_lib.rank_world()
+    partition = dist_lib.partition_of(model)
+    # every rank, or under tensor parallelism the data group of replicas
+    data = partition.data_axis()
     scale = loss_scale(config)
     sharded = fsdp_lib.is_sharded(model)
     # the accumulation's mean and the unscale in one division: with a
@@ -107,13 +120,15 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
 
     def counts():
         if dist_lib.is_distributed():
-            return losses.global_counts(dist_lib.all_reduce_sum, world)
+            return losses.global_counts(
+                functools.partial(dist_lib.all_reduce_sum, group=data.group),
+                data.size)
         return contextlib.nullcontext()
 
     def train_step(batch, seed):
         model.train()
-        if world > 1:
-            seed = fold_in(seed, rank)
+        if data.size > 1:
+            seed = fold_in(seed, data.index)
         loss_sum, dm_sum = None, None
         for i, micro in enumerate(_split(batch, grad_accum)):
             if sharded:
@@ -130,8 +145,8 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             dm_sum = dm if dm_sum is None else _add(dm_sum, dm)
-        loss, dm_sum = dist_lib.all_reduce_step_stats(loss_sum / grad_accum,
-                                                      dm_sum)
+        loss, dm_sum = dist_lib.all_reduce_step_stats(
+            loss_sum / grad_accum, dm_sum, group=data.group)
         if not bool(torch.isfinite(loss)):
             raise FloatingPointError(f"non-finite loss {float(loss)} at "
                                      f"step {optimizer.count}")
@@ -140,8 +155,7 @@ def make_train_step(model, optimizer, task, config, grad_accum=1):
         grads = [torch.zeros_like(p) if p.grad is None
                  else p.grad / divisor if divisor != 1.0 else p.grad
                  for p in params]
-        if not sharded:
-            dist_lib.all_reduce_mean_(grads)
+        partition.reduce_gradients_(optimizer.names, grads)
         dm_sum["grad_total_norm"] = (optimizer.step(grads), 1)
         for p in params:
             p.grad = None

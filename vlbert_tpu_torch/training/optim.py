@@ -11,6 +11,13 @@ over the parameters with ``requires_grad``; ``apply_trainable_mask`` sets
 that flag from the JAX package's freezing rules, so frozen parameters get
 neither gradient nor weight decay. Schedules are plain Python functions of
 the optimizer step (no device sync).
+
+The moments are made from the parameters as each rank holds them; the
+module's partition (``parallel/dist.py::partition_of``: dp, fsdp or tp)
+gives the clip's norm, the whole shapes and, where it is collective, a
+resume in which each rank takes its part of the file's whole moments.
+The LR scales with the world size, as the JAX package's does (its
+device count), whatever the mesh.
 """
 
 from __future__ import annotations
@@ -20,7 +27,6 @@ import re
 import torch
 
 from vlbert_tpu_torch.parallel import dist as dist_lib
-from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
 
 
 # ---------------------------------------------------------------- schedules
@@ -200,6 +206,8 @@ class Optimizer:
                  if p.requires_grad]
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        # how the parameters are held across ranks (dp, fsdp, tp)
+        self.partition = dist_lib.partition_of(module)
         self.mults = [lr_mult(n, rules) for n in self.names]
         self.clip = float(t.CLIP_GRAD_NORM or 0.0)
         self.wd = float(t.WD or 0.0)
@@ -220,14 +228,21 @@ class Optimizer:
         return {"mu": dict(zip(self.names, self.mu)), "nu": nu,
                 "count": self.count, "plateau_scale": self.plateau_scale}
 
+    def full_shapes(self):
+        """Each trained parameter's whole shape (a tensor-parallel shard's
+        before its split; FSDP2's DTensors have it)."""
+        return [self.partition.full_shape(n, p)
+                for n, p in zip(self.names, self.params)]
+
     @torch.no_grad()
     def load_state_dict(self, d):
         """Restore moments by parameter name; raises on a missing or
-        misshaped moment. Moments sharded by FSDP2 (``parallel/fsdp.py``):
-        collective, ``d`` is rank 0's (None on the other ranks) and each
-        rank keeps its shard."""
+        misshaped moment. Moments sharded by FSDP2 (``parallel/fsdp.py``)
+        or split by tensor parallelism (``parallel/tp.py``): collective,
+        ``d`` is rank 0's (None on the other ranks) and each rank keeps its
+        part."""
         live = self.mu + (self.nu or [])
-        if any(fsdp_lib.is_dtensor(m) for m in live):
+        if self.partition.collective:
             box = {}
 
             def read():             # rank 0 alone
@@ -235,7 +250,9 @@ class Optimizer:
                 return int(d["count"]), float(d["plateau_scale"])
 
             count, scale = dist_lib.from_rank0(read)
-            fsdp_lib.load_full_state_(live, box.get("full"))
+            self.partition.load_full_state_(
+                self.names * (len(live) // len(self.params)), live,
+                box.get("full"))
         else:
             for m, saved in zip(live, self._moments_of(d)):
                 m.copy_(saved)
@@ -249,14 +266,14 @@ class Optimizer:
             if live is None:
                 continue
             saved = d.get(key) or {}
-            for name, m in zip(self.names, live):
+            for name, shape in zip(self.names, self.full_shapes()):
                 if name not in saved:
                     raise KeyError(f"optimizer state has no {key} for {name}")
-                if tuple(saved[name].shape) != tuple(m.shape):
+                if tuple(saved[name].shape) != tuple(shape):
                     raise ValueError(
                         f"optimizer {key} of {name}: shape "
                         f"{tuple(saved[name].shape)}, parameter "
-                        f"{tuple(m.shape)}")
+                        f"{tuple(shape)}")
                 out.append(saved[name])
         return out
 
@@ -269,7 +286,7 @@ class Optimizer:
         """grads: fp32 tensors aligned with ``self.params``. Returns their
         global norm before clipping."""
         u = [g.to(torch.float32) for g in grads]
-        norm = global_norm(u)
+        norm = self.partition.norm(self.names, u)
         if self.clip > 0:
             # optax's clip_by_global_norm: g / norm * max when norm >= max
             factor = torch.where(norm < self.clip, torch.ones_like(norm),
@@ -300,12 +317,3 @@ class Optimizer:
         self.count += 1
         return norm
 
-
-def global_norm(tensors):
-    """sqrt of the sum of squares over all tensors, fp32, as a plain
-    tensor. Over FSDP2's sharded gradients each shard's norm is a partial
-    DTensor: ``full_tensor`` reduces them over the ranks, so the result is
-    the whole gradient's norm, the same on every rank, never a shard's."""
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(t.to(torch.float32)) for t in tensors]))
-    return fsdp_lib.plain(norm)
