@@ -3579,8 +3579,9 @@ def rank_job(job_path):
 
 def full_params(model):
     """{name: the parameter whole, fp32, on the CPU}; FSDP2's sharded
-    parameters gathered (collective); a tensor-parallel rank's split
-    parameters are its parts."""
+    parameters gathered over their data group (collective, c10d:
+    ``fsdp.plain``); a tensor-parallel rank's split parameters are its
+    parts."""
     from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
 
     return {n: fsdp_lib.plain(p).detach().float().cpu()
@@ -3812,14 +3813,18 @@ def vqa_step_model(cfg, dev):
 
 
 def rank_tp_step(job):
-    """16e's fp32 step, one rank of a [1, 2] tensor-parallel mesh on
-    cuda:0 over gloo: the first batch of its replica's loader (16a's
-    rows), one AdamW step from seed-0 weights with dropout on (the two
-    ranks draw one process's masks). Rank 0 saves the batch and the
-    updated parameters, gathered whole."""
+    """16e's and 16f's fp32 step, one rank of a [d, m] mesh on cuda:0 over
+    gloo (tp, or fsdp on the mesh): the first batch of its replica's
+    loader, one AdamW step from seed-0 weights. 16e: dropout on at d = 1
+    (the ranks draw one process's masks); 16f: "dropout_off" (its
+    replicas' seeds fold in their data index), obj_downsample's fixed
+    Dropout(0.1) too. The model-index-0 rank of data index i saves its
+    batch to ``job["batch"].format(i=i)``; rank 0 the updated parameters,
+    gathered whole."""
     import torch
     from vlbert_tpu_torch.data.build import make_dataloader
     from vlbert_tpu_torch.parallel import dist as dist_lib
+    from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
     from vlbert_tpu_torch.parallel import tp as tp_lib
     from vlbert_tpu_torch.training.loop import make_train_step, to_device
     from vlbert_tpu_torch.training.optim import Optimizer
@@ -3835,7 +3840,13 @@ def rank_tp_step(job):
         finally:
             loader.shutdown()
         model = vqa_step_model(cfg, dev)
-        tp_lib.shard_module(model, tp_lib.make_mesh(cfg))
+        if job.get("dropout_off"):
+            model.image_feature_extractor.obj_downsample[0].rate = 0.0
+        mesh = tp_lib.make_mesh(cfg, dev)
+        if dist_lib.partition_mode(cfg) == "fsdp":
+            fsdp_lib.shard_module(model, dev, mesh)
+        else:
+            tp_lib.shard_module(model, mesh)
         opt = Optimizer(cfg, model, 4, world)
         lr = opt.lr()
         step = make_train_step(model, opt, "vqa", cfg, 1)
@@ -3847,9 +3858,10 @@ def rank_tp_step(job):
                "grad_norm": float(dm["grad_total_norm"][0]),
                "launches": _launch_counts(), "rows": int(batch[1].shape[0]),
                "lr": lr}
-        if rank == 0:
+        if mesh.model_index == 0:
             torch.save([None if x is None else x.cpu() for x in batch],
-                       job["batch"])
+                       job["batch"].format(i=mesh.data_index))
+        if rank == 0:
             torch.save(dict(zip(opt.names, full)), job["params"])
     return out
 
@@ -3910,9 +3922,16 @@ def dist_phase(root, root14, vocab_dir):
     with a planted fault (every rank's masks at head offset 0) beyond
     them, its gathered file laid out as (b)'s, its AUTO_RESUME; then an
     fp32 step of the two ranks against one process's at phase 8's bar.
-    (a), (d), (b), (e) and its fault run as one group of processes, and
-    (b)'s, (d)'s and (e)'s resumes beside (c)'s ranks and (e)'s fp32
-    step. Returns results."""
+    (f) TPU.PARTITION_MODE fsdp at MESH_SHAPE [2, 2] given on the command
+    line, four gloo ranks on cuda:0 of 4 rows each: (e)'s split layers
+    sharded by FSDP2 over the two data groups, its losses equal on each
+    replica's ranks, the replicated parameters alike on all four, its
+    gathered file laid out as (b)'s, its AUTO_RESUME on all four; then an
+    fp32 step of the four ranks, dropout off, against one process on the
+    two replicas' batches at phase 8's bar. (a), (d), (b), (e) and its
+    fault run, and (f) run as one group of processes, and (b)'s, (d)'s,
+    (e)'s and (f)'s resumes beside (c)'s ranks and (e)'s and (f)'s fp32
+    steps. Returns results."""
     import torch
     from vlbert_tpu_torch.data.build import make_dataloader
     from vlbert_tpu_torch.engine.val import make_validation_fn
@@ -3957,7 +3976,13 @@ def dist_phase(root, root14, vocab_dir):
                                 {"TRAIN.BATCH_IMAGES": 16 // TP_M})
     f_argv = base + [f_yaml, "--dist", "--dist-backend", "gloo", "--device",
                      "cuda:0", *TP_OPTS]
-    port, e_port, f_port = free_port(), free_port(), free_port()
+    # (f) fsdp on [2, 2], four gloo ranks on cuda:0, 4 a rank: 16a's
+    # global batch, batches and LR; the mesh from the command line
+    ft_yaml, _ = dist_train_yaml(root, *fixture, "f_fsdp_tp", 1,
+                                 {"TRAIN.BATCH_IMAGES": 16 // FT_N})
+    ft_argv = base + [ft_yaml, "--dist", "--dist-backend", "gloo",
+                      "--device", "cuda:0", *FT_OPTS]
+    port, e_port, f_port, ft_port = (free_port() for _ in range(4))
     out = run_ranks(
         [{"kind": "train", "argv": base + [plain_yaml],
           "record_writes": True},
@@ -3976,11 +4001,16 @@ def dist_phase(root, root14, vocab_dir):
            for r in range(TP_M)]
         + [{"kind": "train", "argv": f_argv, "record_writes": True,
             "deterministic": False, "fault": "head_offset_0",
-            "env": torchrun_env(r, TP_M, f_port)} for r in range(TP_M)],
-        root, "a_d_b_e")
+            "env": torchrun_env(r, TP_M, f_port)} for r in range(TP_M)]
+        + [{"kind": "train", "argv": ft_argv, "profile": True,
+            "deterministic": False, "env": torchrun_env(r, FT_N, ft_port)}
+           for r in range(FT_N)],
+        root, "a_d_b_e_f")
     res["a"], res["d"], res["b"] = out[:2], out[2], out[3:5]
-    res["e"], res["e_fault"] = out[5:5 + TP_M], out[5 + TP_M:]
-    seconds["a_d_b_e"] = time.perf_counter() - t0
+    res["e"] = out[5:5 + TP_M]
+    res["e_fault"] = out[5 + TP_M:5 + 2 * TP_M]
+    res["f"] = out[5 + 2 * TP_M:]
+    seconds["a_d_b_e_f"] = time.perf_counter() - t0
     res["d_gap"] = fsdp_gap(res["a"][1], res["d"], params_out)
     out_b = os.path.join(root, "b", "vqa_train")
     res["b_files"] = sorted(os.listdir(out_b))
@@ -4018,7 +4048,8 @@ def dist_phase(root, root14, vocab_dir):
               "NETWORK.VLBERT.attention_probs_dropout_prob": 0.0}
     c_yaml = write_train_yaml(PRETRAIN_CFGS["prec"],
                               os.path.join(root, "c.yaml"), c_over)
-    port, c_port, e_port, e32_port = (free_port() for _ in range(4))
+    port, c_port, e_port, e32_port, ft_port, f32_port = (
+        free_port() for _ in range(6))
     jobs = [{"kind": "step", "yaml": c_yaml,
              "batch": os.path.join(root, f"c_batch{r}.pt"),
              "params": os.path.join(root, "c_params0.pt"),
@@ -4033,6 +4064,17 @@ def dist_phase(root, root14, vocab_dir):
                  "deterministic": False,
                  "env": torchrun_env(r, TP_M, e32_port)}
                 for r in range(TP_M)]
+    f32_yaml, _ = dist_train_yaml(root, *fixture, "f_fp32", 1, {
+        "TRAIN.BATCH_IMAGES": 16 // FT_N, "TPU.PROCESS_WORKERS": False,
+        "NETWORK.VLBERT.hidden_dropout_prob": 0.0,
+        "NETWORK.VLBERT.attention_probs_dropout_prob": 0.0,
+        "NETWORK.CLASSIFIER_DROPOUT": 0.0, **FT_KNOBS})
+    f32_jobs = [{"kind": "tp_step", "yaml": f32_yaml, "dropout_off": True,
+                 "batch": os.path.join(root, "f32_batch{i}.pt"),
+                 "params": os.path.join(root, "f32_params.pt"),
+                 "deterministic": False,
+                 "env": torchrun_env(r, FT_N, f32_port)}
+                for r in range(FT_N)]
     out = run_ranks(
         [{"kind": "train", "argv": argv, "record_writes": True,
           "env": torchrun_env(r, 2, port)} for r in range(2)]
@@ -4041,18 +4083,29 @@ def dist_phase(root, root14, vocab_dir):
         + [{"kind": "train", "argv": e_argv, "record_writes": True,
             "deterministic": False, "env": torchrun_env(r, TP_M, e_port)}
            for r in range(TP_M)]
-        + e32_jobs, root, "b_d_e_resume_c_e32")
+        + e32_jobs
+        + [{"kind": "train", "argv": ft_argv, "record_writes": True,
+            "deterministic": False, "env": torchrun_env(r, FT_N, ft_port)}
+           for r in range(FT_N)]
+        + f32_jobs, root, "b_d_e_f_resume_c_e32_f32")
     res["b_resume"], res["d_resume"], res["c"] = out[:2], out[2], out[3:5]
-    res["e_resume"], res["e32"] = out[5:5 + TP_M], out[5 + TP_M:]
-    seconds["b_d_e_resume_c_e32"] = time.perf_counter() - t0
+    res["e_resume"] = out[5:5 + TP_M]
+    res["e32"] = out[5 + TP_M:5 + 2 * TP_M]
+    res["f_resume"] = out[5 + 2 * TP_M:5 + 2 * TP_M + FT_N]
+    res["f32"] = out[5 + 2 * TP_M + FT_N:]
+    seconds["b_d_e_f_resume_c_e32_f32"] = time.perf_counter() - t0
     out_e = os.path.join(root, "e_tp", "vqa_train")
     res["e_files"] = sorted(os.listdir(out_e))
+    out_f = os.path.join(root, "f_fsdp_tp", "vqa_train")
+    res["f_files"] = sorted(os.listdir(out_f))
     out_d = os.path.join(root, "d_fsdp", "vqa_train")
     res["d_files"] = sorted(os.listdir(out_d))
     res["d_file"] = same_layout(f"{prefix}-0001.model",
                                 os.path.join(out_d, f"{b_prefix}-0000.model"))
     res["e_file"] = same_layout(f"{prefix}-0001.model",
                                 os.path.join(out_e, f"{b_prefix}-0000.model"))
+    res["f_file"] = same_layout(f"{prefix}-0001.model",
+                                os.path.join(out_f, f"{b_prefix}-0000.model"))
 
     # (c)'s one process on the concatenated batch
     t0 = time.perf_counter()
@@ -4090,6 +4143,10 @@ def dist_phase(root, root14, vocab_dir):
     t0 = time.perf_counter()
     res["e32_one"] = tp_fp32_one_process(e32_yaml, e32_jobs[0], res["e32"])
     seconds["e32"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["f32_one"] = tp_fp32_one_process(f32_yaml, f32_jobs[0], res["f32"],
+                                         FT_D, FT_M)
+    seconds["f32"] = time.perf_counter() - t0
     res["seconds"] = seconds
     res["overrides"] = {k: v for k, v in overrides.items()
                         if not k.startswith(("DATASET.", "NETWORK.BERT"))}
@@ -4155,7 +4212,8 @@ def dist_phase(root, root14, vocab_dir):
         == res["c"][1]["digest"]
         and res["c"][0]["loss"] == res["c"][1]["loss"],
         "c: one process": all(v[0] <= v[1] for v in one["checks"].values()),
-        **tp_checks(res, b_prefix, step_want, steps_a)}
+        **tp_checks(res, b_prefix, step_want, steps_a),
+        **fsdp_tp_checks(res, b_prefix, step_want, steps_a)}
     return res
 
 
@@ -4178,23 +4236,26 @@ TP_OPTS = ("TPU.PARTITION_MODE", "tp", "TPU.MESH_SHAPE", f"[1,{TP_M}]",
 TP_BF16_LOSS_RTOL = 1.2e-4
 
 
-def tp_fp32_one_process(yaml_path, job, ranks):
-    """16e's fp32 step in one process: 16a's config in fp32 on the ranks'
-    batch (BATCH_IMAGES x TP_M, world 1), the same seed-0 weights and
-    step seed; (rel err, rtol) of the loss, the grad norm and the largest
-    parameter gap over the LR against the ranks' gathered parameters,
-    phase 8's bar."""
+def tp_fp32_one_process(yaml_path, job, ranks, d=1, m=TP_M):
+    """16e's (and 16f's) fp32 step in one process: 16a's config in fp32 on
+    the d replicas' batches concatenated (BATCH_IMAGES x d·m, world 1),
+    the same seed-0 weights and step seed (16f: dropout off); (rel err,
+    rtol) of the loss, the grad norm and the largest parameter gap over
+    the LR against the ranks' gathered parameters, phase 8's bar."""
     import torch
     from vlbert_tpu_torch.training.loop import make_train_step
     from vlbert_tpu_torch.training.optim import Optimizer
     from vlbert_tpu_torch.utils.config import load_config
 
     cfg = load_config("vqa", yaml_path)
-    cfg.TRAIN.BATCH_IMAGES *= TP_M
+    cfg.TRAIN.BATCH_IMAGES *= d * m
     cfg.TPU.PARTITION_MODE, cfg.TPU.MESH_SHAPE = "dp", []
-    batch = tuple(None if x is None else x.to("cuda")
-                  for x in torch.load(job["batch"]))
+    shards = [torch.load(job["batch"].format(i=i)) for i in range(d)]
+    batch = tuple(None if xs[0] is None else torch.cat(xs).to("cuda")
+                  for xs in zip(*shards))
     model = vqa_step_model(cfg, "cuda")
+    if job.get("dropout_off"):
+        model.image_feature_extractor.obj_downsample[0].rate = 0.0
     opt = Optimizer(cfg, model, 4, 1)
     lr = opt.lr()
     _zero_counts()
@@ -4264,6 +4325,59 @@ def tp_checks(res, b_prefix, step_want, steps_a):
         and all(r["lr"] == res["e32_one"]["lr"] for r in res["e32"])
         and all(r["launches"]["K3"] == r["launches"]["K4"] == 12
                 for r in res["e32"])}
+
+
+# 16f: fsdp on [FT_D, FT_M] on cuda:0, the mesh given on the command
+# line: each layer split over the model axis as in 16e, then FSDP2 over
+# the data axis
+FT_D, FT_M = 2, 2
+FT_N = FT_D * FT_M
+FT_KNOBS = {"TPU.PARTITION_MODE": "fsdp", "TPU.MESH_SHAPE": [FT_D, FT_M],
+            "TPU.MESH_AXES": ["data", "model"]}
+FT_OPTS = ("TPU.PARTITION_MODE", "fsdp", "TPU.MESH_SHAPE",
+           f"[{FT_D},{FT_M}]", "TPU.MESH_AXES", "[data,model]")
+
+
+def fsdp_tp_checks(res, b_prefix, step_want, steps_a):
+    """16f's checks: 8 bf16 steps on the four ranks, finite, the losses
+    equal on each replica's two ranks; the replicated parameters bit for
+    bit alike on all four; 16a's launches a step (K3 and K4 on 6 heads,
+    model index 1's at head offset 6); one validation run a replica;
+    every rank enters the write, rank 0's file laid out as 16b's;
+    AUTO_RESUME on all four with the parts as written; a rank holds less
+    than 16e's rank; the fp32 step at phase 8's bar."""
+    f = res["f"]
+    val_f = train_launches(0, -(-DIST_VAL // FT_D // (DIST_VAL_BATCH
+                                                        * FT_M)))
+    half = 12 // FT_M
+    logs = [f"train_rank{r}.log" for r in range(FT_N)]
+    return {
+        "f: fsdp on [2, 2] trains": all(
+            len(r["loss"]) == steps_a and all(map(math.isfinite, r["loss"]))
+            for r in f)
+        and all(f[i * FT_M]["loss"] == f[i * FT_M + j]["loss"]
+                for i in range(FT_D) for j in range(FT_M)),
+        "f: replicated parameters alike":
+        len({r["replicated_digest"] for r in f}) == 1,
+        "f: launches": all(r["step_launches"] == [step_want] * steps_a
+                           and r["val_launches"] == [val_f] for r in f),
+        "f: heads": [r["k3_heads"] for r in f]
+        == [[[half, (r % FT_M) * half, 12]] for r in range(FT_N)],
+        "f: the gathered file is dp's": res["f_file"]["same"]
+        and res["f_files"] == sorted([f"{b_prefix}-0000.model",
+                                      f"{b_prefix}-best.model", *logs])
+        and [r["saves"] for r in f] == [[0]] * FT_N,
+        "f: auto resume": all(
+            (r["begin_epoch"], r["resumed_count"], r["loss"], r["saves"],
+             r["digest"]) == (1, steps_a, [], [], t["digest"])
+            for r, t in zip(res["f_resume"], f)),
+        "f: a rank holds less than a tp rank": all(
+            r["state_elements"][0] < res["e"][0]["state_elements"][0]
+            and r["state_elements"][1] == res["e"][0]["state_elements"][1]
+            for r in f),
+        "f: fp32 step": all(v[0] <= v[1]
+                            for v in res["f32_one"]["checks"].values())
+        and all(r["lr"] == res["f32_one"]["lr"] for r in res["f32"])}
 
 
 # 16d: fsdp against dp at one rank, where they are not bit for bit
@@ -4400,6 +4514,7 @@ def print_dist_phase(r, card):
           f"{len(r['d_resume']['loss'])} steps, parameters as written "
           f"{r['d_resume']['digest'] == d['digest']} ({card})", flush=True)
     print_tp_phase(r, card)
+    print_fsdp_tp_phase(r, card)
     c0, c1 = r["c"]
     one = r["c_one"]
     print(f"[16c dp gloo world 2, fp32 step] {PRETRAIN_CFGS['prec']} with "
@@ -4482,6 +4597,78 @@ def print_tp_phase(r, card):
           f"rtol) {one['checks']} at lr {one['lr']:.3e}; launches a rank "
           f"{e32['launches']}, one process {one['launches']} ({card})",
           flush=True)
+
+
+def print_fsdp_tp_phase(r, card):
+    """16f's lines: per rank the step p50, the profiled device busy ms a
+    step and the idle share, the model-group all-reduces a step (the
+    layers' and the norm's; their summed ms on the host clock between two
+    device syncs, their number) and the replicated gradients' chunks'
+    all-reduce over the model group, with their share of the step p50
+    (FSDP2's gathers and reduce-scatters run inside the forward and
+    backward and are not timed apart), the heads K3 launched on, the
+    resident elements beside 16e's; the losses, the file, the resume and
+    the fp32 step."""
+    f = r["f"]
+
+    def timing(x):
+        wall, busy, _ = x["profile"] or (float("nan"),) * 3
+        p50 = step_p50(x["step_ms"])
+        ms = _median([t for t, _ in x["tp_steps"][2:]])
+        calls = sorted({n for _, n in x["tp_steps"]})
+        ar = _median(x["all_reduce_ms"])
+        return (f"step p50 {p50:.2f} ms, profiled window wall {wall:.2f} / "
+                f"device busy {busy:.2f} ms a step (idle "
+                f"{1 - busy / p50:.3f} of the p50), model-group "
+                f"all-reduces {ms:.2f} ms a step ({calls} calls a step), "
+                f"the replicated gradients' chunks' all-reduce over the "
+                f"model group {ar:.2f} ms a step, together "
+                f"{(ms + ar) / p50:.3f} of the step p50; K3 heads (local, "
+                f"offset, of) {x['k3_heads']}, holds "
+                f"{x['state_elements'][0]} elements, peak "
+                f"{x['peak_gib']:.2f} GiB, {x['wall_s']:.1f} s of main")
+
+    held_e, total = r["e"][0]["state_elements"]
+    print(f"[16f fsdp on [{FT_D}, {FT_M}] gloo world {FT_N}] 16a's config "
+          f"with TRAIN.BATCH_IMAGES {16 // FT_N} and, on the command line, "
+          f"{' '.join(FT_OPTS)}: python -m vlbert_tpu_torch.engine.train "
+          f"--dist --dist-backend gloo --device cuda:0 on {FT_N} ranks "
+          f"sharing the card: each layer split over a model group of "
+          f"{FT_M} (12 / {FT_M} heads, 3072 / {FT_M} FFN columns), then "
+          f"FSDP2 over a data group of {FT_D}; {FT_D} replicas of "
+          f"{16 // FT_D} rows (16a's 16): {len(f[0]['loss'])} steps, losses "
+          f"{[round(x, 4) for x in f[0]['loss']]} (equal on each replica's "
+          f"{FT_M} ranks: "
+          f"{all(f[i * FT_M]['loss'] == f[i * FT_M + j]['loss'] for i in range(FT_D) for j in range(FT_M))}; "
+          f"16a's {[round(x, 4) for x in r['a'][1]['loss']]}, other dropout "
+          f"masks: the seeds fold in the data index); replicated parameters "
+          f"bit for bit alike on the {FT_N} ranks "
+          f"{len({x['replicated_digest'] for x in f}) == 1}; launches per "
+          f"step {f[0]['step_launches'][0]} and per validation run "
+          f"{f[0]['val_launches'][0]} on each rank; val SoftAcc "
+          f"{[round(v['SoftAcc'], 6) for v in f[0]['val']]}; resident "
+          f"elements of the trained parameters and their AdamW moments a "
+          f"rank {[x['state_elements'][0] for x in f]} of {total} (16e's "
+          f"tp rank {held_e}); "
+          + "; ".join(f"rank {i}: {timing(x)}" for i, x in enumerate(f))
+          + f" ({card})", flush=True)
+    one, f32 = r["f32_one"], r["f32"][0]
+    print(f"[16f file, resume, fp32 step] checkpoint writes entered "
+          f"{[x['saves'] for x in f]}; files {r['f_files']}, -0000.model "
+          f"against 16b's dp -0001.model: same keys, shapes and dtypes "
+          f"{r['f_file']['same']} ({r['f_file']['n']}); AUTO_RESUME: "
+          f"begin_epoch {[x['begin_epoch'] for x in r['f_resume']]}, "
+          f"optimizer count {[x['resumed_count'] for x in r['f_resume']]}, "
+          f"{[len(x['loss']) for x in r['f_resume']]} steps, each rank's "
+          f"parts as written "
+          f"{[x['digest'] == y['digest'] for x, y in zip(r['f_resume'], f)]}"
+          f"; fp32 step (one AdamW step from seed-0 weights, dropout off, "
+          f"{f32['rows']} rows a replica) of the {FT_N} ranks vs one process "
+          f"on the {one['rows']} rows: loss {f32['loss']:.6f} vs "
+          f"{one['loss']:.6f}, grad norm {f32['grad_norm']:.6f} vs "
+          f"{one['grad_norm']:.6f}, (rel err, rtol) {one['checks']} at lr "
+          f"{one['lr']:.3e}; launches a rank {f32['launches']}, one process "
+          f"{one['launches']} ({card})", flush=True)
 
 
 # Phases 17 and 18: int8 weight-only serving at base width; the
@@ -6543,7 +6730,7 @@ def main():
         print_dist_phase(r16, card)
         if not all(r16["checks"].values()):
             raise AssertionError(f"data parallelism: {r16['checks']}; "
-                                 f"{ {k: r16[k] for k in ('b_val_one', 'c_one', 'e32_one', 'seconds')} }")
+                                 f"{ {k: r16[k] for k in ('b_val_one', 'c_one', 'e32_one', 'f32_one', 'seconds')} }")
 
         lap("16")
         # --- 17-18: int8 serving, the attention dump, ResNet-18 ---
@@ -6912,13 +7099,15 @@ def main():
             record["at_H16"] = times
     # launches on phase 16's paths, each run's total: 16a's run under a
     # process group of one NCCL rank, 16b's two gloo ranks, 16d's FSDP2,
-    # 16e's two tensor-parallel ranks
+    # 16e's two tensor-parallel ranks, 16f's four fsdp ranks on [2, 2]
     dist_runs = {"16a_nccl_world1": r16["a"][1]["total"],
                  "16b_gloo_rank0": r16["b"][0]["total"],
                  "16b_gloo_rank1": r16["b"][1]["total"],
                  "16d_fsdp_nccl_world1": r16["d"]["total"],
                  **{f"16e_tp_gloo_rank{i}": x["total"]
-                    for i, x in enumerate(r16["e"])}}
+                    for i, x in enumerate(r16["e"])},
+                 **{f"16f_fsdp_tp_gloo_rank{i}": x["total"]
+                    for i, x in enumerate(r16["f"])}}
     count_of = {"roi_align_fwd": "K1", "roi_align_bwd": "K1b",
                 "attention_fwd": "K2", "dropout": "K5_fwd",
                 "attention_dropout_fwd": "K3", "attention_dropout_bwd": "K4"}

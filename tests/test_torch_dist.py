@@ -617,8 +617,9 @@ def test_fsdp_tp_and_a_mismatched_mesh_are_refused_before_a_model_is_built(
     check at [1, 2] with MESH_AXES [data, model] (tests/test_torch_tp.py)
     and is refused when the model axis does not divide the heads; fsdp
     passes over a MESH_SHAPE of [] or [2] (FSDP2,
-    tests/test_torch_fsdp.py) and is refused with a model axis. At one
-    rank every other config passes (the knobs warn)."""
+    tests/test_torch_fsdp.py) and over [1, 2] and [2, 2] with MESH_AXES
+    [data, model] (tests/test_torch_fsdp_tp.py), and is refused on other
+    axes. At one rank every other config passes (the knobs warn)."""
     import vlbert_tpu_torch.engine.train as t_train
     from tests.test_entrypoints import _tiny_vqa_cfg, _write_vqa_fixture
     from vlbert_tpu_torch.parallel.dist import check_partition
@@ -644,9 +645,13 @@ def test_fsdp_tp_and_a_mismatched_mesh_are_refused_before_a_model_is_built(
         for shape in ([], [2]):
             cfg.TPU.MESH_SHAPE = shape
             check_partition(cfg, 2)
-        cfg.TPU.MESH_SHAPE = [1, 2]
-        with pytest.raises(NotImplementedError, match="model axis"):
-            check_partition(cfg, 2)
+        cfg.TPU.MESH_AXES = ["data", "model"]
+        for shape, world in (([1, 2], 2), ([2, 2], 4)):
+            cfg.TPU.MESH_SHAPE = shape
+            check_partition(cfg, world)
+        cfg.TPU.MESH_AXES = ["data", "foo"]
+        with pytest.raises(ValueError, match="MESH_AXES"):
+            check_partition(cfg, 4)
         return
     built = []
     monkeypatch.setattr(t_train, "dist_rank_world", lambda: (0, 2))

@@ -32,7 +32,7 @@ from vlbert_tpu_torch.data.datasets.vqa import VQADataset, make_vqa_collate
 from vlbert_tpu_torch.data.loader import DataLoader, MultiTaskLoader
 from vlbert_tpu_torch.data.tokenization import BertTokenizer
 from vlbert_tpu_torch.data.transforms import build_transforms
-from vlbert_tpu_torch.parallel.dist import mesh_dims, partition_mode
+from vlbert_tpu_torch.parallel.dist import mesh_dims
 from vlbert_tpu_torch.parallel.dist import rank_world as dist_rank_world
 from vlbert_tpu_torch.utils.misc import master_dataset
 
@@ -43,12 +43,12 @@ CAPTION_DATASETS = {"conceptual_captions": ConceptualCaptionsDataset,
 
 def data_shard(cfg):
     """(shard index, shards, rows multiplier) of this process's loader:
-    its rank over the world, or under TPU.PARTITION_MODE tp its data
-    index over the mesh's d replicas, with a replica's batch m times
-    BATCH_IMAGES."""
+    its rank over the world, or on a mesh with a model axis m > 1 (tp, and
+    fsdp on [d, m]) its data index over the mesh's d replicas, with a
+    replica's batch m times BATCH_IMAGES."""
     r, w = dist_rank_world()
-    if w > 1 and partition_mode(cfg) == "tp":
-        d, m = mesh_dims(cfg, w)
+    d, m = mesh_dims(cfg, w)
+    if w > 1 and m > 1:
         return r // m, d, m
     return r, w, 1
 

@@ -57,8 +57,10 @@ ranks form a [data, model] mesh of TPU.MESH_SHAPE [d, m] (MESH_AXES
 [data, model]) and each encoder layer is split over the model axis after
 the warm starts, before the optimizer; the loader shards by data index
 and a replica's batch is BATCH_IMAGES x m; checkpoints are gathered as
-under fsdp, validation runs on every rank. Config overrides may follow
-the yaml on the command line:
+under fsdp, validation runs on every rank. TPU.PARTITION_MODE fsdp on
+such a mesh (m > 1) splits the layers as tp does, then shards each
+rank's part and the replicated tensors with FSDP2 over its data group.
+Config overrides may follow the yaml on the command line:
 
     torchrun --nproc_per_node 4 -m vlbert_tpu_torch.engine.train --dist \
         --task vqa --cfg cfgs/vqa/base_v5e_bf16.yaml \
@@ -293,9 +295,12 @@ def train_net(args, config, task):
     # train step, which hold the sharded Parameters
     mode = dist_lib.partition_mode(config)
     if dist_lib.is_distributed() and mode == "fsdp":
-        fsdp_lib.shard_module(model, device)
+        # over the data axis; on a [d, m] mesh, after tp's split
+        model_axis = dist_lib.mesh_dims(config, world)[1] > 1
+        fsdp_lib.shard_module(model, device, tp_lib.make_mesh(
+            config, device) if model_axis else None)
     elif dist_lib.is_distributed() and mode == "tp":
-        tp_lib.shard_module(model, tp_lib.make_mesh(config))
+        tp_lib.shard_module(model, tp_lib.make_mesh(config, device))
 
     tokenizer = BertTokenizer.from_pretrained(config.NETWORK.BERT_MODEL_NAME)
     if isinstance(config.DATASET, (list, tuple)):

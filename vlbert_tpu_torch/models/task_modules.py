@@ -639,16 +639,19 @@ _IGNORED_KNOBS = {
     "COMPILE_CACHE_DIR": "an XLA compile cache",
     "MASKED_OPT_STATE": "moments are kept for the trained parameters only",
     # device meshes: a model is built whole, on one card; engine.train
-    # (--dist) reads them (parallel/dist.py::check_partition) and splits
-    # the model under PARTITION_MODE tp (parallel/tp.py)
+    # (--dist) reads them (parallel/dist.py::check_partition), splits the
+    # model under PARTITION_MODE tp (parallel/tp.py) and shards it under
+    # fsdp (parallel/fsdp.py), after tp's split on a [d, m] mesh
     "MESH_SHAPE": "the model is built whole on one card; engine.train "
                   "--dist lays its ranks out as MESH_SHAPE [d] or, under "
-                  "PARTITION_MODE tp, [d, m]",
-    "MESH_AXES": "the model is built whole on one card; PARTITION_MODE tp "
-                 "under engine.train --dist takes [data, model]",
+                  "PARTITION_MODE tp or fsdp, [d, m]",
+    "MESH_AXES": "the model is built whole on one card; PARTITION_MODE tp, "
+                 "and fsdp on a model axis, under engine.train --dist take "
+                 "[data, model]",
     "PARTITION_MODE": "the model is built whole on one card; engine.train "
-                      "--dist trains dp, fsdp (sharded state) or tp (heads "
-                      "and FFN split over the model axis)",
+                      "--dist trains dp, fsdp (sharded state; on [d, m] "
+                      "over tp's split) or tp (heads and FFN split over "
+                      "the model axis)",
 }
 
 

@@ -31,10 +31,11 @@ validation, test and serving use the same module, and the same code runs
 over gloo, which the one-card machine's two-rank check uses. What it
 gives up is DDP's overlap of the all-reduce with the backward.
 
-PARTITION_MODE ``fsdp`` shards the parameters and moments over the same
-ranks (``parallel/fsdp.py``); ``tp`` splits the encoder's heads and FFN
+PARTITION_MODE ``fsdp`` shards the parameters and moments over the data
+axis (``parallel/fsdp.py``); ``tp`` splits the encoder's heads and FFN
 over the model axis of a [data, model] mesh (``parallel/tp.py``), and the
-collectives above then run over the data axis's group (their ``group``).
+collectives above then run over the data axis's group (their ``group``);
+``fsdp`` on a [data, model] mesh does both, tp's split first.
 How a model's state is held is one object, ``partition_of(model)``:
 ``Replicated`` here for dp (and one process), the ones that fsdp's and
 tp's ``shard_module`` attach; the train step, the optimizer, validation
@@ -64,10 +65,6 @@ import torch.distributed as dist
 BUCKET_BYTES = 64 << 20
 
 MODES = ("dp", "fsdp", "tp")
-# what a refused layout waits for (ROADMAP.md queue 1, multi-GPU)
-_FSDP_TP_LATER = ("FSDP2 over the data axis of the tensor-parallel shards "
-                  "(vlbert_tpu/parallel/mesh.py:77-118), the next "
-                  "multi-GPU item of ROADMAP.md queue 1")
 # the widths that tensor parallelism splits over the model axis
 _TP_SPLIT = ("num_attention_heads", "hidden_size", "intermediate_size")
 
@@ -104,39 +101,37 @@ def check_partition(config, world):
     MESH_SHAPE [d, m] of d·m = ``world`` ranks with MESH_AXES [data, model]
     and m > 1; a model axis of 1 raises the JAX package's ValueError
     (vlbert_tpu/training/loop.py:273-279), at one rank too, and so do
-    heads or widths that m does not divide (the port splits heads). One
-    rank runs ``dp`` and ``fsdp`` on its one card (the mesh knobs then
-    only warn, ``build_module``); at more than one, over a mesh of
-    ``world`` devices on the data axis (MESH_SHAPE [] or [world])."""
+    heads or widths that m does not divide (the port splits heads).
+    ``fsdp`` with a model axis > 1 is held to the same rules. One rank
+    runs ``dp`` and ``fsdp`` without a model axis on its one card (the
+    mesh knobs then only warn, ``build_module``); at more than one, over a
+    mesh of ``world`` devices on the data axis (MESH_SHAPE [], [world] or
+    [world, 1])."""
     tpu = config.TPU if "TPU" in config else {}
     mode = partition_mode(config)
     if mode not in MODES:
         raise ValueError(f"unknown TPU.PARTITION_MODE {mode!r} (one of "
                          f"{', '.join(MODES)})")
-    if mode == "tp":
-        _check_tp(config, world)
+    shape = list(tpu.get("MESH_SHAPE") or [])
+    model_axis = len(shape) > 1 and math.prod(int(s) for s in shape[1:]) > 1
+    if mode == "tp" or (mode == "fsdp" and model_axis):
+        _check_tp(config, world, mode)
         return
     if world <= 1:
         return
-    shape = list(tpu.get("MESH_SHAPE") or [])
     if shape and math.prod(int(s) for s in shape) != world:
         raise ValueError(
             f"TPU.MESH_SHAPE {shape} lays out {math.prod(shape)} devices; "
             f"the process group has {world} ranks, one card each (set "
             f"MESH_SHAPE to [{world}] or [])")
-    if len(shape) > 1 and any(int(s) > 1 for s in shape[1:]):
-        if mode == "fsdp":
-            raise NotImplementedError(
-                f"TPU.MESH_SHAPE {shape} has a model axis: fsdp on a "
-                f"[data, model] mesh needs {_FSDP_TP_LATER}, which the port "
-                f"does not have yet; PARTITION_MODE tp trains on it")
+    if model_axis:
         raise ValueError(
             f"TPU.MESH_SHAPE {shape} has a model axis, which "
             f"TPU.PARTITION_MODE dp does not use: set PARTITION_MODE tp "
-            f"(with MESH_AXES [data, model]) or MESH_SHAPE [{world}]")
+            f"or fsdp (with MESH_AXES [data, model]) or MESH_SHAPE [{world}]")
 
 
-def _check_tp(config, world):
+def _check_tp(config, world, mode="tp"):
     tpu = config.TPU if "TPU" in config else {}
     shape = [int(s) for s in (tpu.get("MESH_SHAPE") or [])]
     axes = list(tpu.get("MESH_AXES") or ["data"])[:len(shape) or 1]
@@ -149,9 +144,9 @@ def _check_tp(config, world):
             "training would silently run pure DP")
     if len(shape) != 2 or axes != ["data", "model"]:
         raise ValueError(
-            f"TPU.PARTITION_MODE=tp runs on a mesh of two axes, TPU."
-            f"MESH_SHAPE [d, m] with TPU.MESH_AXES [data, model]; got "
-            f"MESH_SHAPE {shape}, MESH_AXES {axes}")
+            f"TPU.PARTITION_MODE={mode} on a model axis runs on a mesh of "
+            f"two axes, TPU.MESH_SHAPE [d, m] with TPU.MESH_AXES [data, "
+            f"model]; got MESH_SHAPE {shape}, MESH_AXES {axes}")
     if math.prod(shape) != world:
         raise ValueError(
             f"TPU.MESH_SHAPE {shape} lays out {math.prod(shape)} devices; "
@@ -163,7 +158,7 @@ def _check_tp(config, world):
     bad = {k: vl[k] for k in _TP_SPLIT if int(vl[k]) % m}
     if bad:
         raise ValueError(
-            f"TPU.PARTITION_MODE=tp over a model axis of {m}: "
+            f"TPU.PARTITION_MODE={mode} over a model axis of {m}: "
             + ", ".join(f"NETWORK.VLBERT.{k} {v}" for k, v in bad.items())
             + f" not divisible by {m}. The port splits the attention by "
             f"heads and cannot split a head (the JAX package would "

@@ -42,8 +42,9 @@ hand, as Megatron-LM does (column- and row-parallel linears):
 
 The collectives are plain c10d calls, over NCCL or gloo, so two ranks can
 share one card over gloo. Nothing falls back: a collective that fails
-raises. Serving runs on one card; PARTITION_MODE fsdp on a mesh with a
-model axis is refused (``parallel/dist.py``).
+raises. Serving runs on one card. PARTITION_MODE fsdp on a mesh with a
+model axis runs this split first and then FSDP2 over each data group
+(``parallel/fsdp.py``), on the groups of the same ``make_mesh``.
 """
 
 from __future__ import annotations
@@ -66,30 +67,30 @@ _ROW = ("attention.output.dense", "output.dense")
 
 class Mesh(NamedTuple):
     """The [data, model] mesh seen from one rank: the axes' sizes, the
-    rank's indices and its two process groups."""
+    rank's indices, its two process groups and the ``DeviceMesh`` they
+    come from (over which fsdp's FSDP2 shards)."""
     d: int
     m: int
     data_index: int
     model_index: int
     model_group: object
     data_group: object
+    device_mesh: object = None
 
 
-def make_mesh(config):
-    """The mesh of TPU.MESH_SHAPE over the default process group's ranks.
-    Collective: every rank creates every group, in one order."""
+def make_mesh(config, device="cpu"):
+    """The mesh of TPU.MESH_SHAPE over the default process group's ranks,
+    a ``DeviceMesh`` of ``device``'s type with dims ("data", "model"),
+    row-major: rank r at (r // m, r % m). Collective: every rank creates
+    every group, in one order; tp and fsdp then share these groups."""
+    from torch.distributed.device_mesh import init_device_mesh
+
     rank, world = dist_lib.rank_world()
     d, m = dist_lib.mesh_dims(config, world)
-    model_group = data_group = None
-    for i in range(d):
-        group = dist.new_group([i * m + j for j in range(m)])
-        if i == rank // m:
-            model_group = group
-    for j in range(m):
-        group = dist.new_group([i * m + j for i in range(d)])
-        if j == rank % m:
-            data_group = group
-    return Mesh(d, m, rank // m, rank % m, model_group, data_group)
+    mesh = init_device_mesh(torch.device(device).type, (d, m),
+                            mesh_dim_names=("data", "model"))
+    return Mesh(d, m, rank // m, rank % m, mesh.get_group("model"),
+                mesh.get_group("data"), mesh)
 
 
 def _all_reduce(t, group):
@@ -308,5 +309,9 @@ class TensorParallel(dist_lib.Replicated):
             if dim is not None:
                 n = t.shape[dim]
                 value = value.narrow(dim, self.mesh.model_index * n, n)
-            t.copy_(value)
+            self._store(t, value)
         return targets
+
+    def _store(self, t, value):
+        """``t`` takes ``value``, the rank's part of a loaded tensor."""
+        t.copy_(value)

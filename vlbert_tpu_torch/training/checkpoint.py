@@ -25,25 +25,30 @@ shard of every parameter and moment, and the file is still the one a
 ``dp`` run writes: the same keys, shapes and dtypes, the tied decoder
 once. ``snapshot`` is then collective (JAX's ``_to_host`` and
 ``snapshot_needs_all_ranks``): every rank enters ``save_checkpoint``, the
-tensors are gathered whole in a fixed order (``fsdp.full_state``), and
+tensors are gathered whole in a fixed order (``Fsdp.full_state``), and
 rank 0 alone writes (``write``). ``load_checkpoint`` is collective too:
-rank 0 reads the file and each rank keeps its shard
-(``fsdp.load_full_state_``); ``partial_load`` takes each rank's own copy
-of a warm-start file. FSDP2 renames nothing, so no prefix is stripped.
+rank 0 reads the file, its tensors are broadcast and each rank keeps its
+shard (``Fsdp.load_full_state_``); ``partial_load`` takes each rank's own
+copy of a warm-start file. FSDP2 renames nothing, so no prefix is
+stripped.
 
 Under TPU.PARTITION_MODE tp (``parallel/tp.py``) each rank holds its part
 of the encoder's split tensors and the rest whole; the same collective
 snapshot gathers the split parameters and moments over rank 0's model
 group along their split dims into the ``dp`` file, and a resume
-broadcasts rank 0's whole tensors, each rank keeping its part. The warm
-starts load whole tensors before the model is split. Both layouts are
-reached through the model's partition (``dist.partition_of``), whose
-``full_state`` and ``load_full_state_`` these call.
+broadcasts rank 0's whole tensors, each rank keeping its part. fsdp on a
+[data, model] mesh does both: a tensor's data-axis chunks are gathered,
+then a split one's model parts; a load keeps the rank's data chunk of its
+model part. The warm starts load whole tensors before the model is split
+or sharded. Every layout is reached through the model's partition
+(``dist.partition_of``), whose ``full_state`` and ``load_full_state_``
+these call.
 
 Not ported: ``_reconcile_masked_opt_state`` migrates optax moment trees
 across a format change the port never had (its moments are dense tensors
 keyed by name). The pretraining model's tied MLM decoder is one tensor
-under two names: ``_to_host`` and ``fsdp.full_state`` keep it one.
+under two names: ``_to_host`` and the partitions' ``full_state`` keep
+it one.
 """
 
 from __future__ import annotations
@@ -307,12 +312,9 @@ def partial_load(model, state_dict, prefix_changes=()):
                 mismatched.append((k, tuple(v.shape),
                                    tuple(target[k].shape)))
                 continue
-            if fsdp_lib.is_dtensor(target[k]):
-                # a sharded parameter: every rank has read the file and
-                # keeps its own shard of it
-                fsdp_lib.load_full_state_([target[k]], [v], src=None)
-            else:
-                target[k].copy_(v)
+            # a sharded parameter keeps its own shard of the file's
+            # tensor (every rank has read the file)
+            fsdp_lib.copy_shard_(target[k], v)
             loaded.append(k)
     if missing:
         logger.warning("partial_load: %d keys not in model (e.g. %s)",

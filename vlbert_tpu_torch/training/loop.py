@@ -36,9 +36,12 @@ when d > 1, so that the model group draws one set of masks and [1, m]
 draws one process's; the counts, the loss, the metrics and the split
 gradients are reduced over the data group, the replicated gradients over
 every rank), and the clip's norm counts each split gradient once across
-the model group. The step reaches these through the model's partition
-(``dist.partition_of``): its data axis, its gradient reduction, and the
-optimizer's norm.
+the model group. Under fsdp on a [data, model] mesh the same data
+group holds the replicas; FSDP2 reduce-scatters each gradient over it,
+the replicated gradients' chunks are then averaged over the model group,
+and the norm sums each local shard once. The step reaches these through
+the model's partition (``dist.partition_of``): its data axis, its
+gradient reduction, and the optimizer's norm.
 
 ``fit`` keeps the reference's epoch structure: set_epoch shuffling, one
 seed per step from the trainer's ``torch.Generator``, Speedometer logging,
