@@ -216,7 +216,23 @@ its own line:
      the first step's largest K4 and K1b outputs; its step p50 and peak
      beside phase 15a's; that batch's step in fp16 and bf16 against fp32
      (plain versions), and an fp32 step with the scale against one
-     without, bit for bit.
+     without, bit for bit;
+  20. the JAX package's own checkpoints (flax msgpack, read by
+     vlbert_tpu_torch/training/jax_format.py without flax) and the last
+     host modules: (a) phase 9's epoch-2 state written by the port's
+     msgpack writer in the JAX package's layout (flax paths, fused qkv,
+     the optax chain's AdamW moments, dense and then masked, step, extra)
+     and AUTO_RESUMEd by train_net beside the same state's torch file:
+     weights, moments, count and plateau scale bit for bit after the
+     resume, the next epoch's losses bit for bit and phase 7's launches a
+     step; (b) test_net_vqa from a JAX-layout -best.model gives phase 11's
+     answers with its launches; (c) PARTIAL_PRETRAIN from phase 9's
+     pretrain weights in the JAX pretraining model's layout (vlbert.bert
+     nesting) loads the tensors the reference-layout file loads, by name
+     and value; (d) the native tokenizer's and the COCO mask codec's
+     libraries built by g++ on this machine and loaded, the tokenizer's
+     ids equal to the Python path's on phase 12's VCR texts and phase 7's
+     questions, each path's tokens/s.
 
 Any failure raises. Every file the phases write lives under one temporary
 directory, removed on exit. On every exit it stops the processes it
@@ -5999,6 +6015,420 @@ def add_fp16_records(kernels, errs, times, r19):
             "library_kernels": t["library"][1]}
 
 
+# ------------------------------------------------ 20: JAX-native checkpoints
+
+def jax_paths(model):
+    """{state_dict name: (the JAX package's flat path, layout transform)}
+    of ``model`` by the port converter's name rules, the VQA 'mlm'
+    classifier on the JAX VQA module's paths; the tied decoder (the word
+    embeddings under a second name) has none."""
+    from vlbert_tpu_torch.models.task_modules import Classifier
+    from vlbert_tpu_torch.models.vlbert import TIED_DECODER
+    from vlbert_tpu_torch.training import convert as cvt
+
+    head = getattr(model, "final_mlp", None)
+    renames = cvt._MLM_HEAD if isinstance(head, Classifier) \
+        and head.kind == "mlm" else ()
+    out = {}
+    for name in model.state_dict():
+        if TIED_DECODER in name:
+            continue
+        mapped = cvt.map_reference_name(cvt.normalize_torch_name(name))
+        if mapped is None:
+            raise KeyError(f"{name} has no JAX path")
+        path, transform = mapped
+        for old, new in renames:
+            if path.startswith(old):
+                path = new + path[len(old):]
+        out[name] = (path, transform)
+    return out
+
+
+def to_jax_layout(t, transform):
+    """A port tensor in the JAX package's layout (the converter's)."""
+    t = t.detach().cpu()
+    if transform == "linear":
+        return t.t().contiguous()
+    if transform == "conv":
+        return t.permute(2, 3, 1, 0).contiguous()
+    if transform == "squeeze0":
+        return t[0].contiguous()
+    return t.contiguous()
+
+
+def jax_tree(flat):
+    """Flat {dot.path: leaf} -> the nested tree, query / key / value
+    fused into qkv ([in, 3 out] kernels) as TPU.FUSED_QKV builds it."""
+    import re
+
+    import torch
+
+    parts, tree = {}, {}
+    for path, leaf in flat.items():
+        m = re.match(r"^(.*attention\.self\.)(query|key|value)\.(kernel|bias)$",
+                     path)
+        if m and isinstance(leaf, torch.Tensor):
+            parts.setdefault((m.group(1), m.group(3)), {})[m.group(2)] = leaf
+            continue
+        node = tree
+        *up, last = path.split(".")
+        for k in up:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    for (prefix, kind), qkv in parts.items():
+        node = tree
+        for k in (prefix + "qkv").split("."):
+            node = node.setdefault(k, {})
+        node[kind] = torch.cat([qkv["query"], qkv["key"], qkv["value"]],
+                               dim=1 if kind == "kernel" else 0)
+    return tree
+
+
+def jax_checkpoint(payload, model, cfg, masked=False, params_only=False):
+    """A port checkpoint's payload as the JAX package's save of the same
+    state: ``{"params": {"params": tree}, "opt_state": the optax chain of
+    vlbert_tpu/training/optim.py (clip, AdamW's {count, mu, nu}, masked
+    weight decay, LR_MULT, the schedule's count, [the plateau scale], the
+    trainable mask), "step", "extra"}``. ``masked``: TPU.MASKED_OPT_STATE's
+    layout (the moments under ``inner_state``, a frozen leaf's an empty
+    map); ``params_only``: an empty optimizer state."""
+    import torch
+
+    paths = jax_paths(model)
+    sd = payload["state_dict"]
+    params = jax_tree({paths[n][0]: to_jax_layout(t, paths[n][1])
+                       for n, t in sd.items() if n in paths})
+    out = {"params": {"params": params}, "opt_state": {},
+           "step": int(payload["step"]), "extra": payload["extra"]}
+    if params_only:
+        return out
+    opt = payload["optimizer"]
+
+    def moments(saved):
+        flat = {}
+        for n, (path, transform) in paths.items():
+            if n in saved:
+                flat[path] = to_jax_layout(saved[n].float(), transform)
+            else:                        # a frozen leaf (or a buffer)
+                flat[path] = {} if masked else to_jax_layout(
+                    torch.zeros(sd[n].shape), transform)
+        return jax_tree(flat)
+
+    step = torch.tensor(out["step"], dtype=torch.int32)
+    adam = {"count": step, "mu": moments(opt["mu"]),
+            "nu": moments(opt["nu"])}
+    t = cfg.TRAIN
+    chain = [{}] if t.CLIP_GRAD_NORM and t.CLIP_GRAD_NORM > 0 else []  # clip
+    chain.append({"inner_state": adam} if masked else adam)
+    if t.WD:
+        chain.append({"inner_state": {}})             # masked weight decay
+    chain += [{}, {"count": step}]                    # LR_MULT, schedule
+    if t.LR_SCHEDULE == "plateau":
+        chain.append({"plateau_scale": torch.tensor(
+            float(opt["plateau_scale"]), dtype=torch.float32)})
+    chain.append({})                                  # trainable mask
+    out["opt_state"] = {str(i): s for i, s in enumerate(chain)}
+    return out
+
+
+def pretrain_jax_checkpoint(file_sd):
+    """Phase 9's reference-layout pretrain weights (``module.`` prefix,
+    the classifier's transform under the MLM head) in the JAX pretraining
+    model's layout: the encoder and embeddings under ``vlbert.bert.``, the
+    heads at ``vlbert.<head>``, qkv fused."""
+    from vlbert_tpu_torch.training import convert as cvt
+
+    flat = {}
+    for name, t in file_sd.items():
+        mapped = cvt.map_reference_name(cvt.normalize_torch_name(name))
+        if mapped is None:               # no leaf of the JAX model
+            continue
+        path, transform = mapped
+        if path.startswith("vlbert.") and not path.startswith(
+                ("vlbert.mlm_head", "vlbert.mvrc_head",
+                 "vlbert.relationship_head")):
+            path = "vlbert.bert." + path[len("vlbert."):]
+        flat[path] = to_jax_layout(t, transform)
+    return {"params": {"params": jax_tree(flat)}, "opt_state": {},
+            "step": 0, "extra": {}}
+
+
+def jax_resume_phase(root, cfg9, r9, r11v, device="cuda"):
+    """Phase 20a-c on phase 9's files (``cfg9``, ``r9``) and phase 11's
+    answers (``r11v``). The JAX-layout files are written in memory where
+    /dev/shm has room (the earlier phases already write tens of GiB of
+    checkpoints to disk), and removed. Returns results."""
+    shm = "/dev/shm"
+    ram = os.path.isdir(shm) and shutil.disk_usage(shm).free > 8 * 2 ** 30
+    where = tempfile.mkdtemp(prefix="jax20_", dir=shm if ram else root)
+    try:
+        res = _jax_resume_body(root, where, cfg9, r9, r11v, device)
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    res["files_in"] = "/dev/shm" if ram else "the run's directory"
+    return res
+
+
+def _jax_resume_body(root, where, cfg9, r9, r11v, device):
+    import types
+
+    import torch
+    import vlbert_tpu_torch.engine.train as t_train
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.models.task_modules import build_module
+    from vlbert_tpu_torch.training import jax_format
+    from vlbert_tpu_torch.training.convert import checkpoint_format
+
+    res = {}
+    prefix = cfg9.MODEL_PREFIX
+    src = os.path.join(cfg9.OUTPUT_PATH, "vqa_train", f"{prefix}-0002.model")
+    t0 = time.perf_counter()
+    payload = torch.load(src, map_location="cpu", weights_only=True)
+    res["torch_read_s"] = time.perf_counter() - t0
+    res["torch_mb"] = os.path.getsize(src) / 2 ** 20
+    meta = build_module(cfg9, "vqa", dtype=torch.float32, device="meta")
+    files = {}
+    for kind in ("torch", "dense", "masked"):
+        out = os.path.join(where, f"out20_{kind}", "vqa_train")
+        os.makedirs(out)
+        files[kind] = os.path.join(out, f"{prefix}-0002.model")
+    os.symlink(src, files["torch"])
+    for kind in ("dense", "masked"):
+        t0 = time.perf_counter()
+        jax_format.dump(jax_checkpoint(payload, meta, cfg9,
+                                       masked=kind == "masked"), files[kind])
+        res[f"{kind}_write_s"] = time.perf_counter() - t0
+        res[f"{kind}_mb"] = os.path.getsize(files[kind]) / 2 ** 20
+    t0 = time.perf_counter()
+    jax_format.load(files["dense"])
+    res["native_read_s"] = time.perf_counter() - t0
+    res["formats"] = {k: checkpoint_format(v) for k, v in files.items()}
+    del payload
+
+    # 20a: AUTO_RESUME of one more epoch from each file
+    held, runs = {}, {}
+    saved = t_train.resume
+
+    def resume(model_prefix, model, optimizer, config):
+        begin, extra = saved(model_prefix, model, optimizer, config)
+        state = ([t.detach().clone() for t in model.state_dict().values()]
+                 + [m.clone() for m in optimizer.mu + (optimizer.nu or [])],
+                 optimizer.count, optimizer.plateau_scale, extra)
+        if not held:
+            held["state"] = state
+        else:
+            ref = held["state"]
+            held["equal"] = held.get("equal", True) and (
+                len(ref[0]) == len(state[0])
+                and all(torch.equal(a, b) for a, b in zip(ref[0], state[0]))
+                and ref[1:] == state[1:])
+        return begin, extra
+
+    n_val = -(-32 // cfg9.VAL.BATCH_IMAGES)
+    t_train.resume = resume
+    try:
+        for kind in ("torch", "dense", "masked"):
+            cfg = cfg9.clone()
+            cfg.OUTPUT_PATH = os.path.join(where, f"out20_{kind}")
+            cfg.TRAIN.END_EPOCH, cfg.TRAIN.AUTO_RESUME = 4, True
+            args = types.SimpleNamespace(model_dir=cfg.OUTPUT_PATH,
+                                         device=device)
+            t0 = time.perf_counter()
+            with checkpoint_writes_recorded():
+                _zero_counts()
+                _, h = t_train.train_net(args, cfg, "vqa")
+                launches = _launch_counts()
+            runs[kind] = {"loss": h["loss"], "begin": h["begin_epoch"],
+                          "count": h["resumed_count"], "launches": launches,
+                          "s": time.perf_counter() - t0}
+            torch.cuda.empty_cache()
+    finally:
+        t_train.resume = saved
+    res["runs"] = runs
+    res["state_equal"] = held.get("equal", False)
+    res["count"], res["plateau_scale"] = held["state"][1:3]
+    res["extra"] = held["state"][3]
+    res["n_state"] = len(held["state"][0])
+    held.clear()
+    want = train_launches(4, n_val)
+    res["checks_a"] = {
+        "formats": res["formats"] == {"torch": "torch", "dense": "native",
+                                      "masked": "native"},
+        "resumed": all((r["begin"], r["count"]) == (3, 12)
+                       for r in runs.values()),
+        "state": res["state_equal"],
+        "losses": runs["dense"]["loss"] == runs["torch"]["loss"]
+        == runs["masked"]["loss"] and len(runs["torch"]["loss"]) == 4,
+        "finite": all(map(math.isfinite, runs["torch"]["loss"])),
+        "launches": all(r["launches"] == want for r in runs.values())}
+
+    # 20b: test_net_vqa from a JAX-layout -best.model
+    best = torch.load(r9["best"], map_location="cpu", weights_only=True)
+    native_best = os.path.join(where, "native-best.model")
+    jax_format.dump(jax_checkpoint(best, meta, cfg9, params_only=True),
+                    native_best)
+    del best
+    r20b = vqa_test_phase(cfg9, native_best, root)
+    res["b"] = {k: r20b[k] for k in ("launches", "wall_s", "n", "loop_s")}
+    res["checks_b"] = {"answers": r20b["ok"]
+                       and r20b["rows"] == r11v["rows"],
+                       "launches": r20b["launches"] == r11v["launches"]}
+
+    # 20c: PARTIAL_PRETRAIN from the pretraining model's JAX layout
+    ref_file = cfg9.NETWORK.PARTIAL_PRETRAIN
+    file_sd = torch.load(ref_file, map_location="cpu",
+                         weights_only=True)["state_dict"]
+    native_pre = os.path.join(where, "pretrain-native.model")
+    jax_format.dump(pretrain_jax_checkpoint(file_sd), native_pre)
+    del file_sd
+    loaded, states = {}, {}
+    for kind, path in (("reference", ref_file), ("native", native_pre)):
+        cfg = cfg9.clone()
+        cfg.NETWORK.PARTIAL_PRETRAIN = path
+        model = build_module(cfg, "vqa", device=device)
+        init_weights(model, torch.Generator(device=device).manual_seed(
+            SEED + 20))
+        t0 = time.perf_counter()
+        loaded[kind] = sorted(t_train.apply_partial_pretrain(model, cfg)[0])
+        res[f"c_{kind}_s"] = time.perf_counter() - t0
+        states[kind] = model.state_dict()
+        del model
+    res["c_loaded"] = len(loaded["native"])
+    res["c_native_mb"] = os.path.getsize(native_pre) / 2 ** 20
+    res["checks_c"] = {
+        "names": loaded["native"] == loaded["reference"]
+        and len(loaded["native"]) > 0,
+        "values": all(torch.equal(states["native"][k],
+                                  states["reference"][k])
+                      for k in states["reference"])}
+    del states
+    torch.cuda.empty_cache()
+    return res
+
+
+def host_natives_phase(root, t_start):
+    """Phase 20d: the native tokenizer's and the COCO mask codec's
+    libraries, built by g++ on this machine in this run (at or after
+    ``t_start``, a time.time()) and loaded; the tokenizer's ids against
+    the Python path on phase 12's VCR texts and phase 7's questions, and
+    each path's tokens/s."""
+    import numpy as np
+    from vlbert_tpu_torch.data import coco_mask, native_build
+    from vlbert_tpu_torch.data.tokenization import BertTokenizer
+
+    res = {"libs": {}}
+    for name in ("wordpiece", "maskapi"):
+        lib = native_build.load_native_lib(name)
+        res["libs"][name] = {
+            "loaded": lib is not None and lib._name
+            == str(native_build.library_path(name)),
+            "built_here": name in native_build.BUILT
+            or os.path.getmtime(native_build.library_path(name)) >= t_start,
+            "build_s": native_build.BUILT.get(name)}
+    texts = []
+    with open(os.path.join(root, "vqa", "train.jsonl")) as f:
+        texts += [json.loads(line)["question"] for line in f if line.strip()]
+    for split in ("val", "test"):
+        with open(os.path.join(root, "vcr", f"{split}.jsonl")) as f:
+            for line in f:
+                if not line.strip():
+                    continue
+                r = json.loads(line)
+                for words in ([r["question"]] + r["answer_choices"]
+                              + r["rationale_choices"]):
+                    texts.append(" ".join(w for w in words
+                                          if isinstance(w, str)))
+    texts += ["Where's the café?", "the man's HAT, (left)!"]
+    tok = BertTokenizer.from_pretrained(os.path.join(root, "bert"))
+    py = BertTokenizer.from_pretrained(os.path.join(root, "bert"),
+                                       native=False)
+    native_ids = [tok._native.tokenize_ids(t) for t in texts]
+    res["ids_equal"] = all(
+        (ids is None and not t.isascii())
+        or ids == py.convert_tokens_to_ids(py.tokenize(t))
+        for t, ids in zip(texts, native_ids))
+    res["tokens_equal"] = all(tok.tokenize(t) == py._py_tokenize(t)
+                              for t in texts)
+    res["n_texts"] = len(texts)
+    n_tokens = sum(len(py._py_tokenize(t)) for t in texts)
+    for name, fn in (("native", tok._native.tokenize_ids),
+                     ("python", py._py_tokenize)):
+        reps = 0
+        t0 = time.perf_counter()
+        while reps < 3 or time.perf_counter() - t0 < 0.5:
+            for t in texts:
+                fn(t)
+            reps += 1
+        res[f"{name}_tokens_per_s"] = reps * n_tokens \
+            / (time.perf_counter() - t0)
+    rng = np.random.default_rng(SEED + 20)
+    masks = [(rng.uniform(size=(48, 64)) > 0.6).astype(np.uint8)
+             for _ in range(4)]
+    native_rle = [coco_mask.encode(m) for m in masks]
+    res["mask_native"] = coco_mask._load_lib() is not False and all(
+        np.array_equal(coco_mask.decode(c, 48, 64), m)
+        for c, m in zip(native_rle, masks))
+    saved = coco_mask._LIB
+    coco_mask._LIB = False
+    try:
+        res["mask_numpy_equal"] = all(
+            np.array_equal(coco_mask.encode(m), c)
+            for m, c in zip(masks, native_rle))
+    finally:
+        coco_mask._LIB = saved
+    res["checks"] = {
+        "libs": all(v["loaded"] and v["built_here"]
+                    for v in res["libs"].values()),
+        "ids": res["ids_equal"] and res["tokens_equal"],
+        "masks": res["mask_native"] and res["mask_numpy_equal"]}
+    return res
+
+
+def print_jax_phase(r, rd, card):
+    runs = r["runs"]
+    print(f"[20a JAX resume] phase 9's epoch-2 state ({r['torch_mb']:.1f} "
+          f"MiB torch file, read in {r['torch_read_s']:.2f} s) written in "
+          f"the JAX package's layout by training/jax_format.py (to "
+          f"{r['files_in']}): dense "
+          f"moments {r['dense_mb']:.1f} MiB in {r['dense_write_s']:.2f} s, "
+          f"masked {r['masked_mb']:.1f} MiB in {r['masked_write_s']:.2f} s; "
+          f"the native file read (jax_format.load) in "
+          f"{r['native_read_s']:.2f} s; formats {r['formats']}; "
+          f"train_net AUTO_RESUME to END_EPOCH 4 from each: begin epoch, "
+          f"count {[(v['begin'], v['count']) for v in runs.values()]}, "
+          f"after the resume {r['n_state']} weight and moment tensors, "
+          f"count {r['count']}, plateau scale {r['plateau_scale']} and "
+          f"extra {r['extra']} the same bit for bit: {r['state_equal']}; "
+          f"epoch 3's losses torch {runs['torch']['loss']}, dense "
+          f"{runs['dense']['loss']}, masked {runs['masked']['loss']}; "
+          f"launches {runs['dense']['launches']} each; seconds "
+          f"{ {k: round(v['s'], 2) for k, v in runs.items()} }; checks "
+          f"{r['checks_a']} ({card})", flush=True)
+    print(f"[20b JAX test] test_net_vqa from a JAX-layout -best.model: "
+          f"phase 11's answers {r['checks_b']['answers']}, launches "
+          f"{r['b']['launches']} (phase 11's: {r['checks_b']['launches']}), "
+          f"{r['b']['wall_s']:.2f} s end to end, inference loop "
+          f"{r['b']['n'] / r['b']['loop_s']:.1f} samples/s ({card})",
+          flush=True)
+    print(f"[20c JAX pretrain] PARTIAL_PRETRAIN from phase 9's pretrain "
+          f"weights in the JAX pretraining model's layout (vlbert.bert "
+          f"nesting, fused qkv, {r['c_native_mb']:.1f} MiB) with the "
+          f"shipped prefix changes: {r['c_loaded']} tensors, names and "
+          f"values as from the reference-layout file: {r['checks_c']}; "
+          f"{r['c_native_s']:.2f} s (reference file "
+          f"{r['c_reference_s']:.2f} s) ({card})", flush=True)
+    print(f"[20d host natives] libraries built by g++ here and loaded "
+          f"{rd['libs']}; native tokenizer ids equal to the Python path's "
+          f"on {rd['n_texts']} texts (phase 7's questions, phase 12's VCR "
+          f"texts, two non-ASCII ones on the Python path): "
+          f"{rd['checks']['ids']}; tokens/s native "
+          f"{rd['native_tokens_per_s']:.0f}, Python "
+          f"{rd['python_tokens_per_s']:.0f} "
+          f"({rd['native_tokens_per_s'] / rd['python_tokens_per_s']:.1f}x)"
+          f"; COCO RLE native round trip and numpy path equal: "
+          f"{rd['checks']['masks']} ({card})", flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -6017,7 +6447,7 @@ def main():
     from vlbert_tpu_torch.ops.roi_align import roi_align
     from vlbert_tpu_torch.utils.config import load_config
 
-    t_run = time.perf_counter()
+    t_run, t_wall = time.perf_counter(), time.time()
     laps, lap_t = {}, [t_run]
 
     def lap(name):
@@ -6752,6 +7182,17 @@ def main():
                                  f"{ {k: r19[k] for k in shown} }")
         print_fp16_train(r19, r15, card,
                          {"19a": s19a, "19": time.perf_counter() - t19})
+        lap("19")
+        # --- 20: the JAX package's checkpoints; the last host modules ---
+        r20 = jax_resume_phase(root, cfg9, r9, r11v)
+        r20d = host_natives_phase(root, t_wall)
+        print_jax_phase(r20, r20d, card)
+        failed20 = {k: v for part in ("checks_a", "checks_b", "checks_c")
+                    for k, v in r20[part].items() if not v}
+        failed20.update({k: v for k, v in r20d["checks"].items() if not v})
+        if failed20:
+            raise AssertionError(f"JAX checkpoints / host modules: "
+                                 f"{failed20}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -7138,8 +7579,8 @@ def main():
         if record["name"] in int8_vis:
             record["launches_int8_vis"] = int8_vis[record["name"]]
     add_fp16_records(kernels, f16_errs, f16_t, r19)
-    lap("19")
-    print(f"[total] phases 1-19 in {time.perf_counter() - t_run:.1f} s, "
+    lap("20")
+    print(f"[total] phases 1-20 in {time.perf_counter() - t_run:.1f} s, "
           f"the kernels' build included; seconds by phase {laps} ({card})",
           flush=True)
     print(json.dumps({"kernels": kernels}))

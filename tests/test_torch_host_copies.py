@@ -557,6 +557,9 @@ def test_resnet_renamer_and_prefix_changes_match():
                 "PARTIAL_PRETRAIN_PREFIX_CHANGES", [])]
         assert t_convert.apply_reference_prefix_changes(raw, rules) \
             == j_convert.apply_reference_prefix_changes(raw, rules), yaml_file
+        # the same rules for a JAX-native file's flax paths
+        assert t_convert.translate_prefix_rules_for_native(rules) \
+            == j_convert.translate_prefix_rules_for_native(rules), yaml_file
 
 
 def test_checkpoint_formats_and_blob_loads_match(tmp_path):
@@ -583,8 +586,27 @@ def test_checkpoint_formats_and_blob_loads_match(tmp_path):
         assert all(torch.equal(got[k], want[k]) for k in want)
     _assert_same(t_convert.load_npz_checkpoint(str(tmp_path / "conv.npz")),
                  j_convert.load_npz_checkpoint(str(tmp_path / "conv.npz")))
-    with pytest.raises(ValueError, match="'native'"):
-        t_convert.load_state_dict_file(str(tmp_path / "native.model"), None)
+    # a native file flax wrote: the port reads it onto its module's names
+    # (raw False), as the JAX package's reader does onto its paths
+    from flax import serialization as fs
+
+    from tests.test_torch_train import _jax_vqa, _port_model
+
+    cfg, _, v = _jax_vqa("2fc")
+    path = str(tmp_path / "real_native.model")
+    with open(path, "wb") as f:
+        f.write(fs.msgpack_serialize({"params": v, "opt_state": {},
+                                      "step": 3, "extra": {}}))
+    assert t_convert.checkpoint_format(path) \
+        == j_convert.checkpoint_format(path) == "native"
+    tm = _port_model(cfg)
+    sd, raw = t_convert.load_state_dict_file(path, tm)
+    assert raw is False
+    want = t_convert.state_dict_from_jax(
+        {k: np.asarray(a) for k, a in
+         j_convert.load_torch_or_native_checkpoint(path).items()}, tm)
+    assert sd.keys() == want.keys() == tm.state_dict().keys()
+    assert all(torch.equal(sd[k], want[k]) for k in want)
 
 
 def test_stack_batch_pads_a_batch_of_mixed_canvases():

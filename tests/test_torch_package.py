@@ -51,12 +51,17 @@ def test_port_imports_no_jax():
             "vlbert_tpu_torch.engine.vcr_val",
             "vlbert_tpu_torch.parallel.dist",
             "vlbert_tpu_torch.parallel.fsdp",
-            "vlbert_tpu_torch.parallel.tp"} <= set(mods)
-    assert len(mods) >= 21
+            "vlbert_tpu_torch.parallel.tp",
+            "vlbert_tpu_torch.training.jax_format",
+            "vlbert_tpu_torch.data.native_build",
+            "vlbert_tpu_torch.data.native_tokenizer",
+            "vlbert_tpu_torch.data.coco_mask",
+            "vlbert_tpu_torch.ops.roi_pool"} <= set(mods)
+    assert len(mods) >= 26
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'vlbert_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'vlbert_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -100,6 +105,40 @@ def test_port_files_import_nothing_of_the_jax_package():
         with open(f, encoding="utf-8") as fh:
             for i, line in enumerate(fh, 1):
                 if JAX_PACKAGE_IMPORT.search(line):
+                    offenders.append(f"{os.path.relpath(f, REPO)}:{i}: "
+                                     f"{line.strip()}")
+    assert not offenders, offenders
+
+
+# an import of a package the card's machine does not have (flax, msgpack)
+# or of jax, at any indentation
+FOREIGN_IMPORT = re.compile(
+    r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|msgpack)(\.|\s|,|$)"
+    r"|import_module\(\s*[\"'](jax|jaxlib|flax|optax|msgpack)[\"'.]", re.M)
+
+
+def test_port_files_import_no_flax_or_msgpack():
+    """A static scan of the port's sources, chip_smoke.py and the port's
+    tools for an import of jax, flax, optax or msgpack: the port reads the
+    JAX package's msgpack checkpoints with its own decoder
+    (training/jax_format.py)."""
+    for bad in ("import msgpack", "from flax import serialization",
+                "    import flax.serialization as fs", "import jax.numpy",
+                "from msgpack import unpackb", "import_module('flax')"):
+        assert FOREIGN_IMPORT.search(bad), bad
+    for good in ("from vlbert_tpu_torch.training import jax_format",
+                 "import msgpack_helpers", "# flax msgpack, ext type 1",
+                 "from jax_format import loads"):
+        assert not FOREIGN_IMPORT.search(good), good
+    files = (sorted(glob.glob(os.path.join(PKG, "**", "*.py"),
+                              recursive=True))
+             + [os.path.join(REPO, "chip_smoke.py")] + _port_tools())
+    assert os.path.join(PKG, "training", "jax_format.py") in files
+    offenders = []
+    for f in files:
+        with open(f, encoding="utf-8") as fh:
+            for i, line in enumerate(fh, 1):
+                if FOREIGN_IMPORT.search(line):
                     offenders.append(f"{os.path.relpath(f, REPO)}:{i}: "
                                      f"{line.strip()}")
     assert not offenders, offenders
@@ -194,7 +233,9 @@ def test_every_source_and_header_is_in_the_digest(tmp_path, monkeypatch):
     for name in headers:
         copy = tmp_path / name.replace(".", "_")
         copy.mkdir()
-        for p in build.CSRC_DIR.iterdir():
+        # the kernels' sources and headers (csrc/host/ holds the g++
+        # host libraries, which the kernels' digest does not cover)
+        for p in (p for p in build.CSRC_DIR.iterdir() if p.is_file()):
             text = p.read_bytes() + (b"\n" if p.name == name else b"")
             (copy / p.name).write_bytes(text)
         monkeypatch.setattr(build, "CSRC_DIR", copy)

@@ -112,3 +112,62 @@ def test_demo_refcoco_torch_tiny_cpu():
     assert out["backend"] == "cpu" and out["image_hw"] == [120, 160]
     assert 0 <= out["best_candidate"] < 3
     assert len(out["candidate_scores"]) == 3 and len(out["pred_box_xyxy"]) == 4
+
+
+def test_the_demo_serves_a_native_checkpoint(tmp_path):
+    """tools/demo_refcoco_torch.py --ckpt: a JAX-native file (the JAX
+    converter's tree of a seed-5 tiny model, written by flax) gives the
+    demo's model every tensor, tokenized with the config's vocab."""
+    import warnings
+
+    import yaml
+    from flax import serialization as fs
+
+    from tests.test_entrypoints import VOCAB
+    from vlbert_tpu.training.convert import (convert_state_dict,
+                                             fuse_qkv_params)
+    from vlbert_tpu_torch.models.layers import init_weights
+    from vlbert_tpu_torch.utils.config import load_config
+
+    repo = REPO
+    shipped = os.path.join(repo, "cfgs", "refcoco", "base_gt_boxes_4x16G.yaml")
+    with open(shipped) as f:
+        raw = yaml.safe_load(f)
+    (tmp_path / "bert").mkdir()
+    (tmp_path / "bert" / "vocab.txt").write_text("\n".join(VOCAB) + "\n")
+    raw["NETWORK"]["BERT_MODEL_NAME"] = str(tmp_path / "bert")
+    cfg_path = tmp_path / "demo.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    # the demo's --tiny model
+    cfg = load_config("refcoco", str(cfg_path))
+    cfg.NETWORK.IMAGE_FEAT_PRECOMPUTED = False
+    v = cfg.NETWORK.VLBERT
+    v.hidden_size = 32; v.visual_size = 32; v.num_hidden_layers = 1
+    v.num_attention_heads = 2; v.intermediate_size = 64
+    cfg.NETWORK.IMAGE_FINAL_DIM = 32
+    cfg.NETWORK.IMAGE_NUM_LAYERS = 50
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tm = build_module(cfg, "refcoco", dtype=torch.float32)
+    init_weights(tm, torch.Generator().manual_seed(5))
+    flat, skipped = convert_state_dict(tm.state_dict())
+    tree = {}
+    for k, a in fuse_qkv_params(flat).items():
+        *path, leaf = k.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(a)
+    ckpt = tmp_path / "native.model"
+    ckpt.write_bytes(fs.msgpack_serialize(
+        {"params": {"params": tree}, "opt_state": {}, "step": 0,
+         "extra": {}}))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(repo, "tools", "demo_refcoco_torch.py"),
+         "--tiny", "--device", "cpu", "--cfg", str(cfg_path), "--ckpt",
+         str(ckpt)], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout)
+    assert out["weights"] == str(ckpt)
+    assert out["loaded_tensors"] == len(tm.state_dict()) - len(skipped)
+    assert 0 <= out["best_candidate"] < 3

@@ -31,6 +31,7 @@ from vlbert_tpu.training.loop import create_train_state
 from vlbert_tpu.training.loop import make_train_step as j_make_train_step
 from vlbert_tpu.training.optim import make_lr_schedule as j_make_lr_schedule
 from vlbert_tpu.utils.config import default_config
+from vlbert_tpu_torch.models.layers import init_weights
 from vlbert_tpu_torch.models.task_modules import build_module
 from vlbert_tpu_torch.ops.dropout import dropout_seeds
 from vlbert_tpu_torch.training.convert import state_dict_from_jax
@@ -339,12 +340,34 @@ def test_train_net_refuses_what_is_not_ported(tmp_path):
     cfg = _tiny_vqa_cfg(tmp_path, data_dir, vocab_dir)
     cfg.TPU.PROCESS_WORKERS = False
     args = types.SimpleNamespace(model_dir="", device="cpu")
-    # a JAX-native (flax msgpack) checkpoint needs flax
+    # no longer refused: a JAX-native (flax msgpack) PARTIAL_PRETRAIN,
+    # written by flax from the JAX converter's tree of a seed-1 model,
+    # loads every tensor of the model
+    from flax import serialization as fs
+
+    from vlbert_tpu_torch.engine.train import apply_partial_pretrain
+
+    src = _port_model(cfg)
+    init_weights(src, torch.Generator().manual_seed(1))
+    flat, _ = convert_state_dict(src.state_dict())
+    tree = {}
+    for k, a in fuse_qkv_params(flat).items():
+        *path, leaf = k.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(a)
     native = tmp_path / "vl-bert.model"
-    native.write_bytes(b"\x82\xa6params\x80\xa4step\x00")
+    native.write_bytes(fs.msgpack_serialize(
+        {"params": {"params": tree}, "opt_state": {}, "step": 0,
+         "extra": {}}))
     cfg.NETWORK.PARTIAL_PRETRAIN = str(native)
-    with pytest.raises(ValueError, match="'native'"):
-        train_net(args, cfg, "vqa")
+    dst = _port_model(cfg)
+    loaded, missing, mismatched = apply_partial_pretrain(dst, cfg)
+    assert sorted(loaded) == sorted(dst.state_dict())
+    assert missing == [] and mismatched == []
+    for k, t in src.state_dict().items():
+        assert torch.equal(dst.state_dict()[k], t), k
     cfg.NETWORK.PARTIAL_PRETRAIN = ""
     # what the reference refuses too, and a dataset no package has
     cfg.NETWORK.FOR_MASK_VL_MODELING_PRETRAIN = True

@@ -6,10 +6,12 @@ Runs the full end-to-end serving path on one synthetic image: eval
 transform (Resize/Normalize/FixPadding), ResNet-101 + ROIAlign backbone,
 [CLS] expr [SEP] text, per-candidate grounding logits, argmax box in
 original coords. Weights are random, made from a seed, at the config's real
-size (pass --tiny for a seconds-fast CPU check):
+size (pass --tiny for a seconds-fast CPU check), or --ckpt's:
 
     python tools/demo_refcoco_torch.py --tiny --device cpu    # smoke check
     python tools/demo_refcoco_torch.py --device cuda          # base size
+    python tools/demo_refcoco_torch.py --ckpt <.model>        # e.g. a TPU
+                                                              # run's msgpack
 
 Prints one JSON object: predicted box (original coords), per-candidate
 scores, and single-query latency.
@@ -49,6 +51,11 @@ def main():
                     help="1-layer/32-hidden model + small image: CPU smoke")
     ap.add_argument("--device", default="cuda",
                     help="torch device, e.g. cuda, cuda:1 or cpu")
+    ap.add_argument("--ckpt", default="",
+                    help="weights to load instead of random ones: a "
+                         "reference or port .model, the JAX package's "
+                         "msgpack checkpoint or an .npz (the real vocab "
+                         "of NETWORK.BERT_MODEL_NAME tokenizes then)")
     args = ap.parse_args()
 
     import torch
@@ -82,7 +89,14 @@ def main():
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     model = build_module(cfg, "refcoco", dtype=dtype, device=device)
     init_weights(model, torch.Generator(device=device).manual_seed(0))
-    srv = RefCOCOServer(model, _DemoTok(),
+    tok, loaded = _DemoTok(), None
+    if args.ckpt:  # the test driver's loader; real weights, real vocab
+        from vlbert_tpu_torch.data.tokenization import BertTokenizer
+        from vlbert_tpu_torch.engine.test import _load_params
+
+        tok = BertTokenizer.from_pretrained(cfg.NETWORK.BERT_MODEL_NAME)
+        loaded = len(_load_params(model, args.ckpt))
+    srv = RefCOCOServer(model, tok,
                         transform=build_transforms(cfg, "test"),
                         max_text=24, max_boxes=len(boxes) + 1)
 
@@ -102,7 +116,8 @@ def main():
                              for s in r["candidate_scores"]],
         "latency_ms": round(query_s * 1e3, 2),
         "first_call_ms": round(first_call_s * 1e3, 1),
-        "weights": "random-init",
+        "weights": args.ckpt or "random-init",
+        "loaded_tensors": loaded,
         "backend": str(device),
     }, indent=1))
 

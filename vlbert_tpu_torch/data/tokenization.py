@@ -8,11 +8,13 @@ greedy longest-match WordPiece with '##' continuation and 100-char word cap.
 Parity is tested against transformers' BertTokenizer in
 tests/test_tokenization.py.
 
-Port copy of ``vlbert_tpu/data/tokenization.py``, unchanged but for one
-thing: the JAX package's C fast path for ASCII text (``native=``, built
-from native/wordpiece.cc) is not copied, so the Python path, which gives
-the same tokens, always runs (the port imports nothing of the JAX
-package). ``tests/test_torch_host_copies.py`` holds it to the original.
+Port copy of ``vlbert_tpu/data/tokenization.py``, with its C fast path
+for ASCII text (``native=True``): ``data/native_tokenizer.py`` over the
+port's own build of csrc/host/wordpiece.cc (``data/native_build.py``).
+Non-ASCII text and a non-default ``never_split`` take the Python path, as
+does every text when the library cannot be built; both give the same
+tokens. ``tests/test_torch_host_copies.py`` and
+``tests/test_torch_host_natives.py`` hold it to the original.
 """
 
 from __future__ import annotations
@@ -177,13 +179,29 @@ class BertTokenizer:
     """ref tokenization.py:74-154."""
 
     def __init__(self, vocab_file, do_lower_case=True, do_basic_tokenize=True,
-                 never_split=("[UNK]", "[SEP]", "[PAD]", "[CLS]", "[MASK]")):
+                 never_split=("[UNK]", "[SEP]", "[PAD]", "[CLS]", "[MASK]"),
+                 native=True):
         self.vocab = load_vocab(vocab_file)
         self.ids_to_tokens = {v: k for k, v in self.vocab.items()}
         self.do_basic_tokenize = do_basic_tokenize
         if do_basic_tokenize:
             self.basic_tokenizer = BasicTokenizer(do_lower_case, never_split)
         self.wordpiece_tokenizer = WordpieceTokenizer(self.vocab)
+        # ASCII fast path: basic+wordpiece fused in C (csrc/host/
+        # wordpiece.cc), token-for-token identical for pure-ASCII text;
+        # non-ASCII texts (and non-default never_split) take the Python
+        # path below
+        self._native = None
+        if (native and do_basic_tokenize
+                and tuple(never_split) == ("[UNK]", "[SEP]", "[PAD]",
+                                           "[CLS]", "[MASK]")):
+            try:
+                from vlbert_tpu_torch.data.native_tokenizer import (
+                    NativeBertTokenizer)
+
+                self._native = NativeBertTokenizer(self.vocab, do_lower_case)
+            except Exception:   # no toolchain / read-only tree: Python path
+                self._native = None
         # text-level memo: datasets re-tokenize the same words/short phrases
         # constantly (VCR per-word alignment); a dict hit beats BOTH paths
         # (the ctypes call included). Bounded; long texts aren't cached.
@@ -194,7 +212,15 @@ class BertTokenizer:
             hit = self._text_cache.get(text)
             if hit is not None:
                 return list(hit)
-            toks = self._py_tokenize(text)
+            if self._native is not None:
+                ids = self._native.tokenize_ids(text)
+                if ids is not None:
+                    i2t = self.ids_to_tokens
+                    toks = [i2t[i] for i in ids]
+                else:
+                    toks = self._py_tokenize(text)
+            else:
+                toks = self._py_tokenize(text)
             if len(text) < 256 and len(self._text_cache) < 200000:
                 self._text_cache[text] = tuple(toks)
             return toks

@@ -21,7 +21,10 @@ Weights start random (init from RNG_SEED), then take the language (BERT)
 and image (ResNet) warm starts and NETWORK.PARTIAL_PRETRAIN, all on
 reference names, unless a checkpoint will be resumed. TRAIN.RESUME and
 TRAIN.AUTO_RESUME restore weights, optimizer moments and count, the best
-validation metric and the plateau detector. Every CHECKPOINT_FREQUENT
+validation metric and the plateau detector, from the port's checkpoints
+or the JAX package's own (flax msgpack, ``training/jax_format.py``), so
+that a run begun on the TPU goes on here; PARTIAL_PRETRAIN and the warm
+starts read those files too. Every CHECKPOINT_FREQUENT
 epoch and every best-val epoch is saved as ``{prefix}-{epoch:04d}.model``
 (by a background writer under TPU.ASYNC_CHECKPOINT), the best mirrored to
 ``{prefix}-best.model``. ``--do-test`` then scores the best checkpoint
@@ -88,6 +91,7 @@ from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
 from vlbert_tpu_torch.parallel import tp as tp_lib
 from vlbert_tpu_torch.training import checkpoint as ckpt_lib
 from vlbert_tpu_torch.training import convert as cvt
+from vlbert_tpu_torch.training import jax_format
 from vlbert_tpu_torch.training.loop import fit, loss_scale
 from vlbert_tpu_torch.training.optim import Optimizer, apply_trainable_mask
 from vlbert_tpu_torch.utils.misc import summary_parameters
@@ -149,6 +153,47 @@ def segmb_init_surgery(sd, config):
         tt[1] = tt[0]
         sd[key] = tt
     return sd
+
+
+# the MLM prediction transform's flax leaves -> the JAX VQA 'mlm'
+# classifier's (the JAX package's mlm_transform_to_classifier)
+_NATIVE_MLM_TRANSFORM = {
+    "mlm_head.transform.dense.kernel": "final_mlp.transform_dense.kernel",
+    "mlm_head.transform.dense.bias": "final_mlp.transform_dense.bias",
+    "mlm_head.transform.LayerNorm.scale":
+        "final_mlp.transform_LayerNorm.scale",
+    "mlm_head.transform.LayerNorm.bias":
+        "final_mlp.transform_LayerNorm.bias",
+}
+
+
+def native_surgeries(flat, config):
+    """The three PARTIAL_PRETRAIN surgeries above on a JAX-native
+    checkpoint's flax paths (task layout), as the JAX package makes them:
+    the NSP head's row difference into ``final_mlp.dense_1`` (a kernel is
+    [in, out] there), the segment-B row, and the MLM transform into the
+    'mlm' classifier."""
+    flat = dict(flat)
+    net = config.NETWORK
+    wkey = "vlbert.relationship_head.caption_image_relationship.kernel"
+    bkey = "vlbert.relationship_head.caption_image_relationship.bias"
+    if wkey in flat and net.get("LOAD_REL_HEAD", False):
+        w, b = flat[wkey], flat[bkey]
+        flat["final_mlp.dense_1.kernel"] = w[:, 1:2] - w[:, 0:1]
+        flat["final_mlp.dense_1.bias"] = b[1:2] - b[0:1]
+    key = "vlbert.token_type_embeddings.embedding"
+    if net.get("PARTIAL_PRETRAIN_SEGMB_INIT", False) and key in flat:
+        tt = flat[key].clone()
+        tt[1] = tt[0]
+        flat[key] = tt
+    if net.get("CLASSIFIER_PRETRAINED", False) \
+            and net.CLASSIFIER_TYPE == "mlm":
+        for src, dst in _NATIVE_MLM_TRANSFORM.items():
+            for k in (src, "vlbert." + src):
+                if k in flat:
+                    flat[dst] = flat[k]
+                    break
+    return flat
 
 
 def warm_start_paths(config):
@@ -216,21 +261,31 @@ def apply_partial_pretrain(model, config):
     An .npz is already on the model's names and takes none. Then the
     surgeries and, under CLASSIFIER_PRETRAINED with the 'mlm' classifier,
     the MLM transform copied to the classifier, in the JAX package's order.
+    A JAX-native checkpoint (flax paths) takes the surgeries on its flax
+    paths, which still hold the pretraining heads, then the rules
+    translated for flax paths, as the JAX package's
+    ``apply_partial_pretrain`` does (``convert.native_state_dict``).
     Returns (loaded, missing, mismatched) of ``partial_load``, or None."""
     path = config.NETWORK.PARTIAL_PRETRAIN
     if not path:
         return None
     prefix_changes = [tuple(pc.split("->")) for pc in
                       config.NETWORK.PARTIAL_PRETRAIN_PREFIX_CHANGES]
-    sd, raw = cvt.load_state_dict_file(path, model)
-    if raw:
-        sd = cvt.convert_torch_state_dict(
-            cvt.apply_reference_prefix_changes(sd, prefix_changes))
-    sd = nsp_to_binary_classifier_surgery(sd, config)
-    sd = segmb_init_surgery(sd, config)
-    if config.NETWORK.get("CLASSIFIER_PRETRAINED", False) \
-            and config.NETWORK.CLASSIFIER_TYPE == "mlm":
-        sd = cvt.mlm_transform_to_classifier(sd)
+    if cvt.checkpoint_format(path) == "native":
+        sd = cvt.native_state_dict(
+            jax_format.load(path), model, strict=False,
+            prefix_changes=prefix_changes,
+            surgery=lambda flat: native_surgeries(flat, config))
+    else:
+        sd, raw = cvt.load_state_dict_file(path, model)
+        if raw:
+            sd = cvt.convert_torch_state_dict(
+                cvt.apply_reference_prefix_changes(sd, prefix_changes))
+        sd = nsp_to_binary_classifier_surgery(sd, config)
+        sd = segmb_init_surgery(sd, config)
+        if config.NETWORK.get("CLASSIFIER_PRETRAINED", False) \
+                and config.NETWORK.CLASSIFIER_TYPE == "mlm":
+            sd = cvt.mlm_transform_to_classifier(sd)
     report = ckpt_lib.partial_load(model, sd)
     logger.info("partial pretrain %s: loaded %d tensors", path,
                 len(report[0]))

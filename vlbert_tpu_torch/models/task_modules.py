@@ -633,11 +633,13 @@ _IGNORED_KNOBS = {
     # q, k, v and the bias, and rebuilds probs and mask from the seed
     "ATTN_REMAT": "K3/K4 keep only q, k, v and the bias for the backward",
     # XLA compile-time, layout and buffer levers
-    "SCAN_LAYERS": "an XLA layout lever, not ported",
+    "SCAN_LAYERS": "an XLA layout lever, not ported (a JAX checkpoint's "
+                   "stacked layers are read)",
     "ROI_CHUNK": "chunks XLA's ROIAlign intermediate, which K1 has not",
     "DONATE_STATE": "XLA buffer donation",
     "COMPILE_CACHE_DIR": "an XLA compile cache",
-    "MASKED_OPT_STATE": "moments are kept for the trained parameters only",
+    "MASKED_OPT_STATE": "moments are kept for the trained parameters "
+                        "only (a JAX checkpoint's masked moments are read)",
     # device meshes: a model is built whole, on one card; engine.train
     # (--dist) reads them (parallel/dist.py::check_partition), splits the
     # model under PARTITION_MODE tp (parallel/tp.py) and shards it under

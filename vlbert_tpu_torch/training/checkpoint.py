@@ -44,11 +44,24 @@ or sharded. Every layout is reached through the model's partition
 (``dist.partition_of``), whose ``full_state`` and ``load_full_state_``
 these call.
 
-Not ported: ``_reconcile_masked_opt_state`` migrates optax moment trees
-across a format change the port never had (its moments are dense tensors
-keyed by name). The pretraining model's tied MLM decoder is one tensor
-under two names: ``_to_host`` and the partitions' ``full_state`` keep
-it one.
+The pretraining model's tied MLM decoder is one tensor under two names:
+``_to_host`` and the partitions' ``full_state`` keep it one.
+
+``load_checkpoint`` also reads the JAX package's own checkpoints (flax
+msgpack of ``{"params", "opt_state", "step", "extra"}``, told apart by
+content: ``convert.checkpoint_format``), so a run begun on the TPU resumes
+here: ``native_payload`` turns such a file into the port's payload on the
+model's names. The weights go through ``convert.native_state_dict`` (the
+fused qkv, SCAN_LAYERS' stacks and the pretraining model's ``vlbert.bert``
+nesting undone by name); the moments are found by structure in the optax
+chain (AdamW's and Adam's ``mu`` / ``nu``, SGD's momentum ``trace``) and
+mapped by the same rules. Under TPU.MASKED_OPT_STATE the moments sit one
+``inner_state`` level down and a frozen leaf's are an empty map: a
+trained parameter without a moment there starts from zeros, as
+``_reconcile_masked_opt_state`` gives a dense target. ``count`` is the
+file's ``step``, the plateau scale its ``plateau_scale`` leaf, and
+``extra`` (``best_val``, ``plateau``) is read as plain numbers. The port
+still saves its own torch format.
 """
 
 from __future__ import annotations
@@ -62,8 +75,13 @@ import torch
 
 from vlbert_tpu_torch.parallel import dist as dist_lib
 from vlbert_tpu_torch.parallel import fsdp as fsdp_lib
+from vlbert_tpu_torch.training import jax_format
 from vlbert_tpu_torch.training.convert import (apply_reference_prefix_changes,
-                                               reference_name)
+                                               checkpoint_format,
+                                               flatten_tree, moments_from_jax,
+                                               native_state_dict,
+                                               reference_name,
+                                               unstack_layer_params)
 
 logger = logging.getLogger(__name__)
 
@@ -210,14 +228,17 @@ def mirror_best(prefix, epoch_path):
 
 
 def load_checkpoint(path, model=None, optimizer=None):
-    """Read a checkpoint the port wrote. Without ``model`` returns the
-    payload; with it, loads the weights (every key, strictly) and, given
-    ``optimizer``, the optimizer state, and returns the ``extra`` dict.
-    A sharded model: collective, rank 0 alone reads ``path``."""
+    """Read a checkpoint the port or the JAX package wrote. Without
+    ``model`` returns the payload (a JAX file's decoded tree); with it,
+    loads the weights (every key, strictly) and, given ``optimizer``, the
+    optimizer state, and returns the ``extra`` dict. A sharded model:
+    collective, rank 0 alone reads ``path``."""
     wait_for_pending_save()              # read-after-async-write safety
     if model is not None and snapshot_needs_all_ranks(model):
         return _load_sharded(path, model, optimizer)
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if model is None and checkpoint_format(path) == "native":
+        return jax_format.load(path)
+    payload = read_payload(path, model, optimizer)
     if model is None:
         return payload
     model.load_state_dict(payload["state_dict"])
@@ -225,6 +246,98 @@ def load_checkpoint(path, model=None, optimizer=None):
         optimizer.load_state_dict(payload["optimizer"])
         _check_step(path, optimizer, payload["step"])
     return payload.get("extra", {})
+
+
+def read_payload(path, model=None, optimizer=None):
+    """The checkpoint at ``path`` as the port's payload ({"state_dict",
+    "optimizer", "step", "extra"}): a torch file as saved, a JAX-native
+    one through ``native_payload`` onto ``model`` and ``optimizer``."""
+    if checkpoint_format(path) != "native":
+        return torch.load(path, map_location="cpu", weights_only=True)
+    return native_payload(jax_format.load(path), model, optimizer)
+
+
+def native_payload(tree, model, optimizer=None):
+    """A JAX checkpoint's decoded tree -> the port's payload for ``model``
+    (its whole shapes, when its tensors are split across ranks) and
+    ``optimizer`` (None leaves ``optimizer`` None)."""
+    partition = dist_lib.partition_of(model)
+    shapes = {n: partition.full_shape(n, t)
+              for n, t in model.state_dict().items()}
+    step = int(tree["step"])
+    opt = None if optimizer is None else native_optimizer_state(
+        tree["opt_state"], model, optimizer, step)
+    return {"state_dict": native_state_dict(tree, model, shapes=shapes),
+            "optimizer": opt, "step": step,
+            "extra": _plain(tree.get("extra") or {})}
+
+
+def _plain(obj):
+    """Decoded ``extra``: 0-d tensors (numpy scalars in the file) as
+    Python numbers."""
+    if isinstance(obj, torch.Tensor):
+        return obj.item() if obj.dim() == 0 else obj
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_plain(v) for v in obj]
+    return obj
+
+
+def _optax_states(node, masked=False, found=None):
+    """{"adam": (ScaleByAdamState, masked), "trace": (TraceState, masked),
+    "plateau": scale}: what the JAX package's optax chain (saved as
+    {"0": ..., "1": ...}) holds, found by structure; ``masked`` when it
+    sits under ``optax.masked``'s ``inner_state``."""
+    found = {} if found is None else found
+    if not isinstance(node, dict):
+        return found
+    if "mu" in node and "nu" in node:
+        found.setdefault("adam", (node, masked))
+    elif "trace" in node:
+        found.setdefault("trace", (node, masked))
+    else:
+        if "plateau_scale" in node:
+            found.setdefault("plateau", node["plateau_scale"])
+        for k, v in node.items():
+            _optax_states(v, masked or k == "inner_state", found)
+    return found
+
+
+def native_optimizer_state(opt_state, model, optimizer, step):
+    """A JAX checkpoint's ``opt_state`` -> ``optimizer.state_dict()``'s
+    layout: the moments of ``optimizer``'s parameters on their names,
+    ``count`` the file's ``step`` and the plateau scale."""
+    found = _optax_states(opt_state)
+    kind = "trace" if optimizer.kind == "SGD" else "adam"
+    if kind not in found:
+        raise ValueError(
+            f"TRAIN.OPTIMIZER {optimizer.kind}: the JAX checkpoint's "
+            f"optimizer state holds {sorted(set(found) - {'plateau'})} "
+            f"moments, not {kind}'s")
+    node, masked = found[kind]
+    shapes = dict(zip(optimizer.names, optimizer.full_shapes()))
+
+    def moments(tree):
+        flat = unstack_layer_params(flatten_tree(tree))
+        out, missing = moments_from_jax(flat, model, shapes)
+        if missing and not masked:
+            raise KeyError(f"the JAX checkpoint has no moment for "
+                           f"{missing[:5]}")
+        # masked layout: a leaf JAX froze carries no moment
+        for n in missing:
+            out[n] = torch.zeros(shapes[n])
+        return out
+
+    if kind == "adam":
+        if int(node["count"]) != step:
+            raise ValueError(f"JAX checkpoint: Adam count "
+                             f"{int(node['count'])} != step {step}")
+        mu, nu = moments(node["mu"]), moments(node["nu"])
+    else:
+        mu, nu = moments(node["trace"]), None
+    return {"mu": mu, "nu": nu, "count": step,
+            "plateau_scale": float(found.get("plateau", 1.0))}
 
 
 def _check_step(path, optimizer, step):
@@ -248,7 +361,7 @@ def _load_sharded(path, model, optimizer):
     box = {}
 
     def read():                          # rank 0 alone
-        payload = torch.load(path, map_location="cpu", weights_only=True)
+        payload = read_payload(path, model, optimizer)
         sd = payload["state_dict"]
         missing, unexpected = set(targets) - set(sd), set(sd) - set(targets)
         if missing or unexpected:

@@ -17,13 +17,19 @@ changes``, ``convert_bert_checkpoint`` (``bert.*`` / ``roberta.*`` /
 ``cls.*`` to ``vlbert.*`` with the token-type row copy),
 ``convert_raw_resnet_checkpoint`` and ``mlm_transform_to_classifier``.
 Formats read (``load_state_dict_file``): torch (reference ``.model``, raw
-``pytorch_model.bin``, the port's own checkpoints), and the flax-named
-``.npz`` of ``tools/convert_checkpoint.py``, mapped back through the
-inverse rules of ``state_dict_from_jax``. The JAX package's native msgpack
-checkpoints need flax, which the port does not have: that format raises.
-There is no ``stack_layer_params`` or ``fuse_qkv_params``: the port has
-no scan layers and keeps separate query / key / value parameters under
-TPU.FUSED_QKV.
+``pytorch_model.bin``, the port's own checkpoints), the flax-named
+``.npz`` of ``tools/convert_checkpoint.py``, and the JAX package's native
+msgpack checkpoints (``jax_format``, which needs neither flax nor
+msgpack); the last two are mapped back through the inverse rules of
+``state_dict_from_jax``. There is no ``stack_layer_params`` or
+``fuse_qkv_params``: the port has no scan layers and keeps separate query
+/ key / value parameters under TPU.FUSED_QKV, so a native file's stacked
+layers are split (``unstack_layer_params``) and its fused qkv leaf is
+read in thirds. ``native_state_dict`` and ``moments_from_jax`` give a
+native checkpoint's weights and optimizer moments on port names (resume:
+``checkpoint.py``); a native PARTIAL_PRETRAIN takes its prefix changes
+through ``translate_prefix_rules_for_native``, as the JAX package's
+``apply_partial_pretrain`` does.
 
 ``state_dict_from_jax`` turns JAX params into a port ``state_dict``: for
 each port parameter name, ``map_reference_name(normalize_torch_name(name))``
@@ -55,6 +61,8 @@ import zipfile
 
 import numpy as np
 import torch
+
+from vlbert_tpu_torch.training import jax_format
 
 logger = logging.getLogger(__name__)
 
@@ -264,11 +272,14 @@ _QKV = re.compile(r"^(.*attention\.self\.)(query|key|value)\.(kernel|bias)$")
 
 
 def _inverse(arr, transform):
-    arr = np.asarray(arr)
+    """A JAX leaf (numpy array or tensor) in the port's layout."""
+    if not isinstance(arr, torch.Tensor):
+        arr = np.asarray(arr)
     if transform == "linear":         # flax [in, out] -> torch [out, in]
         return arr.T
     if transform == "conv":           # (kh, kw, in, out) -> (out, in, kh, kw)
-        return np.transpose(arr, (3, 2, 0, 1))
+        return (arr.permute(3, 2, 0, 1) if isinstance(arr, torch.Tensor)
+                else np.transpose(arr, (3, 2, 0, 1)))
     if transform == "squeeze0":
         return arr[None]
     return arr
@@ -286,8 +297,11 @@ def _lookup(flat, path, used):
         if fused in flat:
             used.add(fused)
             part = ("query", "key", "value").index(which)
-            return np.split(np.asarray(flat[fused]), 3,
-                            axis=1 if kind == "kernel" else 0)[part]
+            axis = 1 if kind == "kernel" else 0
+            leaf = flat[fused]
+            if isinstance(leaf, torch.Tensor):
+                return torch.chunk(leaf, 3, dim=axis)[part]
+            return np.split(np.asarray(leaf), 3, axis=axis)[part]
     return None
 
 
@@ -299,17 +313,10 @@ def _unnest_vlbert(flat):
             for k, v in flat.items()}
 
 
-def state_dict_from_jax(flat, module, strict=True):
-    """JAX params as a flat {dot.path: np.ndarray} -> the port module's
-    state_dict ({name: torch.Tensor} on the CPU, fp32 as stored).
-
-    Strict (the default): raises on a port parameter with no source, on a
-    shape mismatch and on any JAX leaf left unused. ``strict=False`` returns
-    what it could map and logs the rest (the ``.npz`` loader). A module on
-    the meta device gets meta tensors: the names and shapes are held and
-    nothing is allocated (``flat`` may then hold zero-stride arrays of
-    ``jax.eval_shape``'s shapes).
-    """
+def _map_from_jax(flat, module, targets):
+    """Each of ``targets`` ({port name: (shape, dtype, meta)}) from its
+    JAX leaf, by ``map_reference_name`` and the inverse layout transform.
+    Returns (tensors, used leaves, names with no leaf, shape mismatches)."""
     from vlbert_tpu_torch.models.task_modules import Classifier
     from vlbert_tpu_torch.models.vlbert import TIED_DECODER
 
@@ -318,7 +325,7 @@ def state_dict_from_jax(flat, module, strict=True):
     renames = _MLM_HEAD if isinstance(head, Classifier) \
         and head.kind == "mlm" else ()
     out, used, missing, mismatched = {}, set(), [], []
-    for name, ref in module.state_dict().items():
+    for name, (shape, dtype, meta) in targets.items():
         alias, rationale = _head_alias(normalize_torch_name(
             name.replace(TIED_DECODER, "word_embeddings.weight")))
         mapped = map_reference_name(alias)
@@ -335,18 +342,43 @@ def state_dict_from_jax(flat, module, strict=True):
             missing.append(name)
             continue
         arr = _inverse(arr, transform)
-        if tuple(arr.shape) != tuple(ref.shape):
+        if tuple(arr.shape) != tuple(shape):
             mismatched.append(f"{name}: JAX leaf {path} has shape "
-                              f"{arr.shape} after transform, port expects "
-                              f"{tuple(ref.shape)}")
+                              f"{tuple(arr.shape)} after transform, port "
+                              f"expects {tuple(shape)}")
             continue
-        out[name] = torch.empty(arr.shape, dtype=ref.dtype, device="meta") \
-            if ref.is_meta else torch.tensor(arr, dtype=ref.dtype)
-    unused = sorted(set(flat) - used)
+        if meta:
+            out[name] = torch.empty(arr.shape, dtype=dtype, device="meta")
+        elif isinstance(arr, torch.Tensor):
+            out[name] = torch.empty(arr.shape, dtype=dtype).copy_(arr)
+        else:
+            out[name] = torch.tensor(arr, dtype=dtype)
+    return out, used, missing, mismatched
+
+
+def state_dict_from_jax(flat, module, strict=True, shapes=None):
+    """JAX params as a flat {dot.path: array} (numpy arrays, or tensors
+    as ``jax_format`` reads them) -> the port module's state_dict ({name:
+    torch.Tensor} on the CPU, in the module's dtypes; fp32 leaves into
+    fp32 tensors bit for bit).
+
+    Strict (the default): raises on a port parameter with no source, on a
+    shape mismatch and on any JAX leaf left unused. ``strict=False`` returns
+    what it could map and logs the rest (the ``.npz`` loader). A module on
+    the meta device gets meta tensors: the names and shapes are held and
+    nothing is allocated (``flat`` may then hold zero-stride arrays of
+    ``jax.eval_shape``'s shapes). ``shapes`` ({name: shape}) gives the
+    whole shapes of a module whose tensors are split across ranks.
+    """
+    targets = {name: (tuple(shapes[name]) if shapes else tuple(t.shape),
+                      t.dtype, t.is_meta)
+               for name, t in module.state_dict().items()}
+    out, used, missing, mismatched = _map_from_jax(flat, module, targets)
+    unused = sorted(set(_unnest_vlbert(flat)) - used)
     if not strict:
         if missing or mismatched or unused:
-            logger.info("npz: %d port tensors with no source, %d shape "
-                        "mismatches, %d leaves unused (e.g. %s)",
+            logger.info("JAX leaves: %d port tensors with no source, %d "
+                        "shape mismatches, %d leaves unused (e.g. %s)",
                         len(missing), len(mismatched), len(unused),
                         unused[:5])
         return out
@@ -356,6 +388,108 @@ def state_dict_from_jax(flat, module, strict=True):
         raise KeyError(f"port parameters with no JAX source: {missing}")
     if unused:
         raise KeyError(f"JAX leaves not used by the port: {unused}")
+    return out
+
+
+def moments_from_jax(flat, module, shapes):
+    """An optimizer moment tree of the JAX package (flat, on the params'
+    paths) -> {port parameter name: fp32 tensor} for the names of
+    ``shapes`` ({name: whole shape}), and the names it has no leaf for.
+    Leaves of parameters the port does not train are left unused."""
+    targets = {n: (tuple(shape), torch.float32, False)
+               for n, shape in shapes.items()}
+    out, _, missing, mismatched = _map_from_jax(flat, module, targets)
+    if mismatched:
+        raise ValueError(mismatched[0])
+    return out, missing
+
+
+# ------------------------------------------------ JAX-native checkpoints
+
+def flatten_tree(tree, prefix=""):
+    """A nested dict -> {dot.path: leaf}; an empty dict (optax's
+    MaskedNode: a frozen leaf's moment in the masked layout) holds no
+    leaf."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+_STACKED = re.compile(r"^(.*?)layers\.layer\.(.*)$")
+
+
+def unstack_layer_params(flat):
+    """The inverse of the JAX package's ``stack_layer_params``
+    (TPU.SCAN_LAYERS): each ``...layers.layer.<rest>`` leaf with a leading
+    [num_layers] axis becomes ``...layer_{i}.<rest>``."""
+    out = {}
+    for k, v in flat.items():
+        m = _STACKED.match(k)
+        if not m:
+            out[k] = v
+            continue
+        prefix, rest = m.groups()
+        for i in range(v.shape[0]):
+            out[f"{prefix}layer_{i}.{rest}"] = v[i]
+    return out
+
+
+def native_params(payload):
+    """The JAX checkpoint's weights as a flat {flax.dot.path: tensor} in
+    the per-layer layout: the ``params`` collection unwrapped (as
+    ``load_torch_or_native_checkpoint`` does) and SCAN_LAYERS' stacks
+    split. The fused qkv and the pretraining model's ``vlbert.bert.``
+    nesting are undone by name in ``state_dict_from_jax``."""
+    params = payload["params"]
+    return unstack_layer_params(flatten_tree(params.get("params", params)))
+
+
+def native_state_dict(payload, module, strict=True, shapes=None,
+                      prefix_changes=(), surgery=None):
+    """A JAX-native checkpoint's payload (``jax_format.load``) -> the
+    port module's state_dict. ``prefix_changes`` are the reference-era
+    PARTIAL_PRETRAIN rules, translated for flax paths
+    (``translate_prefix_rules_for_native``) and applied after
+    ``surgery`` (a function of the flat task-layout tree), in the JAX
+    package's order."""
+    flat = _unnest_vlbert(native_params(payload))
+    if surgery is not None:
+        flat = surgery(flat)
+    # first matching rule wins, as in the JAX package's partial_load
+    flat = apply_reference_prefix_changes(
+        flat, translate_prefix_rules_for_native(prefix_changes))
+    return state_dict_from_jax(flat, module, strict=strict, shapes=shapes)
+
+
+# reference-era prefix rules -> the JAX package's flax naming, for prefix
+# changes applied to NATIVE checkpoints (whose keys are already flax paths).
+# The DDP/TimeDistributed renames are identities here (normalize_torch_name
+# collapses them); the mvrc->cnn_loss_reg remap translates submodule paths.
+_NATIVE_RULE_TRANSLATION = {
+    ("vlbert", "vlbert._module"): None,                      # identity
+    ("vlbert.mvrc_head.transform", "cnn_loss_reg.0"):
+        ("vlbert.mvrc_head.transform_dense", "cnn_loss_reg_transform.dense"),
+}
+
+
+def translate_prefix_rules_for_native(prefix_changes):
+    """Translate reference-era PARTIAL_PRETRAIN_PREFIX_CHANGES for use on a
+    native (flax-named) checkpoint. Unknown rules pass through verbatim
+    (assumed already written in flax naming)."""
+    out = []
+    for old, new in prefix_changes:
+        o = old[len("module."):] if old.startswith("module.") else old
+        n = new[len("module."):] if new.startswith("module.") else new
+        if (o, n) in _NATIVE_RULE_TRANSLATION:
+            tr = _NATIVE_RULE_TRANSLATION[(o, n)]
+            if tr is not None and tr not in out:
+                out.append(tr)
+        elif (o, n) not in out:
+            out.append((o, n))
     return out
 
 
@@ -518,18 +652,17 @@ def load_npz_checkpoint(path):
 def load_state_dict_file(path, module):
     """A checkpoint file -> (state_dict, raw): ``raw`` is True for a torch
     file, whose names are still the file's own (prefix changes apply to
-    them), False for an ``.npz``, already mapped onto ``module``'s names.
-    The JAX package's native msgpack format raises ValueError."""
+    them), False for an ``.npz`` or a JAX-native msgpack checkpoint,
+    already mapped onto ``module``'s names (what the module has no name
+    for is left out)."""
     fmt = checkpoint_format(path)
     if fmt == "torch":
         return load_torch_blob(path), True
     if fmt == "npz":
         return state_dict_from_jax(load_npz_checkpoint(path), module,
                                    strict=False), False
-    raise ValueError(
-        f"{path}: checkpoint format {fmt!r} (the JAX package's flax msgpack "
-        f"save) cannot be read without flax; convert it with "
-        f"tools/convert_checkpoint.py to .npz, or save a torch checkpoint")
+    return native_state_dict(jax_format.load(path), module,
+                             strict=False), False
 
 
 _MLM_TRANSFORM = {
